@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's flagship DQN trainer spends its time on one
+NVIDIA GPU (the port's counterpart of bench_profile.py).
+
+    python3 bench_torch_profile.py
+
+Builds the flagship trainer of chip_smoke.py (full width, bf16), warms
+it up for two iterations, then measures:
+  - host wall time of one iteration split into collect and optimize,
+    each ended by a device sync (median of 3);
+  - host wall time per replay sample (sample_idxs + extract_batch,
+    including the frame-gather kernel) and per gradient update;
+  - a torch.profiler trace of one iteration: device busy time (sum of
+    kernel, copy and set times), the idle share of the iteration's wall
+    time under the profiler, the number of device operations, and the
+    top device operations by time.
+Prints one JSON line; the profiler table goes to
+chiprun_out/profile_table.txt.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+
+def wall(fn, sync=True):
+    t0 = time.perf_counter()
+    out = fn()
+    if sync:
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("bench_torch_profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from chip_smoke import B, T, build_flagship_runner
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    runner = build_flagship_runner(dev, n_itr=10)
+    runner.startup()
+    algo, coll = runner.algo, runner.collector
+    for _ in range(2):
+        runner.run_interval()
+    torch.cuda.synchronize()
+
+    collect_s, optimize_s = [], []
+    for _ in range(3):
+        dt, (state, samples) = wall(lambda: coll.collect(
+            runner.rollout_state, runner.env_generator))
+        runner.rollout_state = state
+        collect_s.append(dt)
+        dt, _ = wall(lambda: algo.optimize(samples, state.cum_steps))
+        optimize_s.append(dt)
+
+    n = 64
+    dt_sample, batches = wall(lambda: [
+        algo.replay.sample(algo.batch_size, algo.generator)
+        for _ in range(n)])
+    dt_update, _ = wall(lambda: [algo.update(b) for b in batches])
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dt_itr, _ = wall(runner.run_interval)
+    # Device operations only: kernels, copies and sets.  User
+    # annotations (e.g. Optimizer.step) also carry device time and
+    # would count it twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "profile_table.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "env_steps_per_iteration": T * B,
+        "updates_per_iteration": algo.updates_per_optimize,
+        "collect_ms": 1e3 * statistics.median(collect_s),
+        "optimize_ms": 1e3 * statistics.median(optimize_s),
+        "sample_ms_per_batch": 1e3 * dt_sample / n,
+        "update_ms": 1e3 * dt_update / n,
+        "profiled_iteration_ms": 1e3 * dt_itr,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / dt_itr,
+        "device_ops": sum(e.count for e in events),
+        "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                              for e in top},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""DQN (port of rlpyt_tpu/algos/dqn.py) on frame-compressed uniform replay.
+
+Per iteration: append the [T, B] batch to replay, then, once
+``min_steps_learn`` env steps have been taken, ``updates_per_optimize``
+updates of sample -> TD loss -> grad -> clip -> Adam -> target rule.
+"""
+from __future__ import annotations
+
+import copy
+from typing import NamedTuple
+
+import torch
+
+from rlpyt_tpu_torch.algos.base import RlAlgorithm, clip_by_global_norm_
+from rlpyt_tpu_torch.ops.value import huber_loss, polyak_update
+from rlpyt_tpu_torch.replay.base import SamplesFromReplay, SamplesToBuffer
+from rlpyt_tpu_torch.replay.frame import UniformFrameReplayBuffer
+from rlpyt_tpu_torch.struct import select_at_indexes, valid_mean
+
+
+class OptInfo(NamedTuple):
+    loss: torch.Tensor
+    grad_norm: torch.Tensor
+    td_abs_err: torch.Tensor
+
+
+class DQN(RlAlgorithm):
+    def __init__(
+        self,
+        discount: float = 0.99,
+        batch_size: int = 32,
+        min_steps_learn: int = int(5e4),
+        delta_clip: float = 1.0,
+        replay_size: int = int(1e6),
+        replay_ratio: float = 8.0,
+        target_update_interval: int = 312,
+        target_update_tau: float = 1.0,
+        n_step_return: int = 1,
+        learning_rate: float = 2.5e-4,
+        clip_grad_norm: float = 10.0,
+        double_dqn: bool = False,
+        frames_per_obs: int = 4,
+    ):
+        self.discount = discount
+        self.batch_size = batch_size
+        self.min_steps_learn = min_steps_learn
+        self.delta_clip = delta_clip
+        self.replay_size = replay_size
+        self.replay_ratio = replay_ratio
+        self.target_update_interval = target_update_interval
+        self.target_update_tau = target_update_tau
+        self.n_step = n_step_return
+        self.learning_rate = learning_rate
+        self.clip_grad_norm = clip_grad_norm
+        self.double_dqn = double_dqn
+        self.frames_per_obs = frames_per_obs
+
+    def initialize(self, agent, batch_spec, example_obs, generator):
+        """Target network, optimizer and replay.  ``example_obs``: one
+        [B, K, H, W] batch of observations."""
+        self.agent = agent
+        self.model = agent.model
+        self.target_model = copy.deepcopy(agent.model)
+        self.target_model.requires_grad_(False)
+        self.generator = generator
+        self.updates_per_optimize = max(
+            1, int(self.replay_ratio * batch_spec.size / self.batch_size))
+        # rlpyt's Adam epsilon, 0.01 / batch_size.
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=self.learning_rate,
+            eps=0.01 / self.batch_size)
+        self.update_counter = 0
+        self.replay = UniformFrameReplayBuffer(
+            size=self.replay_size, B=batch_spec.B, sample_T=batch_spec.T,
+            discount=self.discount, n_step_return=self.n_step,
+            frames_per_obs=self.frames_per_obs, device=agent.device)
+        space = agent.env_spaces.action
+        dev = agent.device
+        self.replay.init(SamplesToBuffer(
+            observation=example_obs[0],
+            action=space.null_value(dev),
+            reward=torch.zeros((), device=dev),
+            done=torch.zeros((), dtype=torch.bool, device=dev),
+            timeout=torch.zeros((), dtype=torch.bool, device=dev)))
+
+    def samples_to_buffer(self, samples) -> SamplesToBuffer:
+        timeout = samples.env_info.get("timeout",
+                                       torch.zeros_like(samples.done))
+        return SamplesToBuffer(samples.observation, samples.action,
+                               samples.reward, samples.done, timeout)
+
+    def loss(self, batch: SamplesFromReplay):
+        """TD loss; returns (scalar loss, |delta| per sample)."""
+        qs = self.agent.q(*batch.agent_inputs)
+        q = select_at_indexes(batch.action, qs)
+        with torch.no_grad():
+            target_qs = self.target_model(*batch.target_inputs)
+            if self.double_dqn:
+                next_a = torch.argmax(self.agent.q(*batch.target_inputs), -1)
+                next_q = select_at_indexes(next_a, target_qs)
+            else:
+                next_q = target_qs.max(-1).values
+            disc = self.discount ** self.n_step
+            y = batch.return_ + disc * (
+                1.0 - batch.done_n.to(torch.float32)) * next_q
+        delta = y - q
+        losses = huber_loss(delta, self.delta_clip)
+        # Time-limit truncations have no valid bootstrap obs: mask them.
+        valid = 1.0 - batch.timeout_n.to(torch.float32)
+        losses = losses * batch.is_weights * valid
+        td_abs = delta.detach().abs() * valid
+        return valid_mean(losses, valid), td_abs
+
+    def update(self, batch: SamplesFromReplay) -> OptInfo:
+        """One gradient step on ``batch`` plus the target rule."""
+        loss, td_abs = self.loss(batch)
+        self.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        grads = [p.grad for p in self.model.parameters()]
+        grad_norm = clip_by_global_norm_(grads, self.clip_grad_norm)
+        self.optimizer.step()
+        self.update_counter += 1
+        if self.target_update_tau < 1.0:
+            polyak_update(self.target_model, self.model,
+                          self.target_update_tau)
+        elif self.update_counter % self.target_update_interval == 0:
+            polyak_update(self.target_model, self.model, 1.0)
+        return OptInfo(loss.detach(), grad_norm, td_abs.mean())
+
+    def optimize(self, samples, cum_steps: int) -> OptInfo:
+        """Append, then maybe ``updates_per_optimize`` updates.  Returns
+        the mean OptInfo as device scalars (zeros before learning
+        starts, as the JAX package reports)."""
+        self.replay.append(self.samples_to_buffer(samples))
+        if cum_steps < self.min_steps_learn:
+            zero = torch.zeros((), device=self.agent.device)
+            return OptInfo(zero, zero, zero)
+        infos = []
+        for _ in range(self.updates_per_optimize):
+            batch = self.replay.sample(self.batch_size, self.generator)
+            infos.append(self.update(batch))
+        return OptInfo(*(torch.stack(x).mean() for x in zip(*infos)))

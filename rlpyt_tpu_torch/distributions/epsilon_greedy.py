@@ -1,0 +1,19 @@
+"""Epsilon-greedy action selection (port of
+rlpyt_tpu/distributions/epsilon_greedy.py:EpsilonGreedy)."""
+from __future__ import annotations
+
+import torch
+
+
+class EpsilonGreedy:
+    def sample(self, q: torch.Tensor, epsilon, generator: torch.Generator
+               ) -> torch.Tensor:
+        """q: [..., A]; epsilon: a float or a tensor broadcastable to
+        q.shape[:-1].  Returns int64 actions."""
+        greedy = torch.argmax(q, dim=-1)
+        shape, dev = greedy.shape, generator.device
+        rand = torch.randint(0, q.shape[-1], shape, generator=generator,
+                             device=dev).to(q.device)
+        explore = torch.rand(shape, generator=generator,
+                             device=dev).to(q.device) < epsilon
+        return torch.where(explore, rand, greedy)
