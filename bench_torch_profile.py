@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's flagship DQN trainer spends its time on one
-NVIDIA GPU (the port's counterpart of bench_profile.py).
+"""Where the PyTorch port's trainers spend their time on one NVIDIA GPU
+(the port's counterpart of bench_profile.py).
 
-    python3 bench_torch_profile.py
+    python3 bench_torch_profile.py           # flagship Nature-CNN DQN
+    python3 bench_torch_profile.py --r2d1    # Atari-geometry R2D1
 
-Builds the flagship trainer of chip_smoke.py (full width, bf16), warms
-it up for two iterations, then measures:
+Builds the trainer of chip_smoke.py (full width, bf16), warms it up
+(DQN: two iterations; R2D1: three, the third being the first with
+updates), then measures:
   - host wall time of one iteration split into collect and optimize,
     each ended by a device sync (median of 3);
-  - host wall time per replay sample (sample_idxs + extract_batch,
-    including the frame-gather kernel) and per gradient update;
+  - host wall time per replay sample (DQN: sample_idxs + extract_batch,
+    including the frame-gather kernel; R2D1: sample_idxs +
+    extract_window) and per gradient update (R2D1: including the
+    priority write-back);
   - a torch.profiler trace of one iteration: device busy time (sum of
     kernel, copy and set times), the idle share of the iteration's wall
     time under the profiler, the number of device operations, and the
     top device operations by time.
 Prints one JSON line; the profiler table goes to
-chiprun_out/profile_table.txt.  Needs a CUDA device.
+chiprun_out/profile_table[_r2d1].txt.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -42,15 +46,22 @@ def main():
         print("bench_torch_profile: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from chip_smoke import B, T, build_flagship_runner
+    import chip_smoke as cs
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
-    runner = build_flagship_runner(dev, n_itr=10)
+    r2d1 = "--r2d1" in sys.argv[1:]
+    if r2d1:
+        runner = cs.build_r2d1_runner(dev, n_itr=20)
+        steps, warmup, suffix = cs.R2D1_T * cs.R2D1_B, 3, "_r2d1"
+    else:
+        runner = cs.build_flagship_runner(dev, n_itr=10)
+        steps, warmup, suffix = cs.T * cs.B, 2, ""
     runner.startup()
     algo, coll = runner.algo, runner.collector
-    for _ in range(2):
+    batch_size = algo.batch_b if r2d1 else algo.batch_size
+    for _ in range(warmup):
         runner.run_interval()
     torch.cuda.synchronize()
 
@@ -65,7 +76,7 @@ def main():
 
     n = 64
     dt_sample, batches = wall(lambda: [
-        algo.replay.sample(algo.batch_size, algo.generator)
+        algo.replay.sample(batch_size, algo.generator)
         for _ in range(n)])
     dt_update, _ = wall(lambda: [algo.update(b) for b in batches])
 
@@ -83,8 +94,9 @@ def main():
                  reverse=True)[:12]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "profile_table.txt").write_text(prof.key_averages().table(
-        sort_by="self_device_time_total", row_limit=60))
+    (out_dir / f"profile_table{suffix}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=60))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -93,7 +105,8 @@ def main():
     print(smi.splitlines()[0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "env_steps_per_iteration": T * B,
+        "trainer": "r2d1" if r2d1 else "dqn",
+        "env_steps_per_iteration": steps,
         "updates_per_iteration": algo.updates_per_optimize,
         "collect_ms": 1e3 * statistics.median(collect_s),
         "optimize_ms": 1e3 * statistics.median(optimize_s),

@@ -4,16 +4,28 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the CUDA frame-gather kernel from rlpyt_tpu_torch/csrc;
-  2. hold it against its plain PyTorch version on the card, bit-exact, at
-     the flagship replay shapes (ring [1568, 128, 8320] u8, batch 256,
-     K=4, n=1, wrap-around starts) and on ragged / unaligned rows;
-  3. time the kernel, the plain version and one indexed PyTorch call
-     with CUDA events;
+  1. build the CUDA kernels from rlpyt_tpu_torch/csrc (frame_gather.cu
+     and lstm.cu, one nvcc each, in parallel);
+  2. hold the frame gather against its plain PyTorch version on the card,
+     bit-exact, at the flagship replay shapes (ring [1568, 128, 8320] u8,
+     batch 256, K=4, n=1, wrap-around starts) and on ragged / unaligned
+     rows;
+  3. time it, its plain version and one indexed PyTorch call with CUDA
+     events;
   4. train the flagship Nature-CNN DQN (bench_atari.py:157-175 settings,
      bf16, full width) for a few iterations through MinibatchRl, check
      the losses are finite, that every replay sample went through the
-     kernel, and that the card's replay batches equal the CPU path's.
+     kernel, and that the card's replay batches equal the CPU path's;
+  5. hold the LSTM kernels (K3a input projection, K3 forward, K4
+     backward) and the autograd Function against their plain versions,
+     TF32 off, at R2D1's shapes (F=6919, H=512; (T, B) = (45, 32),
+     (20, 32), (1, 64)) and two ragged cases, with random dones;
+  6. time each LSTM kernel at the update's shapes beside its plain
+     version, its bound and one library call (addmm; cuDNN's LSTM);
+  7. train the Atari R2D1 configuration (bench_r2d1.py:68-104, first
+     geometry) for 6 iterations through MinibatchRl, check finite
+     losses and priorities, the LSTM launch counts, and that the card's
+     sequence windows equal the CPU path's.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -33,8 +45,12 @@ from pathlib import Path
 import torch
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12       # H100 SXM fp32 rate outside the tensor cores
 N_ITR = 4                    # trainer iterations; the first one warms up
 B, T = 128, 32               # flagship env lanes and steps per iteration
+LSTM_F, LSTM_H = 6919, 512   # R2D1's LSTM input (conv 6912 + 6 + 1), size
+R2D1_ITR = 6                 # R2D1 iterations; updates start in the third
+R2D1_B, R2D1_T = 64, 40      # R2D1 env lanes and steps per iteration
 
 
 def fail(msg: str):
@@ -152,6 +168,168 @@ def time_gather(fg, g, dev):
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bytes": n_bytes}
 
 
+def lstm_case(g, T, B, F, H, dev):
+    """Random LSTM inputs with random dones; weights scaled so the gate
+    pre-activations are O(1)."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    return dict(
+        wx=randn(F, 4 * H, scale=F ** -0.5), wh=randn(H, 4 * H,
+                                                     scale=H ** -0.5),
+        b=randn(4 * H, scale=0.1), x=randn(T, B, F),
+        done=torch.rand((T, B), generator=g, device=dev) < 0.1,
+        h0=randn(B, H, scale=0.5), c0=randn(B, H, scale=0.5))
+
+
+def rel_err(out, ref) -> tuple:
+    """(max |out - ref|, that over max |ref|)."""
+    err = float((out - ref).abs().max())
+    return err, err / max(float(ref.abs().max()), 1e-30)
+
+
+def check_lstm(L, g, dev):
+    """Phase 5: K3a, K3 and K4 against their plain versions on the card,
+    and the autograd Function's grads against autograd through the plain
+    forward.  fp32 with TF32 off on both sides; the kernels sum in
+    another order than cuBLAS, so forward results must agree to 1e-4 of
+    the largest reference value and backward results (a 45-step reverse
+    recurrence) to 1e-3.  Returns the max abs error of each kernel."""
+    worst = {"lstm_input_proj": 0.0, "lstm_fwd": 0.0, "lstm_bwd": 0.0}
+
+    def hold(kernel, what, out, ref, tol):
+        err, rel = rel_err(out, ref)
+        if not (rel <= tol) or out.shape != ref.shape:
+            fail(f"{kernel} differs from plain ({what}): max err {err:.3g}"
+                 f" = {rel:.3g} of max|ref|, tolerance {tol:g}")
+        worst[kernel] = max(worst[kernel], err)
+
+    # R2D1's shapes, then ragged ones: H = 102 leaves the last CTA two
+    # live units; B = 37 spans two passes of the warps, the second ragged.
+    cases = [(45, 32, LSTM_F, LSTM_H), (20, 32, LSTM_F, LSTM_H),
+             (1, 64, LSTM_F, LSTM_H), (7, 3, 130, 100), (3, 37, 33, 102)]
+    for T, B, F, H in cases:
+        name = f"T={T} B={B} F={F} H={H}"
+        a = lstm_case(g, T, B, F, H, dev)
+        mask = (~a["done"]).float()
+        x2 = a["x"].view(T * B, F)
+        xg = L.input_proj_plain(x2, a["wx"], a["b"])
+        hold("lstm_input_proj", name, L.input_proj(x2, a["wx"], a["b"]),
+             xg, 1e-4)
+        xg = xg.view(T, B, 4 * H)
+        ref = L.lstm_fwd_plain(xg, a["wh"], mask, a["h0"], a["c0"])
+        out = L.lstm_fwd(xg, a["wh"], mask, a["h0"], a["c0"])
+        for what, o, r in zip(("y", "gates", "c", "hT", "cT"), out, ref):
+            hold("lstm_fwd", f"{name} {what}", o, r, 1e-4)
+        _, gates, cs, _, _ = ref
+        dy = torch.randn((T, B, H), generator=g, device=dev)
+        dcT = torch.randn((B, H), generator=g, device=dev)
+        ref = L.lstm_bwd_plain(gates, cs, a["c0"], mask, a["wh"], dy, dcT)
+        out = L.lstm_bwd(gates, cs, a["c0"], mask, a["wh"], dy, dcT)
+        for what, o, r in zip(("dgates", "dh0", "dc0"), out, ref):
+            hold("lstm_bwd", f"{name} {what}", o, r, 1e-3)
+
+        # The autograd Function (kernels) against autograd through the
+        # plain forward.
+        names = ("wx", "wh", "b", "x", "h0", "c0")
+        leaves = {k: a[k].clone().requires_grad_(True) for k in names}
+        cot = [torch.randn(s, generator=g, device=dev)
+               for s in ((T, B, H), (B, H), (B, H))]
+
+        def objective(y, hT, cT):
+            return sum((o * c).sum() for o, c in zip((y, hT, cT), cot))
+
+        y, (hT, cT) = L.lstm(leaves["wx"], leaves["wh"], leaves["b"],
+                             leaves["x"], a["done"], leaves["h0"],
+                             leaves["c0"])
+        got = torch.autograd.grad(objective(y, hT, cT),
+                                  [leaves[k] for k in names])
+        xg = L.input_proj_plain(leaves["x"].view(T * B, F), leaves["wx"],
+                                leaves["b"]).view(T, B, 4 * H)
+        y, _, _, hT, cT = L.lstm_fwd_plain(xg, leaves["wh"], mask,
+                                           leaves["h0"], leaves["c0"])
+        want = torch.autograd.grad(objective(y, hT, cT),
+                                   [leaves[k] for k in names])
+        for k, o, r in zip(names, got, want):
+            hold("lstm_bwd", f"{name} d{k} (autograd)", o, r, 1e-3)
+        print(f"lstm check {name}: kernels agree with plain")
+    return worst
+
+
+def time_lstm(L, g, dev):
+    """Phase 6: each LSTM kernel at the update's shapes (T=45, B=32,
+    F=6919, H=512) beside its plain version, its bound and one library
+    call, by CUDA events."""
+    T, B, F, H = 45, 32, LSTM_F, LSTM_H
+    a = lstm_case(g, T, B, F, H, dev)
+    mask = (~a["done"]).float()
+    x2 = a["x"].view(T * B, F)
+    xg = L.input_proj_plain(x2, a["wx"], a["b"]).view(T, B, 4 * H)
+    _, gates, cs, _, _ = L.lstm_fwd_plain(xg, a["wh"], mask, a["h0"],
+                                          a["c0"])
+    dy = torch.randn((T, B, H), generator=g, device=dev)
+    dcT = torch.randn((B, H), generator=g, device=dev)
+    fwd_args = (xg, a["wh"], mask, a["h0"], a["c0"])
+    bwd_args = (gates, cs, a["c0"], mask, a["wh"], dy, dcT)
+
+    # cuDNN's LSTM with the same weights (gate order i, f, g, o), no dones.
+    # It also computes the input projection (forward) and the weight and
+    # input gradients (backward): more work than K3 and K4 alone.
+    cudnn = torch.nn.LSTM(F, H).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(a["wx"].T)
+        cudnn.weight_hh_l0.copy_(a["wh"].T)
+        cudnn.bias_ih_l0.copy_(a["b"])
+        cudnn.bias_hh_l0.zero_()
+    x_leaf = a["x"].clone().requires_grad_(True)
+    state = (a["h0"][None], a["c0"][None])
+    out, _ = cudnn(x_leaf, state)
+    cudnn_params = [x_leaf] + list(cudnn.parameters())
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            cudnn(a["x"], state)
+
+    def cudnn_bwd():
+        torch.autograd.grad(out, cudnn_params, dy, retain_graph=True)
+
+    res = {
+        "lstm_input_proj": dict(
+            ms=time_ms(lambda: L.input_proj(x2, a["wx"], a["b"]), 20),
+            plain_ms=time_ms(lambda: L.input_proj_plain(x2, a["wx"],
+                                                        a["b"]), 20),
+            library_ms=time_ms(lambda: torch.addmm(a["b"], x2, a["wx"]),
+                               20),
+            ops=2 * T * B * F * 4 * H,
+            bytes=4 * (T * B * F + F * 4 * H + 4 * H + T * B * 4 * H)),
+        "lstm_fwd": dict(
+            ms=time_ms(lambda: L.lstm_fwd(*fwd_args), 20),
+            plain_ms=time_ms(lambda: L.lstm_fwd_plain(*fwd_args), 10),
+            library_ms=time_ms(cudnn_fwd, 10),
+            # h @ W_h, plus ~10 operations per cell for the gates
+            ops=2 * T * B * H * 4 * H + 10 * T * B * H,
+            # xg, W_h, mask, h0, c0 in; y, gates, c, hT, cT out
+            bytes=4 * (T * B * 4 * H + H * 4 * H + T * B + 2 * B * H
+                       + T * B * (H + 4 * H + H) + 2 * B * H)),
+        "lstm_bwd": dict(
+            ms=time_ms(lambda: L.lstm_bwd(*bwd_args), 20),
+            plain_ms=time_ms(lambda: L.lstm_bwd_plain(*bwd_args), 10),
+            library_ms=time_ms(cudnn_bwd, 10),
+            # dgates @ W_h^T, plus ~20 operations per cell
+            ops=2 * T * B * 4 * H * H + 20 * T * B * H,
+            # gates, c, c0, mask, W_h, dy, dcT in; dgates, dh0, dc0 out
+            bytes=4 * (T * B * 4 * H + T * B * H + B * H + T * B
+                       + H * 4 * H + T * B * H + B * H
+                       + T * B * 4 * H + 2 * B * H)),
+    }
+    for r in res.values():
+        t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return res
+
+
 def build_flagship_runner(dev, n_itr: int, logger=None):
     """The flagship Nature-CNN DQN trainer of bench_atari.py:139-176
     (B=128, T=32, update batch 256, replay ratio 8, replay 200k, bf16,
@@ -173,9 +351,8 @@ def build_flagship_runner(dev, n_itr: int, logger=None):
                        log_interval_steps=T * B, logger=logger, device=dev)
 
 
-def run_trainer(dev):
-    """Phase 4: the flagship trainer through MinibatchRl."""
-    from rlpyt_tpu_torch.ops import frame_gather as fg
+def row_logger():
+    """A TabularLogger that keeps each logged row instead of printing it."""
     from rlpyt_tpu_torch.utils.logging import TabularLogger
 
     class RowLogger(TabularLogger):
@@ -187,10 +364,19 @@ def run_trainer(dev):
             self.rows.append(dict(self._tabular))
             super().dump_tabular(print_fn=None)
 
-    logger = RowLogger()
+    return RowLogger()
+
+
+def run_trainer(dev):
+    """Phase 4: the flagship trainer through MinibatchRl."""
+    from rlpyt_tpu_torch.ops import frame_gather as fg
+    from rlpyt_tpu_torch.ops import lstm as L
+
+    logger = row_logger()
     runner = build_flagship_runner(dev, N_ITR, logger)
     algo = runner.algo
-    fg.gather_frame_stacks.launches = 0
+    for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd):
+        fn.launches = 0
     runner.train()
     torch.cuda.synchronize()
     launches = fg.gather_frame_stacks.launches
@@ -211,6 +397,106 @@ def run_trainer(dev):
               f"env-steps/s {r['StepsPerSecond']:.1f} "
               f"updates/s {r['UpdatesPerSecond']:.1f}")
     return runner, launches, sps
+
+
+def build_r2d1_runner(dev, n_itr: int, logger=None):
+    """The Atari-geometry R2D1 trainer of bench_r2d1.py:68-104 at its first
+    geometry (:136): Nature-CNN 104x80x4 -> LSTM 512 -> dueling Q, bf16
+    convs and heads, B=64, T=40, 32 windows of 20 burn-in + 40 training
+    + 5 n-step rows, prioritized frame-compressed sequence replay of 100k,
+    replay ratio 1 (2 updates per iteration).  One cut: learning starts
+    at 3*T*B env steps instead of 0, when the first whole windows exist."""
+    from rlpyt_tpu_torch.agents.dqn import R2d1Agent
+    from rlpyt_tpu_torch.algos.r2d1 import R2D1
+    from rlpyt_tpu_torch.envs.synthetic_atari import SyntheticAtariEnv
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    agent = R2d1Agent(model_kwargs=dict(compute_dtype=torch.bfloat16),
+                      eps_steps=250_000, eps_final=0.1, eps_final_min=0.0005,
+                      lstm_size=LSTM_H, device=dev)
+    algo = R2D1(discount=0.997, batch_b=32, batch_T=R2D1_T, warmup_T=20,
+                min_steps_learn=3 * R2D1_T * R2D1_B, replay_size=100_000,
+                replay_ratio=1.0, target_update_interval=1_000,
+                learning_rate=1e-4, double_dqn=True, prioritized_replay=True,
+                frame_compress=True, frames_per_obs=4, input_priorities=True)
+    return MinibatchRl(algo, agent, SyntheticAtariEnv(dev),
+                       BatchSpec(T=R2D1_T, B=R2D1_B),
+                       n_steps=n_itr * R2D1_T * R2D1_B, seed=0,
+                       log_interval_steps=R2D1_T * R2D1_B, logger=logger,
+                       device=dev)
+
+
+def run_r2d1(L, dev):
+    """Phase 7: the R2D1 trainer through MinibatchRl.  Checks finite
+    losses and priorities and that every LSTM call of the run went
+    through the kernels: per iteration T collection steps (one K3a and
+    one K3 launch each), per update 4 forward calls (online and target,
+    burn-in and training window) and one backward (K4)."""
+    from rlpyt_tpu_torch.ops import frame_gather as fg
+
+    logger = row_logger()
+    runner = build_r2d1_runner(dev, R2D1_ITR, logger)
+    algo = runner.algo
+    for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd):
+        fn.launches = 0
+    runner.train()
+    torch.cuda.synchronize()
+    launches = {"lstm_input_proj": L.input_proj.launches,
+                "lstm_fwd": L.lstm_fwd.launches,
+                "lstm_bwd": L.lstm_bwd.launches}
+    updates = algo.update_counter
+    learning_itrs = sum(1 for i in range(1, R2D1_ITR + 1)
+                        if i * R2D1_T * R2D1_B >= algo.min_steps_learn)
+    if updates != learning_itrs * algo.updates_per_optimize or updates == 0:
+        fail(f"R2D1 ran {updates} updates, expected "
+             f"{learning_itrs * algo.updates_per_optimize}")
+    want = {"lstm_input_proj": R2D1_ITR * R2D1_T + 4 * updates,
+            "lstm_fwd": R2D1_ITR * R2D1_T + 4 * updates,
+            "lstm_bwd": updates}
+    if launches != want:
+        fail(f"LSTM launches {launches}, expected {want}")
+    if fg.gather_frame_stacks.launches != 0:
+        fail("R2D1's sequence replay launched the frame-gather kernel")
+    for row in logger.rows[-(learning_itrs):]:
+        for key in ("loss", "grad_norm", "td_abs_err"):
+            if not (math.isfinite(row[key]) and row[key] > 0):
+                fail(f"R2D1 {key} = {row[key]} in iteration "
+                     f"{row['Iteration']}")
+    replay = algo.replay
+    if not (torch.isfinite(replay.priorities).all()
+            and torch.isfinite(replay.max_priority)):
+        fail("non-finite priority in R2D1's replay")
+    for r in logger.rows:
+        print(f"r2d1 itr {r['Iteration']}: loss {r['loss']:.6g} "
+              f"grad_norm {r['grad_norm']:.6g} "
+              f"td_abs_err {r['td_abs_err']:.6g} "
+              f"env-steps/s {r['StepsPerSecond']:.1f}")
+    return runner, launches, [r["StepsPerSecond"] for r in logger.rows]
+
+
+def check_windows_against_cpu(runner, dev):
+    """The card's sequence windows must equal the CPU path's, bit for
+    bit, for the same (slot_idx, b_idx)."""
+    replay = runner.algo.replay
+    g = torch.Generator(device=dev).manual_seed(321)
+    slot_idx, b_idx, w = replay.sample_idxs(32, g)
+    gpu = replay.extract_window(slot_idx, b_idx, w)
+    cpu_replay = copy.copy(replay)
+    cpu_replay.data = type(replay.data)(*(x.cpu() for x in replay.data))
+    cpu_replay.rnn_state = tuple(x.cpu() for x in replay.rnn_state)
+    cpu_replay.device = torch.device("cpu")
+    cpu = cpu_replay.extract_window(slot_idx.cpu(), b_idx.cpu(), w.cpu())
+    for name in ("observation", "action", "reward", "done", "prev_action",
+                 "prev_reward", "init_rnn_state"):
+        got, want = getattr(gpu, name), getattr(cpu, name)
+        if name == "init_rnn_state":    # (h, c)
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        else:
+            same = torch.equal(got.cpu(), want)
+        if not same:
+            fail(f"sequence window {name} differs between card and CPU")
+    print("sequence windows on the card equal the CPU path: bit-exact")
 
 
 def check_replay_against_cpu(runner, dev):
@@ -234,27 +520,52 @@ def check_replay_against_cpu(runner, dev):
     print("replay batch on the card equals the CPU path: bit-exact")
 
 
+def build_kernels():
+    """Phase 1: one nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rlpyt_tpu_torch.ops import frame_gather as fg
+    from rlpyt_tpu_torch.ops import lstm as L
+
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as pool:
+        libs = [f.result() for f in [pool.submit(m.build) for m in (fg, L)]]
+    fg.load()
+    L.load()
+    print(f"phase 1: built {[p.name for p in libs]} in "
+          f"{time.time() - t0:.1f} s")
+    for line in libs[1].with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  lstm.cu ptxas:", line.strip())
+    return fg, L
+
+
+def kernel_entry(name, source, replaces, launches, max_err, t):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from rlpyt_tpu_torch.ops import frame_gather as fg
 
     dev = torch.device("cuda")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
-
-    t0 = time.time()
-    fg.load()
-    print(f"phase 1: built {fg.build().name} in {time.time() - t0:.1f} s")
+    fg, L = build_kernels()
 
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = check_gather(fg, g, dev)
     print("phase 2: kernel bit-exact against its plain version")
 
     timing = time_gather(fg, g, dev)
+    timing["bound_by"] = "bytes"
     print(f"phase 3: gather {timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms, index_select "
           f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
@@ -267,25 +578,56 @@ def main():
           f"{launches} gather launches, median steady env-steps/s "
           f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
     check_replay_against_cpu(runner, dev)
+    del runner
+    torch.cuda.empty_cache()
+
+    # The LSTM checks compare fp32 kernels with fp32 cuBLAS and cuDNN.
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lstm_err = check_lstm(L, g, dev)
+    print("phase 5: K3a, K3, K4 and the autograd Function agree with their "
+          f"plain versions (max abs err {lstm_err})")
+    lstm_t = time_lstm(L, g, dev)
+    for name, t in lstm_t.items():
+        print(f"phase 6: {name} {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, library {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
+              f"operations, {t['bytes']} bytes)")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    runner, lstm_launches, sps = run_r2d1(L, dev)
+    print(f"phase 7: R2D1 trainer {R2D1_ITR} iterations, "
+          f"{runner.algo.update_counter} updates, LSTM launches "
+          f"{lstm_launches}, env-steps/s per iteration "
+          f"{[round(s, 1) for s in sps]}")
+    check_windows_against_cpu(runner, dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
-    print(json.dumps({"kernels": [{
-        "name": "frame_gather",
-        "route": "cuda",
-        "source": "rlpyt_tpu_torch/csrc/frame_gather.cu",
-        "replaces": "rlpyt_tpu/ops/pallas/window_gather.py:79",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": timing["library_ms"],
-    }]}))
+    lstm_src = "rlpyt_tpu_torch/csrc/lstm.cu"
+    pallas = "rlpyt_tpu/ops/pallas/"
+    print(json.dumps({"kernels": [
+        kernel_entry("frame_gather", "rlpyt_tpu_torch/csrc/frame_gather.cu",
+                     f"{pallas}frame_gather.py:111 and "
+                     f"{pallas}window_gather.py:79", launches, max_err,
+                     timing),
+        kernel_entry("lstm_input_proj", lstm_src, f"{pallas}lstm.py:109",
+                     lstm_launches["lstm_input_proj"],
+                     lstm_err["lstm_input_proj"], lstm_t["lstm_input_proj"]),
+        kernel_entry("lstm_fwd", lstm_src, f"{pallas}lstm.py:109",
+                     lstm_launches["lstm_fwd"], lstm_err["lstm_fwd"],
+                     lstm_t["lstm_fwd"]),
+        kernel_entry("lstm_bwd", lstm_src, f"{pallas}lstm.py:214",
+                     lstm_launches["lstm_bwd"], lstm_err["lstm_bwd"],
+                     lstm_t["lstm_bwd"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,11 @@
 
 The JAX agent is a configuration object whose pure functions take a
 parameter tree.  Here the agent owns its ``nn.Module`` (``agent.model``)
-on ``device``; the algorithm keeps the target network beside it.
+on ``device``; the algorithm keeps the target network beside it.  The
+per-lane recurrent carry (None for a feedforward agent) is threaded by
+the collector, as in the JAX package:
+``step(obs, prev_action, prev_reward, carry, cum_steps, generator)
+-> (AgentStep, next_carry)``.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from rlpyt_tpu_torch.envs.base import EnvSpaces
+from rlpyt_tpu_torch.struct import tree_map
 
 
 class AgentStep(NamedTuple):
@@ -38,6 +43,22 @@ class BaseAgent:
                   **self.model_kwargs}
         self.model = self.ModelCls(**kwargs).to(self.device)
 
-    def step(self, observation, prev_action, prev_reward, cum_steps: int,
-             generator: torch.Generator, is_eval: bool = False) -> AgentStep:
+    def init_carry(self, batch_B: int):
+        """Per-lane recurrent carry; None for feedforward agents."""
+        return None
+
+    @staticmethod
+    def reset_carry_where(done: torch.Tensor, carry):
+        """Zero the carry of lanes that are done (rlpyt's
+        RecurrentAgentMixin.reset_one)."""
+        if carry is None:
+            return None
+        mask = (~done).to(torch.float32)
+        return tree_map(lambda c: c * mask.reshape(
+            mask.shape + (1,) * (c.dim() - mask.dim())), carry)
+
+    def step(self, observation, prev_action, prev_reward, carry,
+             cum_steps: int, generator: torch.Generator,
+             is_eval: bool = False):
+        """Returns (AgentStep, next_carry)."""
         raise NotImplementedError

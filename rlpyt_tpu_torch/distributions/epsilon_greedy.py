@@ -8,8 +8,9 @@ import torch
 class EpsilonGreedy:
     def sample(self, q: torch.Tensor, epsilon, generator: torch.Generator
                ) -> torch.Tensor:
-        """q: [..., A]; epsilon: a float or a tensor broadcastable to
-        q.shape[:-1].  Returns int64 actions."""
+        """q: [..., A]; epsilon: a float or a tensor on q's device
+        broadcastable to q.shape[:-1] (e.g. R2D1's per-lane [B]
+        epsilons).  Returns int64 actions."""
         greedy = torch.argmax(q, dim=-1)
         shape, dev = greedy.shape, generator.device
         rand = torch.randint(0, q.shape[-1], shape, generator=generator,

@@ -19,44 +19,19 @@ use into ``rlpyt_tpu_torch/csrc/build/`` (git-ignored), loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "frame_gather.cu"
-_BUILD_DIR = _SRC.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from rlpyt_tpu_torch.ops.cuda_build import CSRC, build_library
+
+_SRC = CSRC / "frame_gather.cu"
 _lib = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found to build frame_gather.cu "
-                           "(set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build() -> Path:
-    """Compile the kernel into a shared library named by the hash of its
-    source and flags; return its path.  Reuses an existing build."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"frame_gather_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the kernel (once per source); return the library's path."""
+    return build_library(_SRC)
 
 
 def load():

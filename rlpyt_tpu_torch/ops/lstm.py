@@ -1,0 +1,283 @@
+"""Fused LSTM over [T, B, F] with per-step done reset: wrappers, plain
+versions and loader for the CUDA kernels of
+``rlpyt_tpu_torch/csrc/lstm.cu``, and the ``torch.autograd.Function``
+that takes the place of the JAX package's ``jax.custom_vjp``
+(``rlpyt_tpu/ops/pallas/lstm.py:275-309 lstm_pallas``).
+
+The TPU kernels K3 (``_lstm_fwd_pallas``) and K4 (``_lstm_bwd_pallas``)
+become three kernels here:
+
+- ``input_proj`` (K3a): ``xg = x @ W_x + b`` over all T*B rows at once;
+- ``lstm_fwd`` (K3): the T-step recurrence over ``xg`` with ``W_h``,
+  emitting ``y``, the post-activation gates and ``c`` for the backward,
+  and ``hT``, ``cT``;
+- ``lstm_bwd`` (K4): the reverse-time recurrence emitting ``dgates``,
+  ``dh0`` and ``dc0``.  ``dx``, ``dW_x``, ``dW_h`` and ``db`` are plain
+  matrix products over ``dgates`` after it, as in the JAX package.
+
+Gate order is i, f, g, o.  ``done[t]`` zeroes h and c before step t
+(``lstm_scan``, lstm.py:43-64); the kernels take ``mask = 1 - done``.
+The TPU padding (H to 128, B to 8, F to 128) is not carried over: the
+kernels mask ragged edges themselves.
+
+Dispatch follows the tensor: CPU tensors take the plain versions; CUDA
+tensors launch the kernels or raise.  Each wrapper counts its launches
+in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from rlpyt_tpu_torch.ops.cuda_build import CSRC, build_library
+
+_SRC = CSRC / "lstm.cu"
+_lib = None
+
+
+def build() -> Path:
+    """Compile the kernels (once per source); return the library's path.
+    ``-Xptxas=-v`` puts each kernel's registers and spills in the log."""
+    return build_library(_SRC, ("-Xptxas=-v",))
+
+
+def load():
+    """Build (if needed) and load the kernel library once per process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.lstm_proj_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.lstm_fwd_launch.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+        lib.lstm_bwd_launch.argtypes = [vp] * 10 + [ci] * 3 + [vp]
+        for fn in (lib.lstm_proj_launch, lib.lstm_fwd_launch,
+                   lib.lstm_bwd_launch):
+            fn.restype = ci
+        lib.lstm_error_string.argtypes = [ci]
+        lib.lstm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------
+# Plain versions: the CPU path and the kernels' references on the card.
+# ---------------------------------------------------------------------
+
+def input_proj_plain(x, wx, b):
+    """x [N, F] @ wx [F, 4H] + b [4H] -> [N, 4H]."""
+    return x @ wx + b
+
+
+def lstm_fwd_plain(xg, wh, mask, h0, c0):
+    """Recurrence over xg [T, B, 4H] (input projection with bias).
+    Returns (y [T, B, H], gates [T, B, 4H] post-activation, c [T, B, H],
+    hT, cT)."""
+    H = wh.shape[0]
+    h, c = h0, c0
+    ys, gs, cs = [], [], []
+    for t in range(xg.shape[0]):
+        m = mask[t][:, None]
+        h, c = h * m, c * m
+        pre = xg[t] + h @ wh
+        i = torch.sigmoid(pre[:, :H])
+        f = torch.sigmoid(pre[:, H:2 * H])
+        g = torch.tanh(pre[:, 2 * H:3 * H])
+        o = torch.sigmoid(pre[:, 3 * H:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+        gs.append(torch.cat([i, f, g, o], dim=1))
+        cs.append(c)
+    return torch.stack(ys), torch.stack(gs), torch.stack(cs), h, c
+
+
+def lstm_bwd_plain(gates, cs, c0, mask, wh, dy, dcT):
+    """Reverse-time recurrence (``_bwd_kernel``, lstm.py:168-211).
+    ``dy`` already holds hT's cotangent in dy[T-1]; ``dcT`` seeds the dc
+    carry.  Returns (dgates [T, B, 4H], dh0, dc0)."""
+    T, _, H = cs.shape
+    dh_c = torch.zeros_like(c0)
+    dc_c = dcT
+    dgates = []
+    for s in range(T - 1, -1, -1):
+        m = mask[s][:, None]
+        cp = (c0 if s == 0 else cs[s - 1]) * m
+        i, f, g, o = gates[s].split(H, dim=1)
+        tc = torch.tanh(cs[s])
+        dh = dy[s] + dh_c
+        dct = dh * o * (1.0 - tc * tc) + dc_c
+        dg = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
+                        dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)],
+                       dim=1)
+        dgates.append(dg)
+        dh_c = (dg @ wh.T) * m
+        dc_c = dct * f * m
+    return torch.stack(dgates[::-1]), dh_c, dc_c
+
+
+# ---------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------
+
+def _check(name: str, x, shape, device):
+    if tuple(x.shape) != tuple(shape) or x.dtype != torch.float32 \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(f"lstm: {name} must be a contiguous float32 "
+                         f"{list(shape)} tensor on {device}, got {x.dtype} "
+                         f"{list(x.shape)} on {x.device}")
+
+
+def _device(x) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm: unsupported device {x.device}")
+    return x.device.type
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + load().lstm_error_string(err).decode())
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def proj_splits(M: int, N: int, K: int, n_sm: int):
+    """Split of the K dimension for the projection: enough CTAs to cover
+    the SMs when the output has few 128x128 tiles (the kernel's tile),
+    each split at least 512 deep and a multiple of the kernel's K step
+    of 8.  Returns (k_chunk, splits)."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    tiles = cdiv(M, 128) * cdiv(N, 128)
+    splits = max(1, min(n_sm // tiles, K // 512))
+    k_chunk = cdiv(cdiv(K, splits), 8) * 8
+    return k_chunk, cdiv(K, k_chunk)
+
+
+def input_proj(x, wx, b):
+    """K3a: x [N, F] @ wx [F, 4H] + b [4H] -> [N, 4H], float32."""
+    if _device(x) == "cpu":
+        return input_proj_plain(x, wx, b)
+    M, K = x.shape
+    N = wx.shape[1]
+    for name, t, shape in (("x", x, (M, K)), ("wx", wx, (K, N)),
+                           ("b", b, (N,))):
+        _check(name, t, shape, x.device)
+    lib = load()
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    k_chunk, splits = proj_splits(M, N, K, n_sm)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    work = (torch.empty((splits, M, N), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        err = lib.lstm_proj_launch(
+            x.data_ptr(), wx.data_ptr(), b.data_ptr(), out.data_ptr(),
+            work.data_ptr() if work is not None else None, M, N, K,
+            k_chunk, splits, _stream(x.device))
+    _raise_on(err, "lstm input projection")
+    input_proj.launches += 1
+    return out
+
+
+def lstm_fwd(xg, wh, mask, h0, c0):
+    """K3: the recurrence; same contract as ``lstm_fwd_plain``."""
+    if _device(xg) == "cpu":
+        return lstm_fwd_plain(xg, wh, mask, h0, c0)
+    T, B, H4 = xg.shape
+    H = H4 // 4
+    dev = xg.device
+    for name, t, shape in (("xg", xg, (T, B, 4 * H)), ("wh", wh, (H, 4 * H)),
+                           ("mask", mask, (T, B)), ("h0", h0, (B, H)),
+                           ("c0", c0, (B, H))):
+        _check(name, t, shape, dev)
+    y = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(y)
+    gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    hT = torch.empty((B, H), dtype=torch.float32, device=dev)
+    cT = torch.empty_like(hT)
+    with torch.cuda.device(dev):
+        err = load().lstm_fwd_launch(
+            xg.data_ptr(), wh.data_ptr(), mask.data_ptr(), h0.data_ptr(),
+            c0.data_ptr(), y.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            hT.data_ptr(), cT.data_ptr(), T, B, H, _stream(dev))
+    _raise_on(err, "lstm forward")
+    lstm_fwd.launches += 1
+    return y, gates, cs, hT, cT
+
+
+def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
+    """K4: the reverse recurrence; same contract as ``lstm_bwd_plain``."""
+    if _device(gates) == "cpu":
+        return lstm_bwd_plain(gates, cs, c0, mask, wh, dy, dcT)
+    T, B, H = cs.shape
+    dev = gates.device
+    for name, t, shape in (("gates", gates, (T, B, 4 * H)),
+                           ("cs", cs, (T, B, H)), ("c0", c0, (B, H)),
+                           ("mask", mask, (T, B)), ("wh", wh, (H, 4 * H)),
+                           ("dy", dy, (T, B, H)), ("dcT", dcT, (B, H))):
+        _check(name, t, shape, dev)
+    dgates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
+    dc0 = torch.empty_like(dh0)
+    with torch.cuda.device(dev):
+        err = load().lstm_bwd_launch(
+            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), mask.data_ptr(),
+            wh.data_ptr(), dy.data_ptr(), dcT.data_ptr(), dgates.data_ptr(),
+            dh0.data_ptr(), dc0.data_ptr(), T, B, H, _stream(dev))
+    _raise_on(err, "lstm backward")
+    lstm_bwd.launches += 1
+    return dgates, dh0, dc0
+
+
+input_proj.launches = 0   # kernel launches, for chip_smoke.py
+lstm_fwd.launches = 0
+lstm_bwd.launches = 0
+
+
+class LstmFunction(torch.autograd.Function):
+    """Forward: K3a then K3.  Backward: K4, then the window contractions
+    over dgates (lstm.py:257-262).  Saves what ``_vjp_fwd`` saves
+    (lstm.py:284-301): weights, inputs, mask, initial state, y, gates, c."""
+
+    @staticmethod
+    def forward(ctx, wx, wh, b, x, done, h0, c0):
+        T, B, F = x.shape
+        x = x.contiguous()
+        mask = (~done.to(torch.bool)).to(torch.float32).contiguous()
+        h0, c0 = h0.contiguous(), c0.contiguous()
+        wh = wh.contiguous()
+        xg = input_proj(x.view(T * B, F), wx.contiguous(), b.contiguous())
+        y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, -1), wh, mask, h0, c0)
+        ctx.save_for_backward(wx, wh, x, mask, h0, c0, y, gates, cs)
+        return y, hT, cT
+
+    @staticmethod
+    def backward(ctx, dy, dhT, dcT):
+        wx, wh, x, mask, h0, c0, y, gates, cs = ctx.saved_tensors
+        T, B, F = x.shape
+        H = h0.shape[1]
+        # hT's cotangent enters like dy at the last step; cT's seeds the
+        # dc carry (lstm.py:220-225).
+        dy = torch.cat([dy[:-1], (dy[-1] + dhT)[None]]).contiguous()
+        dgates, dh0, dc0 = lstm_bwd(gates, cs, c0, mask, wh, dy,
+                                    dcT.contiguous())
+        dg = dgates.view(T * B, 4 * H)
+        hprev = torch.cat([h0[None], y[:-1]]) * mask[:, :, None]
+        dwx = x.view(T * B, F).T @ dg
+        dwh = hprev.view(T * B, H).T @ dg
+        db = dg.sum(0)
+        dx = (dg @ wx.T).view(T, B, F) if ctx.needs_input_grad[3] else None
+        return dwx, dwh, db, dx, None, dh0, dc0
+
+
+def lstm(wx, wh, b, x, done, h0, c0):
+    """LSTM over x [T, B, F] with done [T, B] bool resetting the state
+    before each step; gate order i, f, g, o.  wx [F, 4H], wh [H, 4H],
+    b [4H], h0, c0 [B, H], all float32.  Returns (y [T, B, H], (hT, cT))."""
+    y, hT, cT = LstmFunction.apply(wx, wh, b, x, done, h0, c0)
+    return y, (hT, cT)

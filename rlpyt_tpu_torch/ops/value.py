@@ -1,5 +1,5 @@
 """Value-function ops (port of rlpyt_tpu/ops/value.py: huber_loss,
-polyak_update)."""
+value_rescale, value_rescale_inv, polyak_update)."""
 from __future__ import annotations
 
 import torch
@@ -11,6 +11,18 @@ def huber_loss(delta: torch.Tensor, clip: float = 1.0) -> torch.Tensor:
     abs_d = delta.abs()
     quad = torch.clamp(abs_d, max=clip)
     return 0.5 * quad ** 2 + clip * (abs_d - quad)
+
+
+def value_rescale(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """R2D1's h(x) = sign(x)(sqrt(|x| + 1) - 1) + eps x."""
+    return torch.sign(x) * (torch.sqrt(x.abs() + 1.0) - 1.0) + eps * x
+
+
+def value_rescale_inv(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """The closed-form inverse of ``value_rescale``."""
+    return torch.sign(x) * (
+        ((torch.sqrt(1.0 + 4.0 * eps * (x.abs() + 1.0 + eps)) - 1.0)
+         / (2.0 * eps)) ** 2 - 1.0)
 
 
 @torch.no_grad()

@@ -119,7 +119,9 @@ class MinibatchRl:
         rec("StepsPerSecond", steps / dt_interval)
         updates = self.itrs_per_interval * self.algo.updates_per_optimize
         rec("UpdatesPerSecond", updates / dt_interval)
-        rec("ReplayRatio", updates * self.algo.batch_size / steps)
+        batch_size = getattr(self.algo, "batch_size", None)
+        if batch_size:
+            rec("ReplayRatio", updates * batch_size / steps)
         self._log_traj_stats("", traj_stats)
         for field, vals in zip(opt_infos[0]._fields, zip(*opt_infos)):
             rec(field, torch.stack(vals).mean().item())

@@ -5,7 +5,8 @@ B envs step together on the device; the JAX ``lax.scan`` over T is a
 Python loop here, writing each step into preallocated [T, B] buffers.
 Auto-reset follows rlpyt's CpuResetCollector (``mid_batch_reset=True``):
 when lane b is done at step t, the observation recorded at t+1 is the
-reset observation and prev_action / prev_reward are zeroed.
+reset observation, prev_action / prev_reward are zeroed and the agent's
+recurrent carry (None for a feedforward agent) is zeroed.
 """
 from __future__ import annotations
 
@@ -65,6 +66,7 @@ class RolloutState(NamedTuple):
     observation: Any          # [B, ...]
     prev_action: Any          # [B, ...]
     prev_reward: torch.Tensor
+    agent_carry: Any          # recurrent state [B, ...] or None
     cum_steps: int            # env steps so far (host integer)
     ep_return: torch.Tensor   # [B] running per-lane episode sums
     ep_length: torch.Tensor
@@ -92,7 +94,8 @@ class Collector:
         return RolloutState(
             env_state=env_state, observation=obs,
             prev_action=null.expand((B,) + tuple(null.shape)).clone(),
-            prev_reward=zeros, cum_steps=0, ep_return=zeros,
+            prev_reward=zeros, agent_carry=self.agent.init_carry(B),
+            cum_steps=0, ep_return=zeros,
             ep_length=zeros, ep_nonzero=zeros, ep_discounted=zeros,
             ep_gamma=torch.ones((B,), device=self.device),
             traj_stats=TrajStats.zeros(self.device))
@@ -115,9 +118,9 @@ class Collector:
     def _step(self, carry: RolloutState, generator: torch.Generator
               ) -> Tuple[RolloutState, Samples]:
         B = self.batch_spec.B
-        agent_step = self.agent.step(carry.observation, carry.prev_action,
-                                     carry.prev_reward, carry.cum_steps,
-                                     generator)
+        agent_step, agent_carry = self.agent.step(
+            carry.observation, carry.prev_action, carry.prev_reward,
+            carry.agent_carry, carry.cum_steps, generator)
         action = agent_step.action
         env_state, env_step = self.env.step_batch(carry.env_state, action)
         reward = env_step.reward.to(torch.float32)
@@ -158,6 +161,7 @@ class Collector:
             observation=tree_select(done, reset_obs, env_step.observation),
             prev_action=tree_select(done, torch.zeros_like(action), action),
             prev_reward=torch.where(done, 0.0, reward),
+            agent_carry=self.agent.reset_carry_where(done, agent_carry),
             cum_steps=carry.cum_steps + B,
             ep_return=ep_return * live, ep_length=ep_length * live,
             ep_nonzero=ep_nonzero * live,

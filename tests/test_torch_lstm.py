@@ -1,0 +1,207 @@
+"""Port's fused LSTM (rlpyt_tpu_torch/ops/lstm.py) against the JAX
+package's ``lstm_scan`` and ``lstm_pallas`` (interpret mode), at the
+shapes and tolerances of tests/test_pallas_lstm.py: forward rtol = atol =
+1e-5, gradients rtol = atol = 2e-4 (float32; the frameworks sum the
+products in different orders).  Inputs come from numpy with a seed.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rlpyt_tpu.ops.pallas.lstm import lstm_pallas, lstm_scan
+from rlpyt_tpu_torch.ops import lstm as L
+
+torch.set_num_threads(2)
+
+SHAPES = [(5, 4, 8, 16), (7, 3, 130, 100)]
+NAMES = ("wx", "wh", "b", "x", "h0", "c0")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def make_inputs(seed, T, B, F, H, with_dones=True):
+    """Numpy inputs scaled as tests/test_pallas_lstm.py scales them."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    done = (rng.random((T, B)) < 0.15) if with_dones \
+        else np.zeros((T, B), bool)
+    return dict(wx=normal(F, 4 * H, scale=0.3),
+                wh=normal(H, 4 * H, scale=0.3), b=normal(4 * H, scale=0.1),
+                x=normal(T, B, F), done=done, h0=normal(B, H, scale=0.5),
+                c0=normal(B, H, scale=0.5))
+
+
+def jax_fn(impl):
+    if impl == "scan":
+        return lstm_scan
+    return lambda *a: lstm_pallas(*a, True)
+
+
+def ordered(a):
+    return [a[k] for k in ("wx", "wh", "b", "x", "done", "h0", "c0")]
+
+
+@pytest.mark.parametrize("with_dones", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_forward_matches_jax(impl, shape, with_dones):
+    a = make_inputs(0, *shape, with_dones=with_dones)
+    y_ref, (h_ref, c_ref) = jax_fn(impl)(*map(jnp.asarray, ordered(a)))
+    with torch.no_grad():
+        y, (h, c) = L.lstm(*map(torch.from_numpy, ordered(a)))
+    for got, want in ((y, y_ref), (h, h_ref), (c, c_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def cotangents(seed, T, B, H):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((T, B, H), (B, H), (B, H))]
+
+
+@pytest.mark.parametrize("with_dones", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_gradients_match_jax(impl, shape, with_dones):
+    """Gradients of <y, gy> + <hT, ghT> + <cT, gcT>, so the hT and cT
+    cotangents reach the backward."""
+    T, B, F, H = shape
+    a = make_inputs(1, *shape, with_dones=with_dones)
+    gy, ghT, gcT = cotangents(2, T, B, H)
+    fn = jax_fn(impl)
+
+    def objective(wx, wh, b, x, h0, c0):
+        y, (hT, cT) = fn(wx, wh, b, x, jnp.asarray(a["done"]), h0, c0)
+        return jnp.sum(y * gy) + jnp.sum(hT * ghT) + jnp.sum(cT * gcT)
+
+    want = jax.grad(objective, argnums=range(6))(
+        *(jnp.asarray(a[k]) for k in NAMES))
+    leaves = {k: torch.from_numpy(a[k]).requires_grad_(True) for k in NAMES}
+    y, (hT, cT) = L.lstm(leaves["wx"], leaves["wh"], leaves["b"],
+                         leaves["x"], torch.from_numpy(a["done"]),
+                         leaves["h0"], leaves["c0"])
+    loss = ((y * torch.from_numpy(gy)).sum() + (hT * torch.from_numpy(ghT))
+            .sum() + (cT * torch.from_numpy(gcT)).sum())
+    loss.backward()
+    for k, w in zip(NAMES, want):
+        np.testing.assert_allclose(leaves[k].grad.numpy(), np.asarray(w),
+                                   rtol=2e-4, atol=2e-4, err_msg=k)
+
+
+def plain_autograd(a, done, cot):
+    """Gradients by autograd through input_proj_plain + lstm_fwd_plain."""
+    T, B, F = a["x"].shape
+    xg = L.input_proj_plain(a["x"].reshape(T * B, F), a["wx"], a["b"])
+    mask = (~done).to(torch.float32)
+    y, _, _, hT, cT = L.lstm_fwd_plain(xg.reshape(T, B, -1), a["wh"], mask,
+                                       a["h0"], a["c0"])
+    obj = sum((o * c).sum() for o, c in zip((y, hT, cT), cot))
+    return torch.autograd.grad(obj, [a[k] for k in NAMES])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_function_backward_matches_autograd(shape):
+    """The Function's backward (lstm_bwd_plain on the CPU, then the
+    window contractions) against autograd through the plain forward;
+    float32, same operations in another order: rtol = atol = 1e-5."""
+    T, B, F, H = shape
+    a = make_inputs(3, *shape)
+    done = torch.from_numpy(a["done"])
+    cot = [torch.from_numpy(c) for c in cotangents(4, T, B, H)]
+    leaves = {k: torch.from_numpy(a[k]).requires_grad_(True) for k in NAMES}
+    want = plain_autograd(leaves, done, cot)
+    y, (hT, cT) = L.lstm(leaves["wx"], leaves["wh"], leaves["b"],
+                         leaves["x"], done, leaves["h0"], leaves["c0"])
+    got = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip((y, hT, cT), cot)),
+        [leaves[k] for k in NAMES])
+    for k, g, w in zip(NAMES, got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=k)
+
+
+def test_bwd_plain_residuals_match_forward():
+    """lstm_fwd_plain's residuals feed lstm_bwd_plain: with dy = 0 and
+    dcT = 0 every gradient is zero; with a done at every step dh0 and dc0
+    are zero."""
+    T, B, F, H = 4, 2, 3, 5
+    a = {k: torch.from_numpy(v)
+         for k, v in make_inputs(5, T, B, F, H).items()}
+    xg = L.input_proj_plain(a["x"].reshape(T * B, F), a["wx"], a["b"])
+    mask = torch.zeros((T, B))
+    _, gates, cs, _, _ = L.lstm_fwd_plain(xg.reshape(T, B, -1), a["wh"],
+                                          mask, a["h0"], a["c0"])
+    zeros = torch.zeros((T, B, H))
+    dg, dh0, dc0 = L.lstm_bwd_plain(gates, cs, a["c0"], mask, a["wh"],
+                                    zeros, torch.zeros((B, H)))
+    assert not dg.any() and not dh0.any() and not dc0.any()
+    dg, dh0, dc0 = L.lstm_bwd_plain(gates, cs, a["c0"], mask, a["wh"],
+                                    torch.ones((T, B, H)), torch.ones((B, H)))
+    assert dg.abs().sum() > 0 and not dh0.any() and not dc0.any()
+
+
+def test_wrappers_raise_on_other_devices():
+    T, B, F, H = 2, 2, 3, 4
+    meta = {k: torch.from_numpy(v).to("meta")
+            for k, v in make_inputs(6, T, B, F, H).items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        L.lstm(*ordered(meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        L.lstm_fwd(torch.empty((T, B, 4 * H), device="meta"), meta["wh"],
+                   torch.empty((T, B), device="meta"), meta["h0"],
+                   meta["c0"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        L.lstm_bwd(torch.empty((T, B, 4 * H), device="meta"),
+                   torch.empty((T, B, H), device="meta"), meta["c0"],
+                   torch.empty((T, B), device="meta"), meta["wh"],
+                   torch.empty((T, B, H), device="meta"), meta["c0"])
+
+
+def test_proj_splits_cover_k():
+    """The K split of the projection: every row of W_x in exactly one
+    split, and more CTAs only where the output has few tiles."""
+    for M, N, K in ((64, 2048, 6919), (1440, 2048, 6919), (21, 400, 130),
+                    (640, 2048, 6919), (1, 8, 3)):
+        k_chunk, splits = L.proj_splits(M, N, K, 132)
+        assert k_chunk % 8 == 0 and (splits - 1) * k_chunk < K \
+            <= splits * k_chunk
+    assert L.proj_splits(64, 2048, 6919, 132)[1] == 8
+    assert L.proj_splits(1440, 2048, 6919, 132)[1] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain(cuda_device):
+    """K3a, K3 and K4 against their plain versions on the card (TF32 off;
+    forward within 1e-4 and backward within 1e-3 of the largest value),
+    at a slice shape and ragged ones."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for T, B, F, H in ((20, 32, 6919, 512), (7, 3, 130, 100),
+                       (3, 37, 33, 102)):
+        a = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in make_inputs(7, T, B, F, H).items()}
+        mask = (~a["done"]).to(torch.float32)
+        x2 = a["x"].reshape(T * B, F)
+        xg = L.input_proj_plain(x2, a["wx"], a["b"])
+        out = L.input_proj(x2, a["wx"], a["b"])
+        assert (out - xg).abs().max() <= 1e-4 * xg.abs().max()
+        xg = xg.reshape(T, B, 4 * H)
+        ref = L.lstm_fwd_plain(xg, a["wh"], mask, a["h0"], a["c0"])
+        out = L.lstm_fwd(xg, a["wh"], mask, a["h0"], a["c0"])
+        for o, r in zip(out, ref):
+            assert (o - r).abs().max() <= 1e-4 * r.abs().max()
+        dy = torch.randn((T, B, H), device=cuda_device)
+        dcT = torch.randn((B, H), device=cuda_device)
+        args = (ref[1], ref[2], a["c0"], mask, a["wh"], dy, dcT)
+        for o, r in zip(L.lstm_bwd(*args), L.lstm_bwd_plain(*args)):
+            assert (o - r).abs().max() <= 1e-3 * r.abs().max()
