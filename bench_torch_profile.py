@@ -4,22 +4,24 @@
 
     python3 bench_torch_profile.py           # flagship Nature-CNN DQN
     python3 bench_torch_profile.py --r2d1    # Atari-geometry R2D1
+    python3 bench_torch_profile.py --ernbw   # Atari "ernbw" (C51, dueling,
+                                             # prioritized replay, n-step 3)
 
 Builds the trainer of chip_smoke.py (full width, bf16), warms it up
-(DQN: two iterations; R2D1: three, the third being the first with
-updates), then measures:
+(DQN and ernbw: two iterations; R2D1: three, the third being the first
+with updates), then measures:
   - host wall time of one iteration split into collect and optimize,
     each ended by a device sync (median of 3);
-  - host wall time per replay sample (DQN: sample_idxs + extract_batch,
-    including the frame-gather kernel; R2D1: sample_idxs +
-    extract_window) and per gradient update (R2D1: including the
-    priority write-back);
+  - host wall time per replay sample (DQN and ernbw: sample_idxs +
+    extract_batch, including the frame-gather kernel, for ernbw also
+    the prioritized draw; R2D1: sample_idxs + extract_window) and per
+    gradient update (R2D1 and ernbw: including the priority write-back);
   - a torch.profiler trace of one iteration: device busy time (sum of
     kernel, copy and set times), the idle share of the iteration's wall
     time under the profiler, the number of device operations, and the
     top device operations by time.
 Prints one JSON line; the profiler table goes to
-chiprun_out/profile_table[_r2d1].txt.  Needs a CUDA device.
+chiprun_out/profile_table[_r2d1|_ernbw].txt.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -52,9 +54,13 @@ def main():
 
     dev = torch.device("cuda")
     r2d1 = "--r2d1" in sys.argv[1:]
+    ernbw = "--ernbw" in sys.argv[1:]
     if r2d1:
         runner = cs.build_r2d1_runner(dev, n_itr=20)
         steps, warmup, suffix = cs.R2D1_T * cs.R2D1_B, 3, "_r2d1"
+    elif ernbw:
+        runner = cs.build_ernbw_runner(dev, n_itr=10)
+        steps, warmup, suffix = cs.T * cs.B, 2, "_ernbw"
     else:
         runner = cs.build_flagship_runner(dev, n_itr=10)
         steps, warmup, suffix = cs.T * cs.B, 2, ""
@@ -105,7 +111,7 @@ def main():
     print(smi.splitlines()[0])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "trainer": "r2d1" if r2d1 else "dqn",
+        "trainer": suffix[1:] or "dqn",
         "env_steps_per_iteration": steps,
         "updates_per_iteration": algo.updates_per_optimize,
         "collect_ms": 1e3 * statistics.median(collect_s),

@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels from rlpyt_tpu_torch/csrc (frame_gather.cu
-     and lstm.cu, one nvcc each, in parallel);
+  1. build the CUDA kernels from rlpyt_tpu_torch/csrc (frame_gather.cu,
+     lstm.cu and union_gather.cu, one nvcc each, in parallel);
   2. hold the frame gather against its plain PyTorch version on the card,
      bit-exact, at the flagship replay shapes (ring [1568, 128, 8320] u8,
      batch 256, K=4, n=1, wrap-around starts) and on ragged / unaligned
      rows;
   3. time it, its plain version and one indexed PyTorch call with CUDA
-     events;
+     events, at n=1 (the flagship's union of 5 rows) and at n=3 (the
+     "ernbw" configuration's union of 7);
   4. train the flagship Nature-CNN DQN (bench_atari.py:157-175 settings,
      bf16, full width) for a few iterations through MinibatchRl, check
      the losses are finite, that every replay sample went through the
@@ -25,7 +26,21 @@ Phases, each fatal on failure:
   7. train the Atari R2D1 configuration (bench_r2d1.py:68-104, first
      geometry) for 6 iterations through MinibatchRl, check finite
      losses and priorities, the LSTM launch counts, and that the card's
-     sequence windows equal the CPU path's.
+     sequence windows equal the CPU path's;
+  8. hold the two unmasked union gathers (K5 row gather, K6 window gather
+     on the lane-major ghost ring) against their plain versions,
+     bit-exact, at the shapes of bench_torch_gather_formulations.py (ring
+     [390, 512, 8320] u8, U=7, batch 1024, wrap-around starts) and on
+     ragged / unaligned cases;
+  9. run that harness: its own match lines and the times of every gather
+     formulation beside its bound;
+ 10. train the Atari "ernbw" configuration (categorical 51 atoms,
+     dueling, double, prioritized frame replay alpha 0.5 beta 0.4,
+     n-step 3, lr 6.25e-5: rlpyt_tpu/experiments/configs/atari_dqn.py:52
+     at the flagship's geometry) for a few iterations through
+     MinibatchRl, check finite losses and priorities, priorities > 0 on
+     every written row, importance weights in (0, 1], one frame-gather
+     launch per update, and a prioritized batch against the CPU path.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -51,6 +66,7 @@ B, T = 128, 32               # flagship env lanes and steps per iteration
 LSTM_F, LSTM_H = 6919, 512   # R2D1's LSTM input (conv 6912 + 6 + 1), size
 R2D1_ITR = 6                 # R2D1 iterations; updates start in the third
 R2D1_B, R2D1_T = 64, 40      # R2D1 env lanes and steps per iteration
+ERNBW_ITR = 3                # "ernbw" iterations, 128 updates each
 
 
 def fail(msg: str):
@@ -126,10 +142,11 @@ def check_gather(fg, g, dev):
     return worst
 
 
-def time_gather(fg, g, dev):
-    """Phase 3 at the flagship shapes.  Index sets rotate so the union
-    rows are not left in L2 from the previous call."""
-    size_T, B, F, batch, K, n = 1568, 128, 8320, 256, 4, 1
+def time_gather(fg, g, dev, n: int):
+    """Phase 3 at the flagship replay's shapes with n-step ``n``.  Index
+    sets rotate so the union rows are not left in L2 from the previous
+    call."""
+    size_T, B, F, batch, K = 1568, 128, 8320, 256, 4
     U = K + n
     ring = torch.randint(0, 256, (size_T, B, F), generator=g, device=dev,
                          dtype=torch.uint8)
@@ -160,12 +177,14 @@ def time_gather(fg, g, dev):
     def library():   # one indexed call, same output bytes, no masking
         torch.index_select(ring2d, 0, nxt()[4])
 
+    time_ms(kernel)   # the first timed loop of a process reads slow
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
     n_bytes = batch * (U + 2 * K) * F + batch * (4 + 4 + 2 * K)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bytes": n_bytes}
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": n_bytes}
 
 
 def lstm_case(g, T, B, F, H, dev):
@@ -330,6 +349,17 @@ def time_lstm(L, g, dev):
     return res
 
 
+def zero_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from rlpyt_tpu_torch.ops import frame_gather as fg
+    from rlpyt_tpu_torch.ops import lstm as L
+    from rlpyt_tpu_torch.ops import union_gather as ug
+
+    for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd,
+               ug.gather_union_rows, ug.gather_union_window):
+        fn.launches = 0
+
+
 def build_flagship_runner(dev, n_itr: int, logger=None):
     """The flagship Nature-CNN DQN trainer of bench_atari.py:139-176
     (B=128, T=32, update batch 256, replay ratio 8, replay 200k, bf16,
@@ -370,13 +400,11 @@ def row_logger():
 def run_trainer(dev):
     """Phase 4: the flagship trainer through MinibatchRl."""
     from rlpyt_tpu_torch.ops import frame_gather as fg
-    from rlpyt_tpu_torch.ops import lstm as L
 
     logger = row_logger()
     runner = build_flagship_runner(dev, N_ITR, logger)
     algo = runner.algo
-    for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd):
-        fn.launches = 0
+    zero_launches()
     runner.train()
     torch.cuda.synchronize()
     launches = fg.gather_frame_stacks.launches
@@ -438,8 +466,7 @@ def run_r2d1(L, dev):
     logger = row_logger()
     runner = build_r2d1_runner(dev, R2D1_ITR, logger)
     algo = runner.algo
-    for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd):
-        fn.launches = 0
+    zero_launches()
     runner.train()
     torch.cuda.synchronize()
     launches = {"lstm_input_proj": L.input_proj.launches,
@@ -520,24 +547,228 @@ def check_replay_against_cpu(runner, dev):
     print("replay batch on the card equals the CPU path: bit-exact")
 
 
+def check_union(ug, harness, g, dev):
+    """Phase 8: K5 and K6 against their plain versions on the card, bit
+    for bit.  Returns the largest abs error of each at the harness's
+    shapes (the ragged cases fail on any difference)."""
+    def hold(what, ring, ring_lm, start, b_idx, U):
+        errs = []
+        for name, out, ref in (
+                ("union row gather",
+                 ug.gather_union_rows(ring, start, b_idx, U),
+                 ug.gather_union_rows_plain(ring, start, b_idx, U)),
+                ("union window gather",
+                 ug.gather_union_window(ring_lm, start, b_idx, U),
+                 ug.gather_union_window_plain(ring_lm, start, b_idx, U))):
+            torch.cuda.synchronize()
+            err = int((out.int() - ref.int()).abs().max()) \
+                if out.shape == ref.shape else -1
+            if err != 0:
+                fail(f"{name} differs from plain ({what}): max err {err}")
+            errs.append(err)
+        print(f"union gather check {what}: both bit-exact")
+        return errs
+
+    ring, ring_lm, sets = harness.make_case(g, dev, n_sets=2)
+    for start, b_idx in sets:
+        worst = hold("harness shapes, wrap-around starts", ring, ring_lm,
+                     start, b_idx, harness.U)
+    del ring, ring_lm, sets
+    torch.cuda.empty_cache()
+    # Ragged rows take the byte path (F = 8321: a window of many chunks);
+    # U = 1 has no ghost rows; F = 1040 is 65 vectors, a ragged span.
+    for size_T, B, F, U, batch in ((9, 5, 130, 1, 3), (9, 5, 130, 7, 3),
+                                   (33, 3, 8321, 5, 17), (20, 4, 1040, 11, 9)):
+        ring, ring_lm, sets = harness.make_case(g, dev, size_T, B, F, U,
+                                                batch, n_sets=1)
+        hold(f"size_T={size_T} B={B} F={F} U={U} batch={batch}", ring,
+             ring_lm, *sets[0], U)
+    # Rings that are not 16-byte aligned take the byte path too.
+    size_T, B, F, U = 12, 4, 8320, 7
+    _, _, sets = harness.make_case(g, dev, size_T, B, 16, U, 32, n_sets=1)
+    flat = torch.randint(0, 256, (size_T * B * F + 1,), generator=g,
+                         device=dev, dtype=torch.uint8)
+    ring = flat[1:].view(size_T, B, F)
+    lm = ug.lane_major_ring(ring, U)
+    flat_lm = torch.empty((lm.numel() + 1,), dtype=torch.uint8, device=dev)
+    flat_lm[1:] = lm.reshape(-1)
+    hold("unaligned rings", ring, flat_lm[1:].view(lm.shape), *sets[0], U)
+    return worst
+
+
+def run_harness(ug, harness, dev):
+    """Phase 9: bench_torch_gather_formulations.py's own run (match lines
+    and times), with the union kernels' launches counted over it."""
+    zero_launches()
+    row, window, res = harness.run(dev)
+    if not (row and window):
+        fail(f"harness: row match {row}, window match {window}")
+    launches = {"union_rows": ug.gather_union_rows.launches,
+                "union_window": ug.gather_union_window.launches}
+    if min(launches.values()) == 0:
+        fail(f"the harness did not launch the union kernels: {launches}")
+
+    def entry(kernel, plain, indexed):
+        return {"ms": res[kernel]["ms"], "plain_ms": res[plain]["ms"],
+                "library_ms": res[indexed]["ms"],
+                "bound_ms": res[kernel]["bound_ms"], "bound_by": "bytes"}
+
+    times = {"union_rows": entry(harness.ROW_KERNEL, harness.ROW_PLAIN,
+                                 harness.ROW_INDEXED),
+             "union_window": entry(harness.WINDOW_KERNEL,
+                                   harness.WINDOW_PLAIN,
+                                   harness.WINDOW_INDEXED)}
+    return launches, times
+
+
+def build_ernbw_runner(dev, n_itr: int, logger=None):
+    """The Atari "ernbw" trainer: the algorithm and model settings of
+    rlpyt_tpu/experiments/configs/atari_dqn.py:52-59 (categorical 51 atoms
+    on [-10, 10], dueling, double, prioritized replay alpha 0.5 beta 0.4,
+    n-step 3, lr 6.25e-5) at the flagship's geometry and env
+    (bench_atari.py:139-176: B=128, T=32, update batch 256, replay ratio
+    8, replay 200k, min_steps_learn 0, bf16, synthetic frames)."""
+    from rlpyt_tpu_torch.agents.dqn import CatDqnAgent
+    from rlpyt_tpu_torch.algos.cat_dqn import CategoricalDQN
+    from rlpyt_tpu_torch.envs.synthetic_atari import SyntheticAtariEnv
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    agent = CatDqnAgent(
+        model_kwargs=dict(dueling=True, compute_dtype=torch.bfloat16),
+        n_atoms=51, v_min=-10.0, v_max=10.0, eps_steps=250_000,
+        eps_final=0.01, device=dev)
+    algo = CategoricalDQN(
+        discount=0.99, batch_size=256, min_steps_learn=0,
+        replay_size=200_000, replay_ratio=8.0, target_update_interval=2_500,
+        learning_rate=6.25e-5, double_dqn=True, prioritized_replay=True,
+        pri_alpha=0.5, pri_beta=0.4, n_step_return=3, frames_per_obs=4)
+    return MinibatchRl(algo, agent, SyntheticAtariEnv(dev),
+                       BatchSpec(T=T, B=B), n_steps=n_itr * T * B, seed=0,
+                       log_interval_steps=T * B, logger=logger, device=dev)
+
+
+def run_ernbw(fg, dev):
+    """Phase 10: the ernbw trainer through MinibatchRl.  Every update
+    draws one prioritized batch through the frame-gather kernel at
+    U = K + n = 7."""
+    logger = row_logger()
+    runner = build_ernbw_runner(dev, ERNBW_ITR, logger)
+    algo = runner.algo
+    zero_launches()
+    runner.train()
+    torch.cuda.synchronize()
+    launches = fg.gather_frame_stacks.launches
+    updates = algo.update_counter
+    if updates != ERNBW_ITR * algo.updates_per_optimize:
+        fail(f"ernbw ran {updates} updates, expected "
+             f"{ERNBW_ITR * algo.updates_per_optimize}")
+    if launches != updates:
+        fail(f"ernbw: frame gather launched {launches} times for {updates} "
+             "updates")
+    for row in logger.rows:
+        for key in ("loss", "grad_norm", "td_abs_err"):
+            if not (math.isfinite(row[key]) and row[key] > 0):
+                fail(f"ernbw {key} = {row[key]} in iteration "
+                     f"{row['Iteration']}")
+    replay = algo.replay
+    written = replay.priorities[:replay.filled_t]
+    if not (torch.isfinite(written).all() and (written > 0).all()
+            and torch.isfinite(replay.max_priority)):
+        fail("ernbw: a written row's priority is not finite and positive")
+    if replay.filled_t < replay.size_T \
+            and (replay.priorities[replay.filled_t:] != 0).any():
+        fail("ernbw: an unwritten row has a priority")
+    if not (written != 1.0).any():
+        fail("ernbw: no priority was written back")
+    for r in logger.rows:
+        print(f"ernbw itr {r['Iteration']}: loss {r['loss']:.6g} "
+              f"grad_norm {r['grad_norm']:.6g} kl {r['td_abs_err']:.6g} "
+              f"env-steps/s {r['StepsPerSecond']:.1f} "
+              f"updates/s {r['UpdatesPerSecond']:.1f}")
+    return runner, launches, [r["StepsPerSecond"] for r in logger.rows]
+
+
+def check_prioritized_against_cpu(runner, dev):
+    """One prioritized batch drawn on the card from injected uniforms,
+    against the CPU path on a copy of the trained buffer.
+
+    The batch (kernel path) must equal the CPU path's (plain version) bit
+    for bit at the card's indices.  The indices themselves come from a
+    float32 prefix sum over 200k priorities, which the card and the CPU
+    take in different orders, so they are held against a float64 prefix
+    sum on the CPU instead: every drawn row must be sampleable and its
+    stratum's target must lie in the row's share of the mass, within
+    1e-5 of the total.  The importance weights must lie in (0, 1] and
+    agree with the CPU's formula within 1e-5."""
+    from rlpyt_tpu_torch.replay.prioritized import importance_weights
+
+    replay = runner.algo.replay
+    batch = 256
+    g = torch.Generator(device=dev).manual_seed(123)
+    u = torch.rand((batch,), generator=g, device=dev)
+    t_idx, b_idx, w = replay.idxs_from_uniforms(u)
+    gpu = replay.extract_batch(t_idx, b_idx, w)
+    cpu_replay = copy.copy(replay)
+    cpu_replay.data = type(replay.data)(*(x.cpu() for x in replay.data))
+    cpu_replay.priorities = replay.priorities.cpu()
+    cpu_replay.max_priority = replay.max_priority.cpu()
+    cpu_replay.device = torch.device("cpu")
+    t_cpu, b_cpu = t_idx.cpu(), b_idx.cpu()
+    cpu = cpu_replay.extract_batch(t_cpu, b_cpu, w.cpu())
+    for name in ("action", "return_", "done", "done_n", "timeout_n",
+                 "is_weights"):
+        if not torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)):
+            fail(f"prioritized replay {name} differs between card and CPU")
+    for which in ("agent_inputs", "target_inputs"):
+        if not torch.equal(getattr(gpu, which).observation.cpu(),
+                           getattr(cpu, which).observation):
+            fail(f"prioritized replay {which} observation differs between "
+                 "card and CPU")
+
+    flat = cpu_replay._masked_priorities().reshape(-1)
+    idx = t_cpu * replay.B + b_cpu
+    cdf = torch.cumsum(flat.double(), 0)
+    total = cdf[-1]
+    targets = (torch.arange(batch) + u.cpu().double()) * (total / batch)
+    tol = 1e-5 * total
+    if not ((flat[idx] > 0).all()
+            and (targets >= cdf[idx] - flat[idx].double() - tol).all()
+            and (targets <= cdf[idx] + tol).all()):
+        fail("a prioritized draw on the card lies outside its stratum")
+    w_cpu = importance_weights(flat, idx, total.float(), replay.beta)
+    if not ((w > 0).all() and (w <= 1).all()
+            and torch.allclose(w.cpu(), w_cpu, rtol=1e-5, atol=0)):
+        fail("importance weights on the card are outside (0, 1] or differ "
+             "from the CPU's")
+    same = int((torch.stack(cpu_replay.idxs_from_uniforms(u.cpu())[:2])
+                == torch.stack((t_cpu, b_cpu))).all(0).sum())
+    print(f"prioritized batch on the card equals the CPU path: bit-exact; "
+          f"draws inside their strata; weights in [{float(w.min()):.4f}, "
+          f"{float(w.max()):.4f}]; {same} of {batch} indices equal the CPU's "
+          "float32 draws")
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from rlpyt_tpu_torch.ops import frame_gather as fg
     from rlpyt_tpu_torch.ops import lstm as L
+    from rlpyt_tpu_torch.ops import union_gather as ug
 
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        libs = [f.result() for f in [pool.submit(m.build) for m in (fg, L)]]
-    fg.load()
-    L.load()
+    with ThreadPoolExecutor(3) as pool:
+        libs = [f.result() for f in
+                [pool.submit(m.build) for m in (fg, L, ug)]]
+    for m in (fg, L, ug):
+        m.load()
     print(f"phase 1: built {[p.name for p in libs]} in "
           f"{time.time() - t0:.1f} s")
     for line in libs[1].with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("  lstm.cu ptxas:", line.strip())
-    return fg, L
+    return fg, L, ug
 
 
 def kernel_entry(name, source, replaces, launches, max_err, t):
@@ -558,18 +789,19 @@ def main():
     dev = torch.device("cuda")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
-    fg, L = build_kernels()
+    import bench_torch_gather_formulations as harness
+    fg, L, ug = build_kernels()
 
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = check_gather(fg, g, dev)
     print("phase 2: kernel bit-exact against its plain version")
 
-    timing = time_gather(fg, g, dev)
-    timing["bound_by"] = "bytes"
-    print(f"phase 3: gather {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, index_select "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} ms "
-          f"({timing['bytes']} bytes at {HBM_BYTES_PER_S:.3g} B/s)")
+    timing, timing_u7 = (time_gather(fg, g, dev, n) for n in (1, 3))
+    for n, t in ((1, timing), (3, timing_u7)):
+        print(f"phase 3: gather n={n} {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, index_select "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bytes']} bytes at {HBM_BYTES_PER_S:.3g} B/s)")
     torch.cuda.empty_cache()
 
     runner, launches, sps = run_trainer(dev)
@@ -605,6 +837,20 @@ def main():
           f"{lstm_launches}, env-steps/s per iteration "
           f"{[round(s, 1) for s in sps]}")
     check_windows_against_cpu(runner, dev)
+    del runner
+    torch.cuda.empty_cache()
+
+    union_err = check_union(ug, harness, g, dev)
+    print("phase 8: K5 and K6 bit-exact against their plain versions")
+    union_launches, union_t = run_harness(ug, harness, dev)
+    print(f"phase 9: harness ran, union kernel launches {union_launches}")
+
+    runner, ernbw_launches, sps = run_ernbw(fg, dev)
+    steady = sorted(sps[1:])[len(sps[1:]) // 2]
+    print(f"phase 10: ernbw trainer {ERNBW_ITR} iterations, "
+          f"{ernbw_launches} gather launches, median steady env-steps/s "
+          f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
+    check_prioritized_against_cpu(runner, dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -612,12 +858,18 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     lstm_src = "rlpyt_tpu_torch/csrc/lstm.cu"
+    union_src = "rlpyt_tpu_torch/csrc/union_gather.cu"
+    gather_src = "rlpyt_tpu_torch/csrc/frame_gather.cu"
     pallas = "rlpyt_tpu/ops/pallas/"
+    gather_replaces = (f"{pallas}frame_gather.py:111 and "
+                       f"{pallas}window_gather.py:79")
     print(json.dumps({"kernels": [
-        kernel_entry("frame_gather", "rlpyt_tpu_torch/csrc/frame_gather.cu",
-                     f"{pallas}frame_gather.py:111 and "
-                     f"{pallas}window_gather.py:79", launches, max_err,
-                     timing),
+        # The flagship DQN path (n=1) and the ernbw path (n=3) run the
+        # same kernel at two union widths: one entry for each.
+        kernel_entry("frame_gather", gather_src, gather_replaces, launches,
+                     max_err, timing),
+        kernel_entry("frame_gather_u7", gather_src, gather_replaces,
+                     ernbw_launches, max_err, timing_u7),
         kernel_entry("lstm_input_proj", lstm_src, f"{pallas}lstm.py:109",
                      lstm_launches["lstm_input_proj"],
                      lstm_err["lstm_input_proj"], lstm_t["lstm_input_proj"]),
@@ -627,6 +879,14 @@ def main():
         kernel_entry("lstm_bwd", lstm_src, f"{pallas}lstm.py:214",
                      lstm_launches["lstm_bwd"], lstm_err["lstm_bwd"],
                      lstm_t["lstm_bwd"]),
+        kernel_entry("union_rows", union_src,
+                     "bench_gather_formulations.py:106",
+                     union_launches["union_rows"], union_err[0],
+                     union_t["union_rows"]),
+        kernel_entry("union_window", union_src,
+                     "bench_gather_formulations.py:138",
+                     union_launches["union_window"], union_err[1],
+                     union_t["union_window"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """DQN-family agents (port of rlpyt_tpu/agents/dqn.py: EpsilonGreedyMixin,
-DqnAgent, R2d1Agent).  The step count that drives the epsilon schedule
+DqnAgent, CatDqnAgent, R2d1Agent).  The step count that drives the epsilon schedule
 is a Python integer kept by the collector, so the schedule costs no
 device sync.  The vector-epsilon option (R2D1's per-lane exploration)
 gives lane b of B the final epsilon
@@ -10,9 +10,16 @@ import numpy as np
 import torch
 
 from rlpyt_tpu_torch.agents.base import AgentStep, BaseAgent
-from rlpyt_tpu_torch.distributions.epsilon_greedy import EpsilonGreedy
+from rlpyt_tpu_torch.distributions.epsilon_greedy import (
+    CategoricalEpsilonGreedy,
+    EpsilonGreedy,
+)
 from rlpyt_tpu_torch.envs.base import EnvSpaces
-from rlpyt_tpu_torch.models.dqn import AtariDqnModel, AtariR2d1Model
+from rlpyt_tpu_torch.models.dqn import (
+    AtariCatDqnModel,
+    AtariDqnModel,
+    AtariR2d1Model,
+)
 from rlpyt_tpu_torch.models.rnn import zero_rnn_state
 
 
@@ -76,6 +83,38 @@ class DqnAgent(EpsilonGreedyMixin, BaseAgent):
         eps = self.epsilon(cum_steps, is_eval, q.shape[0])
         action = self.distribution.sample(q, eps, generator)
         return AgentStep(action, {"q": q}), carry
+
+
+class CatDqnAgent(DqnAgent):
+    """Categorical (C51) agent: the model gives atom probabilities
+    [B, A, n_atoms], and actions are greedy over their expected value on
+    the support ``z``."""
+
+    def __init__(self, ModelCls=AtariCatDqnModel, n_atoms=51, v_min=-10.0,
+                 v_max=10.0, **kwargs):
+        super().__init__(ModelCls=ModelCls, **kwargs)
+        self.n_atoms = n_atoms
+        self.v_min = v_min
+        self.v_max = v_max
+        self.model_kwargs.setdefault("n_atoms", n_atoms)
+
+    @property
+    def z(self) -> torch.Tensor:
+        """The atom support [n_atoms] on the agent's device."""
+        return torch.linspace(self.v_min, self.v_max, self.n_atoms,
+                              device=self.device)
+
+    def initialize(self, env_spaces: EnvSpaces):
+        BaseAgent.initialize(self, env_spaces)
+        self.distribution = CategoricalEpsilonGreedy(self.z)
+
+    @torch.no_grad()
+    def step(self, observation, prev_action, prev_reward, carry, cum_steps,
+             generator, is_eval=False):
+        p = self.model(observation, prev_action, prev_reward)
+        eps = self.epsilon(cum_steps, is_eval, p.shape[0])
+        action = self.distribution.sample(p, eps, generator)
+        return AgentStep(action, {"p": p}), carry
 
 
 class R2d1Agent(DqnAgent):

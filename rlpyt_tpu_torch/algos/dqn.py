@@ -1,8 +1,10 @@
-"""DQN (port of rlpyt_tpu/algos/dqn.py) on frame-compressed uniform replay.
+"""DQN (port of rlpyt_tpu/algos/dqn.py) on frame-compressed replay,
+uniform or prioritized.
 
 Per iteration: append the [T, B] batch to replay, then, once
 ``min_steps_learn`` env steps have been taken, ``updates_per_optimize``
-updates of sample -> TD loss -> grad -> clip -> Adam -> target rule.
+updates of sample -> TD loss -> grad -> clip -> Adam -> target rule ->
+priority write-back (prioritized replay only).
 """
 from __future__ import annotations
 
@@ -14,7 +16,10 @@ import torch
 from rlpyt_tpu_torch.algos.base import RlAlgorithm, clip_by_global_norm_
 from rlpyt_tpu_torch.ops.value import huber_loss, polyak_update
 from rlpyt_tpu_torch.replay.base import SamplesFromReplay, SamplesToBuffer
-from rlpyt_tpu_torch.replay.frame import UniformFrameReplayBuffer
+from rlpyt_tpu_torch.replay.frame import (
+    PrioritizedFrameReplayBuffer,
+    UniformFrameReplayBuffer,
+)
 from rlpyt_tpu_torch.struct import select_at_indexes, valid_mean
 
 
@@ -39,6 +44,9 @@ class DQN(RlAlgorithm):
         learning_rate: float = 2.5e-4,
         clip_grad_norm: float = 10.0,
         double_dqn: bool = False,
+        prioritized_replay: bool = False,
+        pri_alpha: float = 0.6,
+        pri_beta: float = 0.4,
         frames_per_obs: int = 4,
     ):
         self.discount = discount
@@ -53,6 +61,9 @@ class DQN(RlAlgorithm):
         self.learning_rate = learning_rate
         self.clip_grad_norm = clip_grad_norm
         self.double_dqn = double_dqn
+        self.prioritized_replay = prioritized_replay
+        self.pri_alpha = pri_alpha
+        self.pri_beta = pri_beta
         self.frames_per_obs = frames_per_obs
 
     def initialize(self, agent, batch_spec, example_obs, generator):
@@ -70,10 +81,15 @@ class DQN(RlAlgorithm):
             self.model.parameters(), lr=self.learning_rate,
             eps=0.01 / self.batch_size)
         self.update_counter = 0
-        self.replay = UniformFrameReplayBuffer(
-            size=self.replay_size, B=batch_spec.B, sample_T=batch_spec.T,
-            discount=self.discount, n_step_return=self.n_step,
-            frames_per_obs=self.frames_per_obs, device=agent.device)
+        kwargs = dict(size=self.replay_size, B=batch_spec.B,
+                      sample_T=batch_spec.T, discount=self.discount,
+                      n_step_return=self.n_step,
+                      frames_per_obs=self.frames_per_obs, device=agent.device)
+        if self.prioritized_replay:
+            self.replay = PrioritizedFrameReplayBuffer(
+                alpha=self.pri_alpha, beta=self.pri_beta, **kwargs)
+        else:
+            self.replay = UniformFrameReplayBuffer(**kwargs)
         space = agent.env_spaces.action
         dev = agent.device
         self.replay.init(SamplesToBuffer(
@@ -90,7 +106,8 @@ class DQN(RlAlgorithm):
                                samples.reward, samples.done, timeout)
 
     def loss(self, batch: SamplesFromReplay):
-        """TD loss; returns (scalar loss, |delta| per sample)."""
+        """TD loss; returns (scalar loss, |delta| per sample: the
+        priorities under prioritized replay)."""
         qs = self.agent.q(*batch.agent_inputs)
         q = select_at_indexes(batch.action, qs)
         with torch.no_grad():
@@ -112,7 +129,8 @@ class DQN(RlAlgorithm):
         return valid_mean(losses, valid), td_abs
 
     def update(self, batch: SamplesFromReplay) -> OptInfo:
-        """One gradient step on ``batch`` plus the target rule."""
+        """One gradient step on ``batch``, the target rule and, under
+        prioritized replay, the priority write-back."""
         loss, td_abs = self.loss(batch)
         self.optimizer.zero_grad(set_to_none=False)
         loss.backward()
@@ -125,6 +143,8 @@ class DQN(RlAlgorithm):
                           self.target_update_tau)
         elif self.update_counter % self.target_update_interval == 0:
             polyak_update(self.target_model, self.model, 1.0)
+        if self.prioritized_replay:
+            self.replay.update_priorities(batch.indices, td_abs)
         return OptInfo(loss.detach(), grad_norm, td_abs.mean())
 
     def optimize(self, samples, cum_steps: int) -> OptInfo:

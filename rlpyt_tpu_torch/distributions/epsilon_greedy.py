@@ -1,5 +1,6 @@
 """Epsilon-greedy action selection (port of
-rlpyt_tpu/distributions/epsilon_greedy.py:EpsilonGreedy)."""
+rlpyt_tpu/distributions/epsilon_greedy.py: EpsilonGreedy,
+CategoricalEpsilonGreedy)."""
 from __future__ import annotations
 
 import torch
@@ -18,3 +19,15 @@ class EpsilonGreedy:
         explore = torch.rand(shape, generator=generator,
                              device=dev).to(q.device) < epsilon
         return torch.where(explore, rand, greedy)
+
+
+class CategoricalEpsilonGreedy(EpsilonGreedy):
+    """Greedy over the expected value of the atom distribution (C51)."""
+
+    def __init__(self, z: torch.Tensor):
+        self.z = z   # atom support [n_atoms], on the agent's device
+
+    def sample(self, p: torch.Tensor, epsilon, generator: torch.Generator
+               ) -> torch.Tensor:
+        """p: [..., A, n_atoms] probabilities over atoms."""
+        return super().sample((p * self.z).sum(-1), epsilon, generator)

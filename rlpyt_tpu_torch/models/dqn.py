@@ -1,5 +1,6 @@
 """DQN-family models (port of rlpyt_tpu/models/dqn.py: DuelingHead,
-AtariDqnModel non-dueling, AtariR2d1Model).
+DistributionalDuelingHead, AtariDqnModel, AtariCatDqnModel,
+AtariR2d1Model).
 
 Accept observations with [], [B] or [T,B] leading dims and uint8
 images in [C, H, W] layout, scaled by 1/``obs_divisor`` inside the model.
@@ -42,13 +43,36 @@ class DuelingHead(nn.Module):
         return self.val(x) + adv - adv.mean(dim=-1, keepdim=True)
 
 
+class DistributionalDuelingHead(nn.Module):
+    """Dueling over atoms: [N, A, n_atoms] logits, the advantage mean
+    taken over actions.  ``adv`` and ``val`` are the JAX head's
+    ``MlpModel_0`` and ``MlpModel_1``."""
+
+    def __init__(self, input_size: int, hidden_sizes: Sequence[int],
+                 output_size: int, n_atoms: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.output_size = output_size
+        self.n_atoms = n_atoms
+        self.adv = MlpModel(input_size, hidden_sizes, output_size * n_atoms,
+                            compute_dtype=compute_dtype)
+        self.val = MlpModel(input_size, hidden_sizes, n_atoms,
+                            compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        adv = self.adv(x).reshape(x.shape[:-1]
+                                  + (self.output_size, self.n_atoms))
+        val = self.val(x).reshape(x.shape[:-1] + (1, self.n_atoms))
+        return val + adv - adv.mean(dim=-2, keepdim=True)
+
+
 class AtariDqnModel(nn.Module):
-    """Conv trunk -> MLP Q head.  Submodule names (``conv.convs.i``,
-    ``head.layers.i``) are what the weight bridge (params.py) maps the
-    flax tree onto."""
+    """Conv trunk -> (dueling) Q head.  Submodule names (``conv.convs.i``,
+    ``head.layers.i``, ``head.{adv,val}.layers.i``) are what the weight
+    bridge (params.py) maps the flax tree onto."""
 
     def __init__(self, image_shape: Tuple[int, int, int], n_actions: int,
-                 fc_sizes: Sequence[int] = (512,),
+                 fc_sizes: Sequence[int] = (512,), dueling: bool = False,
                  channels: Sequence[int] = ATARI_CHANNELS,
                  kernel_sizes: Sequence[int] = ATARI_KERNELS,
                  strides: Sequence[int] = ATARI_STRIDES,
@@ -62,14 +86,57 @@ class AtariDqnModel(nn.Module):
                                 input_scale=1.0 / obs_divisor)
         n_feat = Conv2dModel.conv_out_size(channels, kernel_sizes, strides,
                                            paddings, h, w)
-        self.head = MlpModel(n_feat, fc_sizes, n_actions,
-                             compute_dtype=compute_dtype)
+        if dueling:
+            self.head = DuelingHead(n_feat, fc_sizes, n_actions,
+                                    compute_dtype)
+        else:
+            self.head = MlpModel(n_feat, fc_sizes, n_actions,
+                                 compute_dtype=compute_dtype)
 
     def forward(self, observation, prev_action=None, prev_reward=None):
         lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
         x = self.conv(observation.reshape((T * B,) + img_shape))
         q = self.head(x.reshape(T * B, -1))
         return restore_leading_dims(q, lead_dim, T, B)
+
+
+class AtariCatDqnModel(nn.Module):
+    """Distributional (C51) model: conv trunk -> (dueling) head ->
+    softmax over atoms, [..., A, n_atoms] probabilities.  Both heads cast
+    their logits back to float32 (as the JAX heads do), so the softmax
+    runs in float32 under any compute dtype."""
+
+    def __init__(self, image_shape: Tuple[int, int, int], n_actions: int,
+                 n_atoms: int = 51, fc_sizes: Sequence[int] = (512,),
+                 dueling: bool = False,
+                 channels: Sequence[int] = ATARI_CHANNELS,
+                 kernel_sizes: Sequence[int] = ATARI_KERNELS,
+                 strides: Sequence[int] = ATARI_STRIDES,
+                 paddings: Sequence[int] = ATARI_PADDINGS,
+                 obs_divisor: float = 255.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c, h, w = image_shape
+        self.n_actions = n_actions
+        self.n_atoms = n_atoms
+        self.conv = Conv2dModel(c, channels, kernel_sizes, strides, paddings,
+                                compute_dtype=compute_dtype,
+                                input_scale=1.0 / obs_divisor)
+        n_feat = Conv2dModel.conv_out_size(channels, kernel_sizes, strides,
+                                           paddings, h, w)
+        if dueling:
+            self.head = DistributionalDuelingHead(
+                n_feat, fc_sizes, n_actions, n_atoms, compute_dtype)
+        else:
+            self.head = MlpModel(n_feat, fc_sizes, n_actions * n_atoms,
+                                 compute_dtype=compute_dtype)
+
+    def forward(self, observation, prev_action=None, prev_reward=None):
+        lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
+        x = self.conv(observation.reshape((T * B,) + img_shape))
+        logits = self.head(x.reshape(T * B, -1))
+        logits = logits.reshape(T * B, self.n_actions, self.n_atoms)
+        return restore_leading_dims(F.softmax(logits, dim=-1), lead_dim, T, B)
 
 
 class AtariR2d1Model(nn.Module):

@@ -1,12 +1,13 @@
 """Weight bridge between the JAX package's flax parameter trees and the
 port's ``state_dict``s.  It takes and returns numpy arrays only.
 
-Tree paths read (AtariDqnModel non-dueling, AtariR2d1Model)::
+Tree paths read (AtariDqnModel, AtariCatDqnModel, AtariR2d1Model)::
 
     params/Conv2dModel_0/Conv_{i}/{kernel,bias}  <->  conv.convs.{i}.{weight,bias}
     params/MlpModel_0/Dense_{j}/{kernel,bias}    <->  head.layers.{j}.{weight,bias}
     params/DuelingHead_0/MlpModel_0/Dense_{j}/.. <->  head.adv.layers.{j}.{..}
     params/DuelingHead_0/MlpModel_1/Dense_{j}/.. <->  head.val.layers.{j}.{..}
+    params/DistributionalDuelingHead_0/MlpModel_{0,1}/..  <->  head.{adv,val}...
     params/LstmCore_0/{wx,wh,b}                  <->  lstm.{wx,wh,b}
 
 Layout rules:
@@ -25,6 +26,10 @@ Layout rules:
       weight[o, c, hb*s + dy, wb*s + dx] = kernel[c, hb, wb, dy*s + dx, o]
 
   The rank of ``Conv_0/kernel`` (5 or 4) says which form a tree holds.
+- Both dueling heads map onto ``head.adv`` / ``head.val``.  Going back,
+  the value stream's output width says which flax module a state_dict
+  came from: 1 for ``DuelingHead_0``, ``n_atoms`` (> 1) for
+  ``DistributionalDuelingHead_0``.
 """
 from __future__ import annotations
 
@@ -36,7 +41,9 @@ import numpy as np
 # flax module of each head in a tree  <->  the port's prefix for it
 _HEADS = ((("MlpModel_0",), "head"),
           (("DuelingHead_0", "MlpModel_0"), "head.adv"),
-          (("DuelingHead_0", "MlpModel_1"), "head.val"))
+          (("DuelingHead_0", "MlpModel_1"), "head.val"),
+          (("DistributionalDuelingHead_0", "MlpModel_0"), "head.adv"),
+          (("DistributionalDuelingHead_0", "MlpModel_1"), "head.val"))
 
 
 def _s2d_to_plain(kernel: np.ndarray) -> np.ndarray:
@@ -87,7 +94,13 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
     ``space_to_depth=True``, else None."""
     sd = {k: np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
           for k, v in state_dict.items()}
-    paths = {prefix: path for path, prefix in _HEADS}
+    val_bias = {int(k.split(".")[-2]): v for k, v in sd.items()
+                if k.startswith("head.val.layers.") and k.endswith(".bias")}
+    dueling = ("DistributionalDuelingHead_0"
+               if val_bias and val_bias[max(val_bias)].shape[0] > 1
+               else "DuelingHead_0")
+    paths = {prefix: path for path, prefix in _HEADS
+             if path[0] in ("MlpModel_0", dueling)}
     tree = {}
 
     def node(path):

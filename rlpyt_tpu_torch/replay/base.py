@@ -13,7 +13,7 @@ integers, so deciding what is valid costs no device sync.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +42,7 @@ class SamplesFromReplay(NamedTuple):
     done_n: torch.Tensor      # done within the n-step window
     timeout_n: torch.Tensor   # timeout within the n-step window
     target_inputs: AgentInputs  # inputs at t + n_step
-    is_weights: torch.Tensor  # ones for uniform replay
+    is_weights: torch.Tensor  # PER importance weights (ones for uniform)
     indices: Tuple[torch.Tensor, torch.Tensor]   # (t_idx, b_idx)
 
 
@@ -113,9 +113,11 @@ class BaseReplayBuffer:
         """(obs at t, obs at t + n_step) for the sampled rows."""
         raise NotImplementedError
 
-    def extract_batch(self, t_idx: torch.Tensor, b_idx: torch.Tensor
+    def extract_batch(self, t_idx: torch.Tensor, b_idx: torch.Tensor,
+                      is_weights: Optional[torch.Tensor] = None
                       ) -> SamplesFromReplay:
-        """Gather transitions and n-step targets at (t_idx, b_idx)."""
+        """Gather transitions and n-step targets at (t_idx, b_idx);
+        ``is_weights`` defaults to ones (uniform replay)."""
         d = self.data
 
         def at(leaf, k=0):
@@ -140,6 +142,7 @@ class BaseReplayBuffer:
             target_inputs=AgentInputs(target_obs,
                                       at(d.action, self.n_step - 1),
                                       at(d.reward, self.n_step - 1)),
-            is_weights=torch.ones(t_idx.shape, device=t_idx.device),
+            is_weights=(torch.ones(t_idx.shape, device=t_idx.device)
+                        if is_weights is None else is_weights),
             indices=(t_idx, b_idx),
         )

@@ -1,5 +1,5 @@
 """Frame-compressed replay (port of rlpyt_tpu/replay/frame.py:
-UniformFrameReplayBuffer).
+FrameReplayMixin, UniformFrameReplayBuffer, PrioritizedFrameReplayBuffer).
 
 A K-frame stacked observation [K, H, W] shares K-1 frames with the
 previous step, so only the newest frame is stored, as one raw H*W uint8
@@ -15,10 +15,14 @@ import torch
 
 from rlpyt_tpu_torch.ops.frame_gather import gather_frame_stacks
 from rlpyt_tpu_torch.replay.base import SamplesToBuffer
+from rlpyt_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
 
 
-class UniformFrameReplayBuffer(UniformReplayBuffer):
+class FrameReplayMixin:
+    """Compose left of a replay class: strips stacks to their newest
+    frame at insert and rebuilds them at sample."""
+
     def __init__(self, *args, frames_per_obs: int = 4, **kwargs):
         super().__init__(*args, **kwargs)
         self.frames_per_obs = frames_per_obs
@@ -63,3 +67,11 @@ class UniformFrameReplayBuffer(UniformReplayBuffer):
             b_idx.to(torch.int32), mask_a, mask_t, K=K, n_step=n)
         shape = (t_idx.shape[0], K) + self._frame_hw
         return rows_a.view(shape), rows_t.view(shape)
+
+
+class UniformFrameReplayBuffer(FrameReplayMixin, UniformReplayBuffer):
+    """Uniform replay over frame-compressed observations."""
+
+
+class PrioritizedFrameReplayBuffer(FrameReplayMixin, PrioritizedReplayBuffer):
+    """Prioritized replay over frame-compressed observations."""

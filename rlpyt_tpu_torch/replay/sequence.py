@@ -23,6 +23,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from rlpyt_tpu_torch.replay.base import SamplesToBuffer
+from rlpyt_tpu_torch.replay.prioritized import importance_weights, \
+    stratified_idxs
 from rlpyt_tpu_torch.struct import buffer_from_example, tree_map
 
 
@@ -129,27 +131,18 @@ class PrioritizedSequenceReplayBuffer:
 
     def idxs_from_uniforms(self, u: torch.Tensor):
         """Inverse-CDF draws from uniforms ``u`` [b] in [0, 1): one per
-        stratum of the priority mass (``cumsum`` + right-sided
-        ``searchsorted``), importance weights normalised by their max."""
-        batch_b = u.shape[0]
+        stratum of the priority mass over the valid slots, importance
+        weights normalised by their max (replay/prioritized.py)."""
         valid = self._slot_validity()[:, None]
         p = self.priorities if self.prioritized \
             else torch.ones_like(self.priorities)
         flat = torch.where(valid, p, 0.0).reshape(-1)
-        cdf = torch.cumsum(flat, dim=0)
-        total = cdf[-1]
-        targets = (torch.arange(batch_b, device=self.device) + u) \
-            * (total / batch_b)
-        flat_idx = torch.clamp(
-            torch.searchsorted(cdf, targets, right=True),
-            max=flat.shape[0] - 1)
+        flat_idx, total = stratified_idxs(flat, u)
         slot_idx, b_idx = flat_idx // self.B, flat_idx % self.B
         if not self.prioritized:
             return slot_idx, b_idx, torch.ones_like(u)
-        n_valid = torch.clamp((flat > 0).sum(), min=1).to(torch.float32)
-        probs = flat[flat_idx] / torch.clamp(total, min=1e-12)
-        w = (1.0 / (n_valid * torch.clamp(probs, min=1e-12))) ** self.beta
-        return slot_idx, b_idx, w / torch.clamp(w.max(), min=1e-12)
+        return slot_idx, b_idx, importance_weights(flat, flat_idx, total,
+                                                   self.beta)
 
     def extract_window(self, slot_idx: torch.Tensor, b_idx: torch.Tensor,
                        is_weights: Optional[torch.Tensor] = None

@@ -31,5 +31,8 @@ def test_port_file_imports_no_jax(path):
 
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
-    assert "rlpyt_tpu_torch/ops/frame_gather.py" in names
+    for name in ("ops/frame_gather.py", "ops/union_gather.py",
+                 "replay/prioritized.py", "algos/cat_dqn.py"):
+        assert f"rlpyt_tpu_torch/{name}" in names
+    assert "bench_torch_gather_formulations.py" in names
     assert "chip_smoke.py" in names and len(names) > 20
