@@ -14,7 +14,9 @@ it holds the port's two unmasked union gathers against plain indexing,
                   (gather_union_window, K6) == ring[rows, b]
 
 on starts that wrap past the ring's end as well as ones that do not, and
-then times, with CUDA events:
+then times, with CUDA events around back-to-back Python calls (and, for
+the three kernels, around replays of one CUDA graph that holds 32
+launches: the device time of a launch with the host taken out):
 
     calib   a streaming copy of the same number of bytes (59.6 MB read,
             59.6 MB written);
@@ -72,6 +74,34 @@ def time_ms(fn, iters: int = 48) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def graph_ms(calls, replays: int = 5) -> float:
+    """Device time of one launch in ms with the host taken out: ``calls``
+    (functions of no argument, one launch each) are captured once into a
+    CUDA graph, the graph is replayed ``replays`` times between two
+    events, and the time is divided by the launches replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):    # warm up off the capture
+        for call in calls[:3]:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (replays * len(calls))
 
 
 def make_case(g: torch.Generator, dev, size_T=SIZE_T, B=B_LANES, F=F, U=U,
@@ -167,6 +197,10 @@ def measure(ring, ring_lm, sets, g: torch.Generator):
         res[name] = {"ms": ms, "bytes": n_bytes,
                      "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
                      "read_gb_per_s": union_bytes / ms / 1e6}
+        if name in (ROW_KERNEL, WINDOW_KERNEL, MASKED):
+            # Two passes over the index sets, replayed from one graph.
+            res[name]["device_ms"] = graph_ms(
+                [lambda k=k, fn=fn: fn(k) for k in range(2 * n)])
     return res
 
 
@@ -181,9 +215,11 @@ def run(dev, seed: int = 0):
     print("window match:", window)
     res = measure(ring, ring_lm, sets, g)
     for name, r in res.items():
+        device = (f"  device {r['device_ms']:.4f} ms" if "device_ms" in r
+                  else "")
         print(f"{name:28s} {r['ms']:8.4f} ms/gather  "
               f"{r['read_gb_per_s']:7.1f} GB/s (read)  bound "
-              f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)")
+              f"{r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB){device}")
     del ring, ring_lm, sets
     torch.cuda.empty_cache()
     return row, window, res

@@ -10,9 +10,12 @@ Phases, each fatal on failure:
      bit-exact, at the flagship replay shapes (ring [1568, 128, 8320] u8,
      batch 256, K=4, n=1, wrap-around starts) and on ragged / unaligned
      rows;
-  3. time it, its plain version and one indexed PyTorch call with CUDA
-     events, at n=1 (the flagship's union of 5 rows) and at n=3 (the
-     "ernbw" configuration's union of 7);
+  3. time it, its plain version and one indexed PyTorch call at n=1 (the
+     flagship's union of 5 rows) and at n=3 (the "ernbw" configuration's
+     union of 7), two ways: the time of one Python call in a back-to-back
+     loop, by CUDA events (what a trainer pays), and the device time of
+     one launch with the host taken out, by replaying a captured CUDA
+     graph of 32 launches;
   4. train the flagship Nature-CNN DQN (bench_atari.py:157-175 settings,
      bf16, full width) for a few iterations through MinibatchRl, check
      the losses are finite, that every replay sample went through the
@@ -20,9 +23,12 @@ Phases, each fatal on failure:
   5. hold the LSTM kernels (K3a input projection, K3 forward, K4
      backward) and the autograd Function against their plain versions,
      TF32 off, at R2D1's shapes (F=6919, H=512; (T, B) = (45, 32),
-     (20, 32), (1, 64)) and two ragged cases, with random dones;
+     (20, 32), (1, 64)), two ragged cases and a W_x that is not 16-byte
+     aligned, with random dones;
   6. time each LSTM kernel at the update's shapes beside its plain
-     version, its bound and one library call (addmm; cuDNN's LSTM);
+     version, its bound and one library call (addmm; cuDNN's LSTM), call
+     time and device time as in phase 3, and K3a also at the collection's
+     shape (M = 64 rows, where it streams W_x);
   7. train the Atari R2D1 configuration (bench_r2d1.py:68-104, first
      geometry) for 6 iterations through MinibatchRl, check finite
      losses and priorities, the LSTM launch counts, and that the card's
@@ -46,6 +52,12 @@ The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1, 2, 3, 5 and 6 alone (no trainer) and prints their times as
+one JSON line, without the result line: the quick loop while a kernel is
+being worked on.
 """
 from __future__ import annotations
 
@@ -59,8 +71,11 @@ from pathlib import Path
 
 import torch
 
+import bench_torch_gather_formulations as harness
+
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 rate outside the tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM dense TF32 tensor-core rate
 N_ITR = 4                    # trainer iterations; the first one warms up
 B, T = 128, 32               # flagship env lanes and steps per iteration
 LSTM_F, LSTM_H = 6919, 512   # R2D1's LSTM input (conv 6912 + 6 + 1), size
@@ -181,8 +196,12 @@ def time_gather(fg, g, dev, n: int):
     ms = time_ms(kernel)
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
+    # Two passes over the index sets in one graph: 32 launches.
+    device_ms = harness.graph_ms([kernel] * (2 * len(sets)))
+    library_device_ms = harness.graph_ms([library] * (2 * len(sets)))
     n_bytes = batch * (U + 2 * K) * F + batch * (4 + 4 + 2 * K)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": n_bytes}
 
@@ -272,6 +291,15 @@ def check_lstm(L, g, dev):
         for k, o, r in zip(names, got, want):
             hold("lstm_bwd", f"{name} d{k} (autograd)", o, r, 1e-3)
         print(f"lstm check {name}: kernels agree with plain")
+    # A W_x that is not 16-byte aligned (a view one float into a buffer)
+    # takes K3a's generic kernel.
+    M, F, N = 70, 130, 400
+    x = torch.randn((M, F), generator=g, device=dev)
+    flat = torch.randn((F * N + 1,), generator=g, device=dev) * F ** -0.5
+    wx, b = flat[1:].view(F, N), torch.randn((N,), generator=g, device=dev)
+    hold("lstm_input_proj", "unaligned W_x", L.input_proj(x, wx, b),
+         L.input_proj_plain(x, wx, b), 1e-4)
+    print("lstm check unaligned W_x: K3a agrees with plain")
     return worst
 
 
@@ -312,17 +340,43 @@ def time_lstm(L, g, dev):
     def cudnn_bwd():
         torch.autograd.grad(out, cudnn_params, dy, retain_graph=True)
 
+    def proj_times(x, weights, iters):
+        """K3a on ``x`` beside its plain version and ``torch.addmm``: call
+        times by events and device times by graph replay.  ``weights``
+        rotate, so that more than one copy of W_x does not fit in L2."""
+        it = {"i": 0}
+
+        def w():
+            it["i"] = (it["i"] + 1) % len(weights)
+            return weights[it["i"]]
+
+        def kernel():
+            L.input_proj(x, w(), a["b"])
+
+        def library():
+            torch.addmm(a["b"], x, w())
+
+        M = x.shape[0]
+        return dict(
+            ms=time_ms(kernel, iters),
+            plain_ms=time_ms(lambda: L.input_proj_plain(x, w(), a["b"]),
+                             iters),
+            library_ms=time_ms(library, iters),
+            device_ms=harness.graph_ms([kernel] * 10),
+            library_device_ms=harness.graph_ms([library] * 10),
+            ops=2 * M * F * 4 * H,
+            bytes=4 * (M * F + F * 4 * H + 4 * H + M * 4 * H))
+
+    # The collection's shape: one step of R2D1_B lanes, M = 64.  There the
+    # product streams W_x (56.7 MB; two copies exceed the 50 MB L2).
+    x64 = torch.randn((R2D1_B, F), generator=g, device=dev)
     res = {
-        "lstm_input_proj": dict(
-            ms=time_ms(lambda: L.input_proj(x2, a["wx"], a["b"]), 20),
-            plain_ms=time_ms(lambda: L.input_proj_plain(x2, a["wx"],
-                                                        a["b"]), 20),
-            library_ms=time_ms(lambda: torch.addmm(a["b"], x2, a["wx"]),
-                               20),
-            ops=2 * T * B * F * 4 * H,
-            bytes=4 * (T * B * F + F * 4 * H + 4 * H + T * B * 4 * H)),
+        "lstm_input_proj": proj_times(x2, [a["wx"]], 20),
+        "lstm_input_proj_m64": proj_times(x64, [a["wx"], a["wx"].clone()],
+                                          50),
         "lstm_fwd": dict(
             ms=time_ms(lambda: L.lstm_fwd(*fwd_args), 20),
+            device_ms=harness.graph_ms([lambda: L.lstm_fwd(*fwd_args)] * 5),
             plain_ms=time_ms(lambda: L.lstm_fwd_plain(*fwd_args), 10),
             library_ms=time_ms(cudnn_fwd, 10),
             # h @ W_h, plus ~10 operations per cell for the gates
@@ -332,6 +386,7 @@ def time_lstm(L, g, dev):
                        + T * B * (H + 4 * H + H) + 2 * B * H)),
         "lstm_bwd": dict(
             ms=time_ms(lambda: L.lstm_bwd(*bwd_args), 20),
+            device_ms=harness.graph_ms([lambda: L.lstm_bwd(*bwd_args)] * 5),
             plain_ms=time_ms(lambda: L.lstm_bwd_plain(*bwd_args), 10),
             library_ms=time_ms(cudnn_bwd, 10),
             # dgates @ W_h^T, plus ~20 operations per cell
@@ -341,11 +396,15 @@ def time_lstm(L, g, dev):
                        + H * 4 * H + T * B * H + B * H
                        + T * B * 4 * H + 2 * B * H)),
     }
-    for r in res.values():
+    for name, r in res.items():
         t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        if name.startswith("lstm_input_proj"):
+            # K3a runs three TF32 tensor-core products for each fp32 one.
+            r["bound_3xtf32_ms"] = max(3 * r["ops"] / TF32_OPS_PER_S * 1e3,
+                                       t_bytes)
     return res
 
 
@@ -358,6 +417,7 @@ def zero_launches():
     for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd,
                ug.gather_union_rows, ug.gather_union_window):
         fn.launches = 0
+    L.input_proj.split_launches = 0
 
 
 def build_flagship_runner(dev, n_itr: int, logger=None):
@@ -470,6 +530,7 @@ def run_r2d1(L, dev):
     runner.train()
     torch.cuda.synchronize()
     launches = {"lstm_input_proj": L.input_proj.launches,
+                "lstm_input_proj_split": L.input_proj.split_launches,
                 "lstm_fwd": L.lstm_fwd.launches,
                 "lstm_bwd": L.lstm_bwd.launches}
     updates = algo.update_counter
@@ -479,6 +540,7 @@ def run_r2d1(L, dev):
         fail(f"R2D1 ran {updates} updates, expected "
              f"{learning_itrs * algo.updates_per_optimize}")
     want = {"lstm_input_proj": R2D1_ITR * R2D1_T + 4 * updates,
+            "lstm_input_proj_split": R2D1_ITR * R2D1_T,
             "lstm_fwd": R2D1_ITR * R2D1_T + 4 * updates,
             "lstm_bwd": updates}
     if launches != want:
@@ -547,7 +609,7 @@ def check_replay_against_cpu(runner, dev):
     print("replay batch on the card equals the CPU path: bit-exact")
 
 
-def check_union(ug, harness, g, dev):
+def check_union(ug, g, dev):
     """Phase 8: K5 and K6 against their plain versions on the card, bit
     for bit.  Returns the largest abs error of each at the harness's
     shapes (the ragged cases fail on any difference)."""
@@ -596,7 +658,7 @@ def check_union(ug, harness, g, dev):
     return worst
 
 
-def run_harness(ug, harness, dev):
+def run_harness(ug, dev):
     """Phase 9: bench_torch_gather_formulations.py's own run (match lines
     and times), with the union kernels' launches counted over it."""
     zero_launches()
@@ -609,7 +671,9 @@ def run_harness(ug, harness, dev):
         fail(f"the harness did not launch the union kernels: {launches}")
 
     def entry(kernel, plain, indexed):
-        return {"ms": res[kernel]["ms"], "plain_ms": res[plain]["ms"],
+        return {"ms": res[kernel]["ms"],
+                "device_ms": res[kernel]["device_ms"],
+                "plain_ms": res[plain]["ms"],
                 "library_ms": res[indexed]["ms"],
                 "bound_ms": res[kernel]["bound_ms"], "bound_by": "bytes"}
 
@@ -774,9 +838,20 @@ def build_kernels():
 def kernel_entry(name, source, replaces, launches, max_err, t):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": max_err, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"],
+            "library_device_ms": t.get("library_device_ms")}
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return smi.splitlines()[0]
 
 
 def main():
@@ -786,10 +861,10 @@ def main():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+    kernels_only = "--kernels-only" in sys.argv[1:]
     dev = torch.device("cuda")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
-    import bench_torch_gather_formulations as harness
     fg, L, ug = build_kernels()
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -798,20 +873,23 @@ def main():
 
     timing, timing_u7 = (time_gather(fg, g, dev, n) for n in (1, 3))
     for n, t in ((1, timing), (3, timing_u7)):
-        print(f"phase 3: gather n={n} {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, index_select "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bytes']} bytes at {HBM_BYTES_PER_S:.3g} B/s)")
+        print(f"phase 3: gather n={n} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; index_select call "
+              f"{t['library_ms']:.4f} ms, device "
+              f"{t['library_device_ms']:.4f} ms; plain {t['plain_ms']:.4f} "
+              f"ms; bound {t['bound_ms']:.4f} ms ({t['bytes']} bytes at "
+              f"{HBM_BYTES_PER_S:.3g} B/s)")
     torch.cuda.empty_cache()
 
-    runner, launches, sps = run_trainer(dev)
-    steady = sorted(sps[1:])[len(sps[1:]) // 2]
-    print(f"phase 4: flagship trainer {N_ITR} iterations, "
-          f"{launches} gather launches, median steady env-steps/s "
-          f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
-    check_replay_against_cpu(runner, dev)
-    del runner
-    torch.cuda.empty_cache()
+    if not kernels_only:
+        runner, launches, sps = run_trainer(dev)
+        steady = sorted(sps[1:])[len(sps[1:]) // 2]
+        print(f"phase 4: flagship trainer {N_ITR} iterations, "
+              f"{launches} gather launches, median steady env-steps/s "
+              f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
+        check_replay_against_cpu(runner, dev)
+        del runner
+        torch.cuda.empty_cache()
 
     # The LSTM checks compare fp32 kernels with fp32 cuBLAS and cuDNN.
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -823,13 +901,26 @@ def main():
           f"plain versions (max abs err {lstm_err})")
     lstm_t = time_lstm(L, g, dev)
     for name, t in lstm_t.items():
-        print(f"phase 6: {name} {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-              f"ms, library {t['library_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
-              f"operations, {t['bytes']} bytes)")
+        library_device = t.get("library_device_ms")
+        print(f"phase 6: {name} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; library call "
+              f"{t['library_ms']:.4f} ms"
+              + (f", device {library_device:.4f} ms" if library_device
+                 else "")
+              + f"; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}"
+              + (f" (three TF32 products: {t['bound_3xtf32_ms']:.4f} ms)"
+                 if "bound_3xtf32_ms" in t else "")
+              + f" ({t['ops']} operations, {t['bytes']} bytes)")
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
+    if kernels_only:
+        print(nvidia_smi_line())
+        print(json.dumps({"kernels_only": {
+            "frame_gather": timing, "frame_gather_u7": timing_u7, **lstm_t},
+            "max_abs_err": {"frame_gather": max_err, **lstm_err}}))
+        return 0
 
     runner, lstm_launches, sps = run_r2d1(L, dev)
     print(f"phase 7: R2D1 trainer {R2D1_ITR} iterations, "
@@ -840,9 +931,9 @@ def main():
     del runner
     torch.cuda.empty_cache()
 
-    union_err = check_union(ug, harness, g, dev)
+    union_err = check_union(ug, g, dev)
     print("phase 8: K5 and K6 bit-exact against their plain versions")
-    union_launches, union_t = run_harness(ug, harness, dev)
+    union_launches, union_t = run_harness(ug, dev)
     print(f"phase 9: harness ran, union kernel launches {union_launches}")
 
     runner, ernbw_launches, sps = run_ernbw(fg, dev)
@@ -852,11 +943,7 @@ def main():
           f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
     check_prioritized_against_cpu(runner, dev)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(nvidia_smi_line())
     lstm_src = "rlpyt_tpu_torch/csrc/lstm.cu"
     union_src = "rlpyt_tpu_torch/csrc/union_gather.cu"
     gather_src = "rlpyt_tpu_torch/csrc/frame_gather.cu"
@@ -870,9 +957,16 @@ def main():
                      max_err, timing),
         kernel_entry("frame_gather_u7", gather_src, gather_replaces,
                      ernbw_launches, max_err, timing_u7),
+        # K3a at the update's shapes (M = 1440: all of the path's
+        # launches) and at the collection's (M = 64: those of them that
+        # took the split-K path, one per env step).
         kernel_entry("lstm_input_proj", lstm_src, f"{pallas}lstm.py:109",
                      lstm_launches["lstm_input_proj"],
                      lstm_err["lstm_input_proj"], lstm_t["lstm_input_proj"]),
+        kernel_entry("lstm_input_proj_m64", lstm_src, f"{pallas}lstm.py:109",
+                     lstm_launches["lstm_input_proj_split"],
+                     lstm_err["lstm_input_proj"],
+                     lstm_t["lstm_input_proj_m64"]),
         kernel_entry("lstm_fwd", lstm_src, f"{pallas}lstm.py:109",
                      lstm_launches["lstm_fwd"], lstm_err["lstm_fwd"],
                      lstm_t["lstm_fwd"]),

@@ -15,13 +15,50 @@
 //
 // What bounds them on an H100:
 //   K3a is a GEMM of 2*T*B*F*4H operations (40.8 GFLOP at T*B = 1440,
-//       F = 6919, H = 512): bound by the fp32 (non-tensor) rate.  W_x is
-//       56.7 MB and cannot stay in shared memory, so the projection runs
-//       once over all T*B rows, streaming W_x once per call, not once per
-//       step.  Design: 128x128x8 shared-memory tiles, 256 threads, an 8x8
-//       register block per thread; when the grid has too few tiles to
-//       fill the SMs (T*B = 64 at collection), K is split over
-//       blockIdx.z and a second pass adds the partial sums and the bias.
+//       F = 6919, H = 512) that must give float32 results.  On the fp32
+//       pipes it is bound by 67 TFLOP/s (0.61 ms); the tensor cores take
+//       TF32 only, whose 10-bit mantissa loses the result at K = 6919.
+//       Design: the error-compensated split.  Every operand is cut into
+//       two TF32 values, hi = v rounded to nearest and lo = v - hi, on its
+//       way from shared memory to registers, and each 16x8x8 tile is three
+//       mma.sync products, a_lo*b_hi + a_hi*b_lo + a_hi*b_hi: three times
+//       the operations at 7.4 times the rate (bound 0.25 ms).  The tensor
+//       cores add to their accumulator with truncation, which over the
+//       2,600 adds of a K = 6919 sum would bias it by about one part in
+//       1e4; so the 12 products of a 32-deep stage are summed in the
+//       tensor core from zero, where the truncation acts on a small
+//       partial sum, and each stage's sum is added to the running fp32
+//       accumulator by an ordinary rounded add.
+//       mma.sync fed from registers, not wgmma: wgmma reads TF32 operands
+//       from shared memory K-major only, W_x is [K, N] (N-major), and the
+//       hi/lo split has to pass through registers anyway; a transposed
+//       copy of the 56.7 MB W_x would have to be refreshed after every
+//       optimizer step.
+//       Tiles: BM x 128 x 32 in a ring of shared-memory stages filled by
+//       cp.async (W_x in 16-byte pieces; x in 4-byte pieces, since its
+//       rows of K = 6919 floats are only 4-byte aligned), zero-filled
+//       past M, N and the end of the K range, one __syncthreads per
+//       stage.  Row strides of 36 and 136 floats make every fragment load
+//       hit 32 different banks.  8 warps, 2 along M by 4 along N, one CTA
+//       to an SM: a warp's accumulators, stage sums and fragments take
+//       some 170 registers, and two CTAs at 128 each spilled and ran
+//       slower.  What a thread computes per copy (addresses, bounds) is
+//       hoisted out of the copy loops: left in, it cost a quarter of the
+//       kernel's time.
+//       Two shapes of the same kernel:
+//       - many rows (updates: T*B = 640, 1440): BM = 96 (1440 = 15 * 96),
+//         4 stages, 240 CTAs;
+//       - few rows (collection: T*B = 64): the product is a stream over
+//         W_x, which does not fit the 50 MB L2.  BM = 64 (no padding
+//         rows), K split over the 8 CTAs of a thread-block cluster, 6
+//         stages (160 KB) in flight per SM.  The partial tiles never go
+//         to device memory: each CTA leaves its tile in shared memory,
+//         and after a cluster barrier CTA r sums rows [8r, 8r+8) of all
+//         eight over distributed shared memory, in a fixed order, adds
+//         the bias and writes.  One launch, no scratch tensor, no
+//         atomics: the sum's order is the same in every run.
+//       W_x not 16-byte aligned or 4H not a multiple of 4 take a plain
+//       shared-memory-tiled FFMA kernel.
 //   K3 / K4 do 2*T*B*H*4H operations in T dependent steps: on paper bound
 //       by fp32 operations, in fact by the latency of each step.  Design:
 //       one persistent cooperative launch per call.  CTA j owns hidden
@@ -52,21 +89,314 @@ namespace {
 // K3a: xg = x @ W_x + b
 // ---------------------------------------------------------------------
 
-constexpr int kBM = 128, kBN = 128, kBK = 8;
-constexpr int kGemmThreads = 256;
+constexpr int kBK = 32;                // depth of a shared-memory stage
+constexpr int kAStride = kBK + 4;      // floats; A fragments hit 32 banks
+constexpr int kSplit = 8;              // CTAs of a cluster sharing a tile's K
 
-// C[z] = A[:, kz] @ B[kz, :] (+ bias) for the K range kz of blockIdx.z.
-__global__ void __launch_bounds__(kGemmThreads)
-proj_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                 const float* __restrict__ bias, float* __restrict__ C,
-                 int M, int N, int K, int k_chunk) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];   // A tile, transposed
-  __shared__ __align__(16) float Bs[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy ``Bytes`` from global to shared memory, or fill them with zeros.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const int n = valid ? Bytes : 0;
+  if constexpr (Bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// v = hi + lo: hi is v rounded to TF32 (10-bit mantissa) to nearest, ties
+// away from zero, the value cvt.rna.tf32.f32 gives, made with an integer
+// add and a mask on the sign-magnitude bits (the kernel ran 7 % faster
+// than with cvt); lo is the rest, of which the tensor core reads the
+// leading 11 bits.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) @ b (8x8, col), TF32 in, fp32 out.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Shape of one instance of the tensor-core kernel: a BM x BN tile by WM x
+// WN warps, a ring of STAGES stages, the K range of a tile split over
+// SPLIT CTAs (a cluster); one CTA to an SM.
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int SPLIT_>
+struct ProjShape {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int STAGES = STAGES_, SPLIT = SPLIT_;
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int MT = BM / WM / 16;   // 16-row tiles per warp
+  static constexpr int NT = BN / WN / 8;    // 8-column tiles per warp
+  static constexpr int kBStride = BN + 8;   // floats; B fragments: 32 banks
+  static constexpr int kRedStride = BN + 4; // floats; a split's partial tile
+  static constexpr int kStage = BM * kAStride + kBK * kBStride;
+  static constexpr size_t kSmem = sizeof(float) * STAGES * kStage;
+  static_assert(BM % (WM * 16) == 0 && BN % (WN * 8) == 0, "warp tiles");
+  static_assert(BN == 128 && BM % (kThreads / 32) == 0,
+                "a warp loads one row of a stage per pass");
+  static_assert(SPLIT == 1 || (BM % SPLIT == 0 && BN == 128 &&
+                               BM / SPLIT * 32 <= kThreads &&
+                               BM * kRedStride <= STAGES * kStage),
+                "the cluster reduction takes a warp per row of its slice");
+};
+
+// One stage: A[m0.., k0..k0+32) as [BM][kAStride], then B[k0.., n0..n0+BN)
+// as [32][kBStride]; zeros past M, N and ke.  A warp copies one row of
+// either tile per pass: 32 floats of A one by one (rows of x are only
+// 4-byte aligned), 128 floats of B in 16-byte pieces.
+template <typename S>
+__device__ __forceinline__ void load_stage(float* stage, const float* A,
+                                           const float* Bm, int M, int N,
+                                           int K, int m0, int n0, int k0,
+                                           int ke, int tid) {
+  constexpr int kRows = S::kThreads / 32;   // rows per pass
+  const int row = tid / 32, lane = tid % 32;
+  {
+    float* dst = stage + row * kAStride + lane;
+    const float* src = A + (int64_t)(m0 + row) * K + k0 + lane;
+    const int64_t step = (int64_t)kRows * K;
+    const bool k_ok = k0 + lane < ke;
+#pragma unroll
+    for (int r = 0; r < S::BM / kRows; ++r) {
+      const bool ok = k_ok && m0 + row + r * kRows < M;
+      cp_async<4>(dst, ok ? src : A, ok);
+      dst += kRows * kAStride;
+      src += step;
+    }
+  }
+  {
+    float* dst = stage + S::BM * kAStride + row * S::kBStride + lane * 4;
+    const float* src = Bm + (int64_t)(k0 + row) * N + n0 + lane * 4;
+    const int64_t step = (int64_t)kRows * N;
+    const bool n_ok = n0 + lane * 4 < N;
+#pragma unroll
+    for (int r = 0; r < (kBK + kRows - 1) / kRows; ++r) {
+      if (kBK % kRows == 0 || row + r * kRows < kBK) {
+        const bool ok = n_ok && k0 + row + r * kRows < ke;
+        cp_async<16>(dst, ok ? src : Bm, ok);
+      }
+      dst += kRows * S::kBStride;
+      src += step;
+    }
+  }
+}
+
+// C[m0.., n0..] = A @ B + bias over the K range of blockIdx.z.  With
+// SPLIT > 1 the launch groups the SPLIT CTAs of one tile (blockIdx.z) into
+// a cluster, which sums their partial tiles before the write.
+// Needs N % 4 == 0 and B, bias, C 16-byte aligned.
+template <typename S>
+__global__ void __launch_bounds__(S::kThreads, 1)
+proj_mma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                const float* __restrict__ bias, float* __restrict__ C, int M,
+                int N, int K, int k_chunk) {
+  constexpr int BM = S::BM, BN = S::BN, MT = S::MT, NT = S::NT;
+  constexpr int STAGES = S::STAGES, SPLIT = S::SPLIT;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / S::WN) * (MT * 16), wn = (warp % S::WN) * (NT * 8);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * k_chunk;
   const int ke = min(K, kb + k_chunk);
+  const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  // Stage s of the ring holds K tile s, s + STAGES, ...; one commit group
+  // per tile, empty past the end, so that the wait below counts right.
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage<S>(smem + s * S::kStage, A, Bm, M, N, K, m0, n0,
+                    kb + s * kBK, ke, tid);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();   // tile kt has landed
+    __syncthreads();               // ... for all, and tile kt-1 is consumed
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk)
+      load_stage<S>(smem + (nxt % STAGES) * S::kStage, A, Bm, M, N, K, m0, n0,
+                    kb + nxt * kBK, ke, tid);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const float* As = smem + (kt % STAGES) * S::kStage + wm * kAStride;
+    const float* Bs = smem + (kt % STAGES) * S::kStage + BM * kAStride + wn;
+    // The products of this stage are summed in the tensor core, from
+    // zero, so that its truncating adds act on a small partial sum; the
+    // stage's sum is then added to the running one by a rounded add.
+    float d[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[i][j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kBK; ks += 8) {
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        split_tf32(Bs[(ks + t) * S::kBStride + j * 8 + g], bh[j][0],
+                   bl[j][0]);
+        split_tf32(Bs[(ks + t + 4) * S::kBStride + j * 8 + g], bh[j][1],
+                   bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* ap = As + (i * 16 + g) * kAStride + ks + t;
+        uint32_t ah[4], al[4];
+        split_tf32(ap[0], ah[0], al[0]);
+        split_tf32(ap[8 * kAStride], ah[1], al[1]);
+        split_tf32(ap[4], ah[2], al[2]);
+        split_tf32(ap[8 * kAStride + 4], ah[3], al[3]);
+        // Small terms first; the NT tiles of a row are independent chains.
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], al, bh[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], ah, bl[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], ah, bh[j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][q] += d[i][j][q];
+  }
+
+  // Thread (g, t) holds rows g and g + 8, columns 2t and 2t + 1 of each
+  // 16x8 tile.
+  if constexpr (SPLIT == 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + wn + j * 8 + 2 * t;
+      if (n >= N) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + i * 16 + g + 8 * h;
+          if (m < M)
+            *reinterpret_cast<float2*>(C + (int64_t)m * N + n) = make_float2(
+                acc[i][j][2 * h] + bv.x, acc[i][j][2 * h + 1] + bv.y);
+        }
+    }
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    cp_async_wait<0>();
+    __syncthreads();               // the ring is free: reuse it
+    float* red = smem;             // [BM][kRedStride]
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(
+              red + (wm + i * 16 + g + 8 * h) * S::kRedStride + wn + j * 8 +
+              2 * t) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    cluster.sync();
+    // CTA r of the cluster sums rows [r * BM / SPLIT, ...) of all partial
+    // tiles, a warp per row, in the order of the splits.
+    if (warp < BM / SPLIT) {
+      const int row = cluster.block_rank() * (BM / SPLIT) + warp;
+      const int col = lane * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int z = 0; z < SPLIT; ++z) {
+        const float* peer = cluster.map_shared_rank(red, z);
+        const float4 v = *reinterpret_cast<const float4*>(
+            peer + row * S::kRedStride + col);
+        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+      }
+      const int m = m0 + row, n = n0 + col;
+      if (m < M && n < N) {
+        const float4 bv = *reinterpret_cast<const float4*>(bias + n);
+        *reinterpret_cast<float4*>(C + (int64_t)m * N + n) =
+            make_float4(s.x + bv.x, s.y + bv.y, s.z + bv.z, s.w + bv.w);
+      }
+    }
+    cluster.sync();                // no CTA leaves while a peer reads it
+  }
+}
+
+template <typename S>
+cudaError_t launch_proj_mma(const float* A, const float* Bm, const float* bias,
+                            float* C, int M, int N, int K, int k_chunk,
+                            cudaStream_t stream) {
+  auto kernel = proj_mma_kernel<S>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = S::SPLIT;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + S::BN - 1) / S::BN, (M + S::BM - 1) / S::BM,
+                     S::SPLIT);
+  cfg.blockDim = dim3(S::kThreads);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, A, Bm, bias, C, M, N, K, k_chunk);
+}
+
+// Many rows: 96 x 128 tiles, 4 stages (125 KB).
+using ProjBig = ProjShape<96, 128, 2, 4, 4, 1>;
+// Few rows: 64 x 128 tiles, K over a cluster of 8, 6 stages (160 KB).
+using ProjSmall = ProjShape<64, 128, 2, 4, 6, kSplit>;
+
+// The path for any alignment and any N: 128x128x8 shared-memory tiles,
+// an 8x8 register block per thread, FFMA.
+constexpr int kGenM = 128, kGenN = 128, kGenK = 8;
+constexpr int kGemmThreads = 256;
+
+__global__ void __launch_bounds__(kGemmThreads)
+proj_generic_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                    const float* __restrict__ bias, float* __restrict__ C,
+                    int M, int N, int K) {
+  __shared__ __align__(16) float As[kGenK][kGenM + 4];   // A tile, transposed
+  __shared__ __align__(16) float Bs[kGenK][kGenN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kGenM, n0 = blockIdx.x * kGenN;
 
   float acc[8][8];
 #pragma unroll
@@ -74,20 +404,20 @@ proj_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
+  for (int k0 = 0; k0 < K; k0 += kGenK) {
 #pragma unroll
-    for (int r = 0; r < (kBM * kBK) / kGemmThreads; ++r) {
+    for (int r = 0; r < (kGenM * kGenK) / kGemmThreads; ++r) {
       const int e = tid + r * kGemmThreads;
-      const int m = e / kBK, k = e % kBK;
+      const int m = e / kGenK, k = e % kGenK;
       const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < ke) ? A[(int64_t)gm * K + gk] : 0.f;
-      const int kk = e / kBN, n = e % kBN;
+      As[k][m] = (gm < M && gk < K) ? A[(int64_t)gm * K + gk] : 0.f;
+      const int kk = e / kGenN, n = e % kGenN;
       const int gk2 = k0 + kk, gn = n0 + n;
-      Bs[kk][n] = (gk2 < ke && gn < N) ? Bm[(int64_t)gk2 * N + gn] : 0.f;
+      Bs[kk][n] = (gk2 < K && gn < N) ? Bm[(int64_t)gk2 * N + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
+    for (int k = 0; k < kGenK; ++k) {
       const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
       const float4 a1 = *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
       const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
@@ -102,7 +432,6 @@ proj_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     __syncthreads();
   }
 
-  float* out = C + (int64_t)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
@@ -110,22 +439,9 @@ proj_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) out[(int64_t)m * N + n] = acc[i][j] + (bias ? bias[n] : 0.f);
+      if (n < N) C[(int64_t)m * N + n] = acc[i][j] + bias[n];
     }
   }
-}
-
-// C = bias + sum_z part[z]
-__global__ void splitk_reduce_kernel(const float* __restrict__ part,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ C, int M, int N,
-                                     int splits) {
-  const int64_t MN = (int64_t)M * N;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= MN) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * MN + idx];
-  C[idx] = s + bias[idx % N];
 }
 
 // ---------------------------------------------------------------------
@@ -369,31 +685,42 @@ cudaError_t launch_recurrence(const void* kernel, int H, size_t smem,
 
 extern "C" {
 
-// K3a.  x [M, K], wx [K, N], b [N] -> xg [M, N].  Split z sums K rows
-// [z*k_chunk, (z+1)*k_chunk); with splits > 1, work holds splits * M * N
-// floats of partial sums and k_chunk * splits >= K.
+int lstm_proj_split() { return kSplit; }
+int lstm_proj_k_step() { return kBK; }
+
+// K3a.  x [M, K], wx [K, N], b [N] -> xg [M, N].  ``tile_m`` picks the
+// path: 96 is the many-row tensor-core kernel (splits == 1, k_chunk >= K),
+// 64 the few-row one, whose cluster of ``splits`` == 8 CTAs takes K rows
+// [z*k_chunk, (z+1)*k_chunk) each (k_chunk a multiple of 32, k_chunk * 8
+// >= K); both need N % 4 == 0 and wx, xg 16-byte aligned.  0 is the
+// generic kernel.
 int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
-                     void* work, int M, int N, int K, int k_chunk,
-                     int splits, void* stream) {
+                     int M, int N, int K, int tile_m, int k_chunk, int splits,
+                     void* stream) {
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* A = static_cast<const float*>(x);
   const auto* W = static_cast<const float*>(wx);
   const auto* bias = static_cast<const float*>(b);
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-  if (splits == 1) {
-    proj_gemm_kernel<<<grid, kGemmThreads, 0, s>>>(
-        A, W, bias, static_cast<float*>(xg), M, N, K, k_chunk);
-  } else {
-    proj_gemm_kernel<<<grid, kGemmThreads, 0, s>>>(
-        A, W, nullptr, static_cast<float*>(work), M, N, K, k_chunk);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t MN = (int64_t)M * N;
-    splitk_reduce_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(work), bias, static_cast<float*>(xg), M,
-        N, splits);
+  auto* C = static_cast<float*>(xg);
+  if (tile_m == 0) {
+    dim3 grid((N + kGenN - 1) / kGenN, (M + kGenM - 1) / kGenM);
+    proj_generic_kernel<<<grid, kGemmThreads, 0, s>>>(A, W, bias, C, M, N, K);
+    return static_cast<int>(cudaGetLastError());
   }
+  const bool aligned =
+      N % 4 == 0 && (reinterpret_cast<uintptr_t>(wx) & 15u) == 0 &&
+      (reinterpret_cast<uintptr_t>(xg) & 15u) == 0 &&
+      (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
+  const bool big = tile_m == ProjBig::BM && splits == 1 && k_chunk >= K;
+  const bool small = tile_m == ProjSmall::BM && splits == kSplit &&
+                     k_chunk % kBK == 0 && (int64_t)k_chunk * splits >= K;
+  if (!aligned || !(big || small) || (M + tile_m - 1) / tile_m > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      big ? launch_proj_mma<ProjBig>(A, W, bias, C, M, N, K, k_chunk, s)
+          : launch_proj_mma<ProjSmall>(A, W, bias, C, M, N, K, k_chunk, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

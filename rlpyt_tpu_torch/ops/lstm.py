@@ -7,7 +7,9 @@ that takes the place of the JAX package's ``jax.custom_vjp``
 The TPU kernels K3 (``_lstm_fwd_pallas``) and K4 (``_lstm_bwd_pallas``)
 become three kernels here:
 
-- ``input_proj`` (K3a): ``xg = x @ W_x + b`` over all T*B rows at once;
+- ``input_proj`` (K3a): ``xg = x @ W_x + b`` over all T*B rows at once,
+  float32 results from the TF32 tensor cores by a hi/lo split of both
+  operands (three products for each tile);
 - ``lstm_fwd`` (K3): the T-step recurrence over ``xg`` with ``W_h``,
   emitting ``y``, the post-activation gates and ``c`` for the backward,
   and ``hT``, ``cT``;
@@ -49,7 +51,7 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_proj_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        lib.lstm_proj_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
         lib.lstm_fwd_launch.argtypes = [vp] * 10 + [ci] * 3 + [vp]
         lib.lstm_bwd_launch.argtypes = [vp] * 10 + [ci] * 3 + [vp]
         for fn in (lib.lstm_proj_launch, lib.lstm_fwd_launch,
@@ -57,6 +59,12 @@ def load():
             fn.restype = ci
         lib.lstm_error_string.argtypes = [ci]
         lib.lstm_error_string.restype = ctypes.c_char_p
+        for fn in (lib.lstm_proj_split, lib.lstm_proj_k_step):
+            fn.argtypes, fn.restype = [], ci
+        if (lib.lstm_proj_split(), lib.lstm_proj_k_step()) \
+                != (PROJ_SPLITS, PROJ_K_STEP):
+            raise RuntimeError("lstm.cu and ops/lstm.py disagree on the "
+                               "projection's split or K step")
         _lib = lib
     return _lib
 
@@ -145,18 +153,32 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def proj_splits(M: int, N: int, K: int, n_sm: int):
-    """Split of the K dimension for the projection: enough CTAs to cover
-    the SMs when the output has few 128x128 tiles (the kernel's tile),
-    each split at least 512 deep and a multiple of the kernel's K step
-    of 8.  Returns (k_chunk, splits)."""
+PROJ_K_STEP = 32    # depth of one shared-memory stage of K3a
+PROJ_SPLITS = 8     # CTAs of a cluster that share the K range of a tile
+
+
+def proj_plan(M: int, N: int, K: int, n_sm: int):
+    """Which of K3a's paths takes x [M, K] @ wx [K, N], as (tile_m,
+    k_chunk, splits); split z takes rows [z * k_chunk, (z + 1) * k_chunk)
+    of W_x.
+
+    - (64, k_chunk, 8): the few-row path, 64-row tiles whose K range is
+      split over a cluster of 8 CTAs.  Taken for M <= 64 (a collection
+      step, where the product streams W_x once and 64 rows fill one tile
+      without padding) and whenever 96-row tiles would leave more than
+      half of the SMs without one.
+    - (96, K rounded up, 1): the many-row path, 96 x 128 tiles, no split.
+    - (0, K, 1): the generic kernel, for N not a multiple of 4.
+    """
     def cdiv(a, b):
         return -(-a // b)
 
-    tiles = cdiv(M, 128) * cdiv(N, 128)
-    splits = max(1, min(n_sm // tiles, K // 512))
-    k_chunk = cdiv(cdiv(K, splits), 8) * 8
-    return k_chunk, cdiv(K, k_chunk)
+    if N % 4 != 0:
+        return 0, K, 1
+    if M <= 64 or 2 * cdiv(M, 96) * cdiv(N, 128) <= n_sm:
+        return (64, cdiv(cdiv(K, PROJ_SPLITS), PROJ_K_STEP) * PROJ_K_STEP,
+                PROJ_SPLITS)
+    return 96, cdiv(K, PROJ_K_STEP) * PROJ_K_STEP, 1
 
 
 def input_proj(x, wx, b):
@@ -170,17 +192,17 @@ def input_proj(x, wx, b):
         _check(name, t, shape, x.device)
     lib = load()
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    k_chunk, splits = proj_splits(M, N, K, n_sm)
+    tile_m, k_chunk, splits = proj_plan(M, N, K, n_sm)
+    if wx.data_ptr() % 16 != 0 or b.data_ptr() % 16 != 0:
+        tile_m, k_chunk, splits = 0, K, 1    # a view into another tensor
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    work = (torch.empty((splits, M, N), dtype=torch.float32,
-                        device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):
         err = lib.lstm_proj_launch(
-            x.data_ptr(), wx.data_ptr(), b.data_ptr(), out.data_ptr(),
-            work.data_ptr() if work is not None else None, M, N, K,
-            k_chunk, splits, _stream(x.device))
+            x.data_ptr(), wx.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
+            K, tile_m, k_chunk, splits, _stream(x.device))
     _raise_on(err, "lstm input projection")
     input_proj.launches += 1
+    input_proj.split_launches += splits > 1
     return out
 
 
@@ -235,6 +257,7 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
 
 
 input_proj.launches = 0   # kernel launches, for chip_smoke.py
+input_proj.split_launches = 0   # those of them on the few-row, split-K path
 lstm_fwd.launches = 0
 lstm_bwd.launches = 0
 

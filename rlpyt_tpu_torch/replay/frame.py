@@ -63,8 +63,8 @@ class FrameReplayMixin:
         dones_u = self.data.done[rows_u, b_idx[:, None]]      # [batch, U-1]
         mask_a, mask_t = self._stack_masks(dones_u, (0, n))
         rows_a, rows_t = gather_frame_stacks(
-            self.data.observation, start.to(torch.int32),
-            b_idx.to(torch.int32), mask_a, mask_t, K=K, n_step=n)
+            self.data.observation, start, b_idx.to(start.dtype), mask_a,
+            mask_t, K=K, n_step=n)
         shape = (t_idx.shape[0], K) + self._frame_hw
         return rows_a.view(shape), rows_t.view(shape)
 

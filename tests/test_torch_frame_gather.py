@@ -85,6 +85,82 @@ def test_plain_matches_k2_interpret(seed, n_step):
     np.testing.assert_array_equal(out_t, np.asarray(ref_t))
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n_step", [1, 3])
+def test_index_types_match_both_pallas_kernels(dtype, n_step):
+    """The wrapper takes int32 or int64 indices as they are and gives the
+    same stacks, equal to K1's and K2's in interpret mode."""
+    K, H, W, size_T, B, batch = 4, 16, 16, 32, 3, 9
+    U = K + n_step
+    rng = np.random.default_rng(10 + n_step)
+    ring, start, b_idx, ma, mt = gather_case(rng, size_T, B, H * W, batch,
+                                             K, n_step)
+    out_a, out_t = port_plain(ring, start.astype(dtype), b_idx.astype(dtype),
+                              ma, mt, K, n_step)
+    ghost = np.concatenate([ring, ring[:U - 1]], axis=0)
+    k1 = jax_k1(jnp.asarray(ghost), jnp.asarray(start), jnp.asarray(b_idx),
+                jnp.asarray(ma), jnp.asarray(mt), K=K, n_step=n_step, H=H,
+                W=W, s=1, out_dtype=jnp.uint8, interpret=True)
+    ring_lm = lane_major_ring(size_T, B, H * W, U)
+    for t0 in range(0, size_T, 8):
+        ring_lm = lane_major_append(ring_lm, jnp.asarray(ring[t0:t0 + 8]),
+                                    t0, size_T=size_T, U=U)
+    k2 = jax_k2(ring_lm, jnp.asarray(start), jnp.asarray(b_idx),
+                jnp.asarray(ma), jnp.asarray(mt), K=K, n_step=n_step,
+                interpret=True)
+    for ref in (k1, k2):
+        np.testing.assert_array_equal(
+            out_a, np.asarray(ref[0]).reshape(out_a.shape))
+        np.testing.assert_array_equal(
+            out_t, np.asarray(ref[1]).reshape(out_t.shape))
+
+
+def wrapper_args(**changes):
+    """Valid CPU arguments of the wrapper (K = 2, n = 1), then ``changes``."""
+    args = dict(ring=torch.zeros((4, 2, 16), dtype=torch.uint8),
+                start_rows=torch.zeros((3,), dtype=torch.int64),
+                b_idx=torch.zeros((3,), dtype=torch.int64),
+                mask_a=torch.ones((3, 2), dtype=torch.bool),
+                mask_t=torch.ones((3, 2), dtype=torch.uint8),
+                K=2, n_step=1)
+    args.update(changes)
+    return args
+
+
+@pytest.mark.parametrize("changes,match", [
+    (dict(ring=torch.zeros((4, 2, 16), dtype=torch.int8)), "ring must be"),
+    (dict(ring=torch.zeros((4, 32), dtype=torch.uint8)), "ring must be"),
+    (dict(ring=torch.zeros((4, 2, 32), dtype=torch.uint8)[:, :, ::2]),
+     "ring must be"),
+    (dict(start_rows=torch.zeros((3,), dtype=torch.int16),
+          b_idx=torch.zeros((3,), dtype=torch.int16)), "start_rows and b_idx"),
+    (dict(b_idx=torch.zeros((3,), dtype=torch.int32)), "start_rows and b_idx"),
+    (dict(b_idx=torch.zeros((4,), dtype=torch.int64)), "start_rows and b_idx"),
+    (dict(start_rows=torch.zeros((3,), dtype=torch.int64, device="meta")),
+     "start_rows and b_idx"),
+    (dict(mask_a=torch.ones((3, 2))), "mask_a and mask_t"),
+    (dict(mask_t=torch.ones((3, 3), dtype=torch.bool)), "mask_a and mask_t"),
+    (dict(mask_t=torch.ones((3, 2), dtype=torch.bool, device="meta")),
+     "mask_a and mask_t"),
+    (dict(K=0, mask_a=torch.ones((3, 0), dtype=torch.bool),
+          mask_t=torch.ones((3, 0), dtype=torch.bool)), "K \\+ n_step <= 16"),
+    (dict(n_step=15), "K \\+ n_step <= 16"),
+])
+def test_wrapper_rejects_wrong_arguments(changes, match):
+    """A wrong dtype, shape, layout or device, or a union of more than 16
+    rows, raises before anything runs, on the CPU as on the card."""
+    with pytest.raises(ValueError, match=match):
+        fg.gather_frame_stacks(**wrapper_args(**changes))
+
+
+def test_wrapper_accepts_its_valid_arguments():
+    out_a, out_t = fg.gather_frame_stacks(**wrapper_args())
+    assert out_a.shape == out_t.shape == (3, 2, 16)
+    out_a, out_t = fg.gather_frame_stacks(**wrapper_args(
+        n_step=14, ring=torch.zeros((20, 2, 16), dtype=torch.uint8)))
+    assert out_a.shape == (3, 2, 16)
+
+
 def test_wrapper_rejects_other_devices():
     ring = torch.zeros((4, 2, 16), dtype=torch.uint8, device="meta")
     idx = torch.zeros((3,), dtype=torch.int32, device="meta")
@@ -170,4 +246,11 @@ def test_cuda_kernel_matches_plain(cuda_device):
         out = fg.gather_frame_stacks(*args, K=K_, n_step=n)
         ref = fg.gather_frame_stacks_plain(*args, K=K_, n_step=n)
         for o, r in zip(out, ref):
+            assert torch.equal(o, r)
+        # Both stacks are halves of one buffer, each contiguous, and
+        # int64 indices give the same stacks as int32.
+        assert out[1].data_ptr() - out[0].data_ptr() == out[0].numel()
+        assert out[0].is_contiguous() and out[1].is_contiguous()
+        args[1], args[2] = args[1].long(), args[2].long()
+        for o, r in zip(fg.gather_frame_stacks(*args, K=K_, n_step=n), ref):
             assert torch.equal(o, r)

@@ -168,16 +168,66 @@ def test_wrappers_raise_on_other_devices():
                    torch.empty((T, B, H), device="meta"), meta["c0"])
 
 
-def test_proj_splits_cover_k():
-    """The K split of the projection: every row of W_x in exactly one
-    split, and more CTAs only where the output has few tiles."""
-    for M, N, K in ((64, 2048, 6919), (1440, 2048, 6919), (21, 400, 130),
-                    (640, 2048, 6919), (1, 8, 3)):
-        k_chunk, splits = L.proj_splits(M, N, K, 132)
-        assert k_chunk % 8 == 0 and (splits - 1) * k_chunk < K \
-            <= splits * k_chunk
-    assert L.proj_splits(64, 2048, 6919, 132)[1] == 8
-    assert L.proj_splits(1440, 2048, 6919, 132)[1] == 1
+@pytest.mark.parametrize("M,N,K,tile_m", [
+    (64, 2048, 6919, 64), (1440, 2048, 6919, 96), (21, 400, 130, 64),
+    (640, 2048, 6919, 96), (1, 8, 3, 64), (1, 2048, 6919, 64),
+    (63, 2048, 6919, 64), (65, 2048, 6919, 64), (128, 2048, 6919, 64),
+    (1440, 2050, 6919, 0)])
+def test_proj_splits_cover_k(M, N, K, tile_m):
+    """The projection's plan on 132 SMs: every row of W_x in exactly one
+    split, each split a multiple of the kernel's K step; the few-row path
+    (64-row tiles, K over a cluster of 8) for M <= 64 and wherever 96-row
+    tiles would leave more than half of the SMs idle, the many-row path
+    (96-row tiles, no split) otherwise, the generic kernel when N is not a
+    multiple of 4."""
+    got_tile, k_chunk, splits = L.proj_plan(M, N, K, 132)
+    assert got_tile == tile_m
+    ranges = [range(z * k_chunk, min(K, (z + 1) * k_chunk))
+              for z in range(splits)]
+    assert [k for r in ranges for k in r] == list(range(K))
+    if tile_m == 64:
+        assert splits == L.PROJ_SPLITS and k_chunk % L.PROJ_K_STEP == 0
+    elif tile_m == 96:
+        assert splits == 1 and k_chunk % L.PROJ_K_STEP == 0
+    else:
+        assert (k_chunk, splits) == (K, 1)
+
+
+def split_tf32(v):
+    """float32 ``v`` as (hi, lo): hi is v rounded to TF32 (10 mantissa
+    bits: the low 13 of float32's 23 cleared) to nearest, ties away from
+    zero; lo = v - hi, of which the tensor core reads the leading 11 bits
+    (the rest is cut off).  The split K3a makes on both operands."""
+    bits = v.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((v - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def test_three_tf32_products_reproduce_fp32():
+    """The arithmetic K3a relies on, in plain PyTorch at R2D1's F = 6919:
+    x_lo @ w_hi + x_hi @ w_lo + x_hi @ w_hi is within 1e-5 of the largest
+    value of the float32 product; x_hi @ w_hi alone (plain TF32) is not.
+    A product of two TF32 values is exact in float32, so float32 matrix
+    products of the split operands stand for the tensor core's."""
+    rng = np.random.default_rng(8)
+    F, N = 6919, 96
+    x = torch.from_numpy(rng.standard_normal((32, F)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((F, N)) * F ** -0.5)
+                         .astype(np.float32))
+    xh, xl = split_tf32(x)
+    wh, wl = split_tf32(w)
+    for part in (xh, xl, wh, wl):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert (x - (xh + xl)).abs().max() <= 2.0 ** -21 * x.abs().max()
+    ref = x.double() @ w.double()
+    scale = ref.abs().max()
+    fp32 = (x @ w).double()
+    three = ((xl @ wh + xh @ wl) + xh @ wh).double()
+    one = (xh @ wh).double()
+    assert (fp32 - ref).abs().max() <= 1e-5 * scale
+    assert (three - ref).abs().max() <= 1e-5 * scale
+    assert (one - ref).abs().max() > 1e-5 * scale
 
 
 @pytest.mark.cuda
@@ -186,8 +236,8 @@ def test_cuda_kernels_match_plain(cuda_device):
     forward within 1e-4 and backward within 1e-3 of the largest value),
     at a slice shape and ragged ones."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    for T, B, F, H in ((20, 32, 6919, 512), (7, 3, 130, 100),
-                       (3, 37, 33, 102)):
+    for T, B, F, H in ((20, 32, 6919, 512), (1, 64, 6919, 512),
+                       (7, 3, 130, 100), (3, 37, 33, 102)):
         a = {k: torch.from_numpy(v).to(cuda_device)
              for k, v in make_inputs(7, T, B, F, H).items()}
         mask = (~a["done"]).to(torch.float32)
