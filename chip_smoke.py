@@ -62,6 +62,7 @@ being worked on.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import subprocess
@@ -344,23 +345,19 @@ def time_lstm(L, g, dev):
         """K3a on ``x`` beside its plain version and ``torch.addmm``: call
         times by events and device times by graph replay.  ``weights``
         rotate, so that more than one copy of W_x does not fit in L2."""
-        it = {"i": 0}
-
-        def w():
-            it["i"] = (it["i"] + 1) % len(weights)
-            return weights[it["i"]]
+        ws = itertools.cycle(weights)
 
         def kernel():
-            L.input_proj(x, w(), a["b"])
+            L.input_proj(x, next(ws), a["b"])
 
         def library():
-            torch.addmm(a["b"], x, w())
+            torch.addmm(a["b"], x, next(ws))
 
         M = x.shape[0]
         return dict(
             ms=time_ms(kernel, iters),
-            plain_ms=time_ms(lambda: L.input_proj_plain(x, w(), a["b"]),
-                             iters),
+            plain_ms=time_ms(
+                lambda: L.input_proj_plain(x, next(ws), a["b"]), iters),
             library_ms=time_ms(library, iters),
             device_ms=harness.graph_ms([kernel] * 10),
             library_device_ms=harness.graph_ms([library] * 10),

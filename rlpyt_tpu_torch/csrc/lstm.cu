@@ -18,45 +18,47 @@
 //       F = 6919, H = 512) that must give float32 results.  On the fp32
 //       pipes it is bound by 67 TFLOP/s (0.61 ms); the tensor cores take
 //       TF32 only, whose 10-bit mantissa loses the result at K = 6919.
-//       Design: the error-compensated split.  Every operand is cut into
-//       two TF32 values, hi = v rounded to nearest and lo = v - hi, on its
-//       way from shared memory to registers, and each 16x8x8 tile is three
-//       mma.sync products, a_lo*b_hi + a_hi*b_lo + a_hi*b_hi: three times
-//       the operations at 7.4 times the rate (bound 0.25 ms).  The tensor
-//       cores add to their accumulator with truncation, which over the
-//       2,600 adds of a K = 6919 sum would bias it by about one part in
-//       1e4; so the 12 products of a 32-deep stage are summed in the
-//       tensor core from zero, where the truncation acts on a small
+//       Design: the error-compensated split on wgmma.  Every operand is
+//       cut into two TF32 values, hi = v rounded to nearest and lo = v -
+//       hi, and each product is three: x_lo@w_hi + x_hi@w_lo + x_hi@w_hi,
+//       three times the operations at 7.4 times the rate (bound 0.25 ms).
+//       The tensor cores add to their accumulator with truncation, which
+//       over the 2,600 adds of a K = 6919 sum would bias it by about one
+//       part in 1e4; so the 12 products of a 32-deep stage are summed in
+//       the tensor core from zero, where the truncation acts on a small
 //       partial sum, and each stage's sum is added to the running fp32
 //       accumulator by an ordinary rounded add.
-//       mma.sync fed from registers, not wgmma: wgmma reads TF32 operands
-//       from shared memory K-major only, W_x is [K, N] (N-major), and the
-//       hi/lo split has to pass through registers anyway; a transposed
-//       copy of the 56.7 MB W_x would have to be refreshed after every
-//       optimizer step.
-//       Tiles: BM x 128 x 32 in a ring of shared-memory stages filled by
-//       cp.async (W_x in 16-byte pieces; x in 4-byte pieces, since its
-//       rows of K = 6919 floats are only 4-byte aligned), zero-filled
-//       past M, N and the end of the K range, one __syncthreads per
-//       stage.  Row strides of 36 and 136 floats make every fragment load
-//       hit 32 different banks.  8 warps, 2 along M by 4 along N, one CTA
-//       to an SM: a warp's accumulators, stage sums and fragments take
-//       some 170 registers, and two CTAs at 128 each spilled and ran
-//       slower.  What a thread computes per copy (addresses, bounds) is
-//       hoisted out of the copy loops: left in, it cost a quarter of the
-//       kernel's time.
-//       Two shapes of the same kernel:
-//       - many rows (updates: T*B = 640, 1440): BM = 96 (1440 = 15 * 96),
-//         4 stages, 240 CTAs;
+//       wgmma reads TF32 operands from shared memory K-major only, and
+//       W_x is [K, N] (N-major).  A transposed copy of the 56.7 MB W_x in
+//       device memory would have to be refreshed after every optimizer
+//       step; instead the tile is transposed on the chip, by the threads
+//       that have to touch every element anyway to split it.  A CTA is
+//       one producer warpgroup and up to three consumer warpgroups:
+//       - the producer brings raw tiles of x ([BM][32], 4-byte cp.async:
+//         rows of K = 6919 floats are only 4-byte aligned) and of W_x
+//         ([32][128], 16-byte cp.async) into a ring, zero-filled past M, N
+//         and the K range, and rewrites each raw W_x tile as two operand
+//         tiles (hi and lo) of K-major 8 x 16-byte core matrices, in a
+//         second ring of two stages;
+//       - a consumer (64 rows) takes x as wgmma's register operand: it
+//         reads its fragments from the raw tile (row stride 36 floats:
+//         32 different banks), splits them, and issues m64n64k8 products
+//         against the operand tiles' descriptors, one 64-column half at
+//         a time so that the stage's sum is 32 registers.
+//       Four mbarrier arrays (raw full / empty, operand full / empty)
+//       are all that joins them; a wait that never ends traps.
+//       Three shapes of the same kernel:
+//       - 192 rows, three consumers (setmaxnreg gives them 152 registers
+//         each): T*B = 1440 is 8 row tiles, 128 CTAs, one wave;
+//       - 128 rows, two consumers, a deeper raw ring: T*B = 640;
 //       - few rows (collection: T*B = 64): the product is a stream over
-//         W_x, which does not fit the 50 MB L2.  BM = 64 (no padding
-//         rows), K split over the 8 CTAs of a thread-block cluster, 6
-//         stages (160 KB) in flight per SM.  The partial tiles never go
-//         to device memory: each CTA leaves its tile in shared memory,
-//         and after a cluster barrier CTA r sums rows [8r, 8r+8) of all
-//         eight over distributed shared memory, in a fixed order, adds
-//         the bias and writes.  One launch, no scratch tensor, no
-//         atomics: the sum's order is the same in every run.
+//         W_x, which does not fit the 50 MB L2.  One consumer, a raw ring
+//         of 5 stages, K split over the 8 CTAs of a thread-block cluster.
+//         The partial tiles never go to device memory: each CTA leaves
+//         its tile in shared memory, and after a cluster barrier CTA r
+//         sums rows [8r, 8r+8) of all eight over distributed shared
+//         memory, in a fixed order, adds the bias and writes.  One
+//         launch, no scratch tensor, no atomics: the same bits every run.
 //       W_x not 16-byte aligned or 4H not a multiple of 4 take a plain
 //       shared-memory-tiled FFMA kernel.
 //   K3 / K4 do 2*T*B*H*4H operations in T dependent steps: on paper bound
@@ -90,7 +92,7 @@ namespace {
 // ---------------------------------------------------------------------
 
 constexpr int kBK = 32;                // depth of a shared-memory stage
-constexpr int kAStride = kBK + 4;      // floats; A fragments hit 32 banks
+constexpr int kAStride = kBK + 4;      // floats; x fragments hit 32 banks
 constexpr int kSplit = 8;              // CTAs of a cluster sharing a tile's K
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -122,266 +124,377 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // v = hi + lo: hi is v rounded to TF32 (10-bit mantissa) to nearest, ties
 // away from zero, the value cvt.rna.tf32.f32 gives, made with an integer
-// add and a mask on the sign-magnitude bits (the kernel ran 7 % faster
-// than with cvt); lo is the rest, of which the tensor core reads the
-// leading 11 bits.
+// add and a mask on the sign-magnitude bits (cheaper than cvt); lo is the
+// rest, of which the tensor core reads the leading 11 bits.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-// d += a (16x8, row) @ b (8x8, col), TF32 in, fp32 out.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+constexpr int kWgBN = 128;          // tile width: two wgmma of n = 64
+constexpr int kWgOp = 2;            // stages of split, transposed W_x tiles
+constexpr int kOpTile = kBK * kWgBN;   // floats of one hi or lo tile
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// Shape of one instance of the tensor-core kernel: a BM x BN tile by WM x
-// WN warps, a ring of STAGES stages, the K range of a tile split over
-// SPLIT CTAs (a cluster); one CTA to an SM.
-template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int SPLIT_>
-struct ProjShape {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
-  static constexpr int STAGES = STAGES_, SPLIT = SPLIT_;
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int MT = BM / WM / 16;   // 16-row tiles per warp
-  static constexpr int NT = BN / WN / 8;    // 8-column tiles per warp
-  static constexpr int kBStride = BN + 8;   // floats; B fragments: 32 banks
-  static constexpr int kRedStride = BN + 4; // floats; a split's partial tile
-  static constexpr int kStage = BM * kAStride + kBK * kBStride;
-  static constexpr size_t kSmem = sizeof(float) * STAGES * kStage;
-  static_assert(BM % (WM * 16) == 0 && BN % (WN * 8) == 0, "warp tiles");
-  static_assert(BN == 128 && BM % (kThreads / 32) == 0,
-                "a warp loads one row of a stage per pass");
-  static_assert(SPLIT == 1 || (BM % SPLIT == 0 && BN == 128 &&
-                               BM / SPLIT * 32 <= kThreads &&
-                               BM * kRedStride <= STAGES * kStage),
-                "the cluster reduction takes a warp per row of its slice");
-};
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
 
-// One stage: A[m0.., k0..k0+32) as [BM][kAStride], then B[k0.., n0..n0+BN)
-// as [32][kBStride]; zeros past M, N and ke.  A warp copies one row of
-// either tile per pass: 32 floats of A one by one (rows of x are only
-// 4-byte aligned), 128 floats of B in 16-byte pieces.
-template <typename S>
-__device__ __forceinline__ void load_stage(float* stage, const float* A,
-                                           const float* Bm, int M, int N,
-                                           int K, int m0, int n0, int k0,
-                                           int ke, int tid) {
-  constexpr int kRows = S::kThreads / 32;   // rows per pass
-  const int row = tid / 32, lane = tid % 32;
-  {
-    float* dst = stage + row * kAStride + lane;
-    const float* src = A + (int64_t)(m0 + row) * K + k0 + lane;
-    const int64_t step = (int64_t)kRows * K;
-    const bool k_ok = k0 + lane < ke;
-#pragma unroll
-    for (int r = 0; r < S::BM / kRows; ++r) {
-      const bool ok = k_ok && m0 + row + r * kRows < M;
-      cp_async<4>(dst, ok ? src : A, ok);
-      dst += kRows * kAStride;
-      src += step;
-    }
-  }
-  {
-    float* dst = stage + S::BM * kAStride + row * S::kBStride + lane * 4;
-    const float* src = Bm + (int64_t)(k0 + row) * N + n0 + lane * 4;
-    const int64_t step = (int64_t)kRows * N;
-    const bool n_ok = n0 + lane * 4 < N;
-#pragma unroll
-    for (int r = 0; r < (kBK + kRows - 1) / kRows; ++r) {
-      if (kBK % kRows == 0 || row + r * kRows < kBK) {
-        const bool ok = n_ok && k0 + row + r * kRows < ke;
-        cp_async<16>(dst, ok ? src : Bm, ok);
-      }
-      dst += kRows * S::kBStride;
-      src += step;
-    }
+// Wait until the phase of ``bar`` with this parity has completed.  A wait
+// that outlasts any real one (a fault in the pipeline) traps instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (spins > (1u << 24)) __trap();
   }
 }
 
-// C[m0.., n0..] = A @ B + bias over the K range of blockIdx.z.  With
-// SPLIT > 1 the launch groups the SPLIT CTAs of one tile (blockIdx.z) into
-// a cluster, which sums their partial tiles before the write.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps a register live, and its uses ordered, across the asynchronous
+// wgmma that reads or writes it behind the compiler's back.
+__device__ __forceinline__ void pin(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// Shared-memory descriptor of a K-major operand tile without swizzle:
+// 8-row x 16-byte core matrices, ``lbo`` bytes apart along K and ``sbo``
+// bytes apart along the rows.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFFu) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x 64, fp32) = a (64 x 8 TF32, registers) @ b (8 x 64 TF32, shared
+// memory, K-major) + (accumulate ? d : 0).
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b_desc,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate));
+}
+
+// C[m0.., n0..] = A @ B + bias for a tile of 64 * CW rows by 128 columns.
+// CW consumer warpgroups (64 rows each) and one producer warpgroup, which
+// never meet after the first barrier:
+// - the producer brings raw tiles of x and W_x into a ring of RAW
+//   stages with cp.async, and turns each raw W_x tile [32 k][128 n] into
+//   the two operands wgmma can read: hi and lo TF32 values, transposed to
+//   K-major core matrices ([k / 4][n][k % 4]), in a ring of kWgOp stages;
+// - a consumer reads its rows of raw x from shared memory as wgmma's
+//   register operand, splits them, and issues x_lo@w_hi + x_hi@w_lo +
+//   x_hi@w_hi for the 4 k-steps of a stage into a zeroed 64 x 64 sum,
+//   which it then adds to the running sum: once for each half of the 128
+//   columns.
+// mbarriers: full_raw / full_op are the producer's "landed" signals,
+// empty_raw / empty_op the consumers' "read" signals.
 // Needs N % 4 == 0 and B, bias, C 16-byte aligned.
-template <typename S>
-__global__ void __launch_bounds__(S::kThreads, 1)
-proj_mma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ bias, float* __restrict__ C, int M,
-                int N, int K, int k_chunk) {
-  constexpr int BM = S::BM, BN = S::BN, MT = S::MT, NT = S::NT;
-  constexpr int STAGES = S::STAGES, SPLIT = S::SPLIT;
+//
+// The PROJ_SKIP_* macros take one part of the work out (x's copies, W_x's
+// copies, the split and transpose, the tensor-core products) and leave
+// every barrier in place.  The results are then wrong: they exist for
+// bench_torch_proj_breakdown.py, which times such builds to see what
+// each part costs where no profiler reads the card, and are never defined
+// in the library the package loads.
+template <int CW, int RAW, int SPLIT>
+__global__ void __launch_bounds__((CW + 1) * 128, 1)
+proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
+                  const float* __restrict__ bias, float* __restrict__ C, int M,
+                  int N, int K, int k_chunk) {
+  constexpr int BM = 64 * CW;
+  static_assert(SPLIT == 1 || (CW == 1 && BM % SPLIT == 0),
+                "a split tile is one warpgroup's 64 rows");
+  constexpr int kRawA = BM * kAStride, kRawB = kBK * kWgBN;
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp / S::WN) * (MT * 16), wn = (warp % S::WN) * (NT * 8);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * k_chunk;
+  float* rawA = smem;                        // [RAW][BM][kAStride]
+  float* rawB = rawA + RAW * kRawA;       // [RAW][32][128]
+  float* opB = rawB + RAW * kRawB;        // [kWgOp][hi, lo][8][128][4]
+  __shared__ __align__(8) uint64_t full_raw[RAW], empty_raw[RAW],
+      full_op[kWgOp], empty_op[kWgOp];
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kWgBN;
+  const int kb = blockIdx.z * k_chunk;       // this CTA's K range
   const int ke = min(K, kb + k_chunk);
   const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  // Stage s of the ring holds K tile s, s + STAGES, ...; one commit group
-  // per tile, empty past the end, so that the wait below counts right.
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_stage<S>(smem + s * S::kStage, A, Bm, M, N, K, m0, n0,
-                    kb + s * kBK, ke, tid);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<STAGES - 2>();   // tile kt has landed
-    __syncthreads();               // ... for all, and tile kt-1 is consumed
-    const int nxt = kt + STAGES - 1;
-    if (nxt < nk)
-      load_stage<S>(smem + (nxt % STAGES) * S::kStage, A, Bm, M, N, K, m0, n0,
-                    kb + nxt * kBK, ke, tid);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-    const float* As = smem + (kt % STAGES) * S::kStage + wm * kAStride;
-    const float* Bs = smem + (kt % STAGES) * S::kStage + BM * kAStride + wn;
-    // The products of this stage are summed in the tensor core, from
-    // zero, so that its truncating adds act on a small partial sum; the
-    // stage's sum is then added to the running one by a rounded add.
-    float d[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) d[i][j][q] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 8) {
-      uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        split_tf32(Bs[(ks + t) * S::kBStride + j * 8 + g], bh[j][0],
-                   bl[j][0]);
-        split_tf32(Bs[(ks + t + 4) * S::kBStride + j * 8 + g], bh[j][1],
-                   bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float* ap = As + (i * 16 + g) * kAStride + ks + t;
-        uint32_t ah[4], al[4];
-        split_tf32(ap[0], ah[0], al[0]);
-        split_tf32(ap[8 * kAStride], ah[1], al[1]);
-        split_tf32(ap[4], ah[2], al[2]);
-        split_tf32(ap[8 * kAStride + 4], ah[3], al[3]);
-        // Small terms first; the NT tiles of a row are independent chains.
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], al, bh[j]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], ah, bl[j]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], ah, bh[j]);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < RAW; ++s) {
+      mbar_init(&full_raw[s], 128);
+      mbar_init(&empty_raw[s], CW * 128);
     }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][j][q] += d[i][j][q];
+    for (int o = 0; o < kWgOp; ++o) {
+      mbar_init(&full_op[o], 128);
+      mbar_init(&empty_op[o], CW * 128);
+    }
   }
+  __syncthreads();
 
-  // Thread (g, t) holds rows g and g + 8, columns 2t and 2t + 1 of each
-  // 16x8 tile.
-  if constexpr (SPLIT == 1) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = n0 + wn + j * 8 + 2 * t;
-      if (n >= N) continue;
-      const float2 bv = *reinterpret_cast<const float2*>(bias + n);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm + i * 16 + g + 8 * h;
-          if (m < M)
-            *reinterpret_cast<float2*>(C + (int64_t)m * N + n) = make_float2(
-                acc[i][j][2 * h] + bv.x, acc[i][j][2 * h + 1] + bv.y);
+  if (wg == CW) {
+    // ---------------- producer ----------------
+    if constexpr (CW == 3)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int p = tid - CW * 128, prow = p / 32, lane = p % 32;
+    auto load_raw = [&](int kt) {
+      const int slot = kt % RAW, k0 = kb + kt * kBK;
+#ifndef PROJ_SKIP_X
+      {
+        float* dst = rawA + slot * kRawA + prow * kAStride + lane;
+        const float* src = A + (int64_t)(m0 + prow) * K + k0 + lane;
+        const int64_t step = (int64_t)4 * K;
+        const bool k_ok = k0 + lane < ke;
+#pragma unroll 8
+        for (int r = 0; r < BM / 4; ++r) {
+          const bool ok = k_ok && m0 + prow + r * 4 < M;
+          cp_async<4>(dst, ok ? src : A, ok);
+          dst += 4 * kAStride;
+          src += step;
         }
+      }
+#endif
+#ifndef PROJ_SKIP_W
+      {
+        float* dst = rawB + slot * kRawB + prow * kWgBN + lane * 4;
+        const float* src = Bm + (int64_t)(k0 + prow) * N + n0 + lane * 4;
+        const int64_t step = (int64_t)4 * N;
+        const bool n_ok = n0 + lane * 4 < N;
+#pragma unroll
+        for (int r = 0; r < kBK / 4; ++r) {
+          const bool ok = n_ok && k0 + prow + r * 4 < ke;
+          cp_async<16>(dst, ok ? src : Bm, ok);
+          dst += 4 * kWgBN;
+          src += step;
+        }
+      }
+#endif
+    };
+#pragma unroll
+    for (int kt = 0; kt < RAW - 1; ++kt) {
+      if (kt < nk) load_raw(kt);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<RAW - 2>();   // this thread's part of tile kt landed
+      // ... and every producer's, and every producer is done with the
+      // W_x tile kt-1, whose raw stage the load below refills.
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      mbar_arrive(&full_raw[kt % RAW]);
+
+      // Split and transpose W_x tile kt: column p of every 4 k-rows.
+      const int o = kt % kWgOp;
+      if (kt >= kWgOp) mbar_wait(&empty_op[o], (kt / kWgOp - 1) & 1);
+      const float* rb = rawB + (kt % RAW) * kRawB + p;
+      float* hi = opB + o * 2 * kOpTile + p * 4;
+      float* lo = hi + kOpTile;
+#ifndef PROJ_SKIP_SPLIT
+#pragma unroll
+      for (int kc = 0; kc < kBK / 4; ++kc) {
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(rb[(kc * 4 + i) * kWgBN], h[i], l[i]);
+        *reinterpret_cast<uint4*>(hi + kc * kWgBN * 4) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(lo + kc * kWgBN * 4) =
+            make_uint4(l[0], l[1], l[2], l[3]);
+      }
+#endif
+      // The tensor cores read shared memory through the async proxy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&full_op[o]);
+
+      const int nxt = kt + RAW - 1;
+      if (nxt < nk) {
+        if (nxt >= RAW)
+          mbar_wait(&empty_raw[nxt % RAW], (nxt / RAW - 1) & 1);
+        load_raw(nxt);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
   } else {
-    cg::cluster_group cluster = cg::this_cluster();
-    cp_async_wait<0>();
-    __syncthreads();               // the ring is free: reuse it
-    float* red = smem;             // [BM][kRedStride]
+    // ---------------- consumers ----------------
+    if constexpr (CW == 3)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+    const int lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int row = wg * 64 + (tid % 128) / 32 * 16 + g;   // and row + 8
+    float acc[64];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      const int o = kt % kWgOp;
+      mbar_wait(&full_raw[kt % RAW], (kt / RAW) & 1);
+      mbar_wait(&full_op[o], (kt / kWgOp) & 1);
+      const float* ap = rawA + (kt % RAW) * kRawA + row * kAStride + t;
+      const float* hi = opB + o * 2 * kOpTile;
+#ifndef PROJ_SKIP_MMA
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int half = 0; half < 2; ++half) {
+        float d[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d[i] = 0.f;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const int b = ks % 2;
+          if (ks >= 2) {
+            wgmma_wait<1>();   // the products that read buffer b are done
+#pragma unroll
+            for (int i = 0; i < 4; ++i) { pin(ah[b][i]); pin(al[b][i]); }
+          }
+          split_tf32(ap[ks * 8], ah[b][0], al[b][0]);
+          split_tf32(ap[ks * 8 + 8 * kAStride], ah[b][1], al[b][1]);
+          split_tf32(ap[ks * 8 + 4], ah[b][2], al[b][2]);
+          split_tf32(ap[ks * 8 + 8 * kAStride + 4], ah[b][3], al[b][3]);
+          // W_x^T rows [64 half, +64), k [8 ks, +8): core matrices of 4 k
+          // lie 128 * 16 bytes apart, those of 8 n rows 128 bytes apart.
+          const float* tile = hi + (2 * ks * kWgBN + half * 64) * 4;
+          const uint64_t desc_hi = wgmma_desc(tile, kWgBN * 16, 128);
+          const uint64_t desc_lo = wgmma_desc(tile + kOpTile, kWgBN * 16, 128);
+          wgmma_fence();
+          wgmma_m64n64k8(d, al[b], desc_hi, ks > 0);   // small terms first
+          wgmma_m64n64k8(d, ah[b], desc_lo, 1);
+          wgmma_m64n64k8(d, ah[b], desc_hi, 1);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) { pin(ah[b][i]); pin(al[b][i]); }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          pin(d[i]);
+          acc[half * 32 + i] += d[i];
+        }
+      }
+#endif
+      mbar_arrive(&empty_raw[kt % RAW]);
+      mbar_arrive(&empty_op[o]);
+    }
+
+    // Thread (g, t) holds rows g and g + 8, columns 2t and 2t + 1 of each
+    // 8-column tile.
+    if constexpr (SPLIT == 1) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = n0 + j * 8 + 2 * t;
+        if (n >= N) continue;
+        const float2 bv = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + row + 8 * h;
+          if (m < M)
+            *reinterpret_cast<float2*>(C + (int64_t)m * N + n) = make_float2(
+                acc[j * 4 + 2 * h] + bv.x, acc[j * 4 + 2 * h + 1] + bv.y);
+        }
+      }
+    } else {
+      // The SPLIT CTAs of this tile (a cluster along blockIdx.z) leave
+      // their partial tiles in shared memory; CTA r then sums rows
+      // [r * BM / SPLIT, ...) of all of them over distributed shared
+      // memory, a warp per row, in the order of the splits.
+      cg::cluster_group cluster = cg::this_cluster();
+      constexpr int kRedStride = kWgBN + 4;
+      float* red = smem;   // [BM][kRedStride]: the rings are drained
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float2*>(
-              red + (wm + i * 16 + g + 8 * h) * S::kRedStride + wn + j * 8 +
-              2 * t) = make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-    cluster.sync();
-    // CTA r of the cluster sums rows [r * BM / SPLIT, ...) of all partial
-    // tiles, a warp per row, in the order of the splits.
-    if (warp < BM / SPLIT) {
-      const int row = cluster.block_rank() * (BM / SPLIT) + warp;
-      const int col = lane * 4;
-      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+          *reinterpret_cast<float2*>(red + (row + 8 * h) * kRedStride + j * 8 +
+                                     2 * t) =
+              make_float2(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
+      cluster.sync();
+      for (int rr = tid / 32; rr < BM / SPLIT; rr += 4) {
+        const int r = cluster.block_rank() * (BM / SPLIT) + rr;
+        const int col = lane * 4;
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int z = 0; z < SPLIT; ++z) {
-        const float* peer = cluster.map_shared_rank(red, z);
-        const float4 v = *reinterpret_cast<const float4*>(
-            peer + row * S::kRedStride + col);
-        s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+        for (int z = 0; z < SPLIT; ++z) {
+          const float* peer = cluster.map_shared_rank(red, z);
+          const float4 v =
+              *reinterpret_cast<const float4*>(peer + r * kRedStride + col);
+          s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+        }
+        const int m = m0 + r, n = n0 + col;
+        if (m < M && n < N) {
+          const float4 bv = *reinterpret_cast<const float4*>(bias + n);
+          *reinterpret_cast<float4*>(C + (int64_t)m * N + n) =
+              make_float4(s.x + bv.x, s.y + bv.y, s.z + bv.z, s.w + bv.w);
+        }
       }
-      const int m = m0 + row, n = n0 + col;
-      if (m < M && n < N) {
-        const float4 bv = *reinterpret_cast<const float4*>(bias + n);
-        *reinterpret_cast<float4*>(C + (int64_t)m * N + n) =
-            make_float4(s.x + bv.x, s.y + bv.y, s.z + bv.z, s.w + bv.w);
-      }
+      cluster.sync();   // no CTA leaves while a peer reads its tile
     }
-    cluster.sync();                // no CTA leaves while a peer reads it
+  }
+  if constexpr (SPLIT > 1) {
+    if (wg == CW) {   // the producers take part in the cluster's barriers
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      cluster.sync();
+    }
   }
 }
 
-template <typename S>
-cudaError_t launch_proj_mma(const float* A, const float* Bm, const float* bias,
-                            float* C, int M, int N, int K, int k_chunk,
-                            cudaStream_t stream) {
-  auto kernel = proj_mma_kernel<S>;
+template <int CW, int RAW, int SPLIT>
+cudaError_t launch_proj_wgmma(const float* A, const float* Bm,
+                              const float* bias, float* C, int M, int N, int K,
+                              int k_chunk, cudaStream_t stream) {
+  constexpr int BM = 64 * CW;
+  constexpr size_t smem =
+      sizeof(float) * (RAW * (BM * kAStride + kBK * kWgBN) +
+                       kWgOp * 2 * kOpTile);
+  auto kernel = proj_wgmma_kernel<CW, RAW, SPLIT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = 1;
   attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = S::SPLIT;
+  attr.val.clusterDim.z = SPLIT;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + S::BN - 1) / S::BN, (M + S::BM - 1) / S::BM,
-                     S::SPLIT);
-  cfg.blockDim = dim3(S::kThreads);
-  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.gridDim = dim3((N + kWgBN - 1) / kWgBN, (M + BM - 1) / BM, SPLIT);
+  cfg.blockDim = dim3((CW + 1) * 128);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, A, Bm, bias, C, M, N, K, k_chunk);
 }
-
-// Many rows: 96 x 128 tiles, 4 stages (125 KB).
-using ProjBig = ProjShape<96, 128, 2, 4, 4, 1>;
-// Few rows: 64 x 128 tiles, K over a cluster of 8, 6 stages (160 KB).
-using ProjSmall = ProjShape<64, 128, 2, 4, 6, kSplit>;
 
 // The path for any alignment and any N: 128x128x8 shared-memory tiles,
 // an 8x8 register block per thread, FFMA.
@@ -689,11 +802,12 @@ int lstm_proj_split() { return kSplit; }
 int lstm_proj_k_step() { return kBK; }
 
 // K3a.  x [M, K], wx [K, N], b [N] -> xg [M, N].  ``tile_m`` picks the
-// path: 96 is the many-row tensor-core kernel (splits == 1, k_chunk >= K),
-// 64 the few-row one, whose cluster of ``splits`` == 8 CTAs takes K rows
-// [z*k_chunk, (z+1)*k_chunk) each (k_chunk a multiple of 32, k_chunk * 8
-// >= K); both need N % 4 == 0 and wx, xg 16-byte aligned.  0 is the
-// generic kernel.
+// path: 192 and 128 are the tensor-core kernel with three and two
+// consumer warpgroups (splits == 1, k_chunk >= K); 64 is its few-row
+// shape, one consumer warpgroup, whose cluster of ``splits`` == 8 CTAs
+// takes K rows [z*k_chunk, (z+1)*k_chunk) each (k_chunk a multiple of 32,
+// k_chunk * 8 >= K).  All need N % 4 == 0 and wx, b, xg 16-byte aligned.
+// 0 is the generic kernel.
 int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
                      int M, int N, int K, int tile_m, int k_chunk, int splits,
                      void* stream) {
@@ -712,14 +826,19 @@ int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
       N % 4 == 0 && (reinterpret_cast<uintptr_t>(wx) & 15u) == 0 &&
       (reinterpret_cast<uintptr_t>(xg) & 15u) == 0 &&
       (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
-  const bool big = tile_m == ProjBig::BM && splits == 1 && k_chunk >= K;
-  const bool small = tile_m == ProjSmall::BM && splits == kSplit &&
-                     k_chunk % kBK == 0 && (int64_t)k_chunk * splits >= K;
-  if (!aligned || !(big || small) || (M + tile_m - 1) / tile_m > 65535)
+  const bool whole = (tile_m == 192 || tile_m == 128) && splits == 1 &&
+                     k_chunk >= K;
+  const bool split = tile_m == 64 && splits == kSplit && k_chunk % kBK == 0 &&
+                     (int64_t)k_chunk * splits >= K;
+  if (!aligned || !(whole || split) || (M + tile_m - 1) / tile_m > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err =
-      big ? launch_proj_mma<ProjBig>(A, W, bias, C, M, N, K, k_chunk, s)
-          : launch_proj_mma<ProjSmall>(A, W, bias, C, M, N, K, k_chunk, s);
+      tile_m == 192
+          ? launch_proj_wgmma<3, 3, 1>(A, W, bias, C, M, N, K, k_chunk, s)
+          : tile_m == 128
+                ? launch_proj_wgmma<2, 4, 1>(A, W, bias, C, M, N, K, k_chunk, s)
+                : launch_proj_wgmma<1, 5, kSplit>(A, W, bias, C, M, N, K,
+                                                  k_chunk, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,8 @@ The TPU kernels K3 (``_lstm_fwd_pallas``) and K4 (``_lstm_bwd_pallas``)
 become three kernels here:
 
 - ``input_proj`` (K3a): ``xg = x @ W_x + b`` over all T*B rows at once,
-  float32 results from the TF32 tensor cores by a hi/lo split of both
-  operands (three products for each tile);
+  float32 results from the TF32 tensor cores (wgmma) by a hi/lo split of
+  both operands (three products for each tile);
 - ``lstm_fwd`` (K3): the T-step recurrence over ``xg`` with ``W_h``,
   emitting ``y``, the post-activation gates and ``c`` for the backward,
   and ``hT``, ``cT``;
@@ -164,10 +164,13 @@ def proj_plan(M: int, N: int, K: int, n_sm: int):
 
     - (64, k_chunk, 8): the few-row path, 64-row tiles whose K range is
       split over a cluster of 8 CTAs.  Taken for M <= 64 (a collection
-      step, where the product streams W_x once and 64 rows fill one tile
-      without padding) and whenever 96-row tiles would leave more than
+      step, where the product streams W_x once and 64 rows are one tile
+      without padding) and whenever 128-row tiles would leave more than
       half of the SMs without one.
-    - (96, K rounded up, 1): the many-row path, 96 x 128 tiles, no split.
+    - (192, K rounded up, 1) or (128, K rounded up, 1): the many-row path,
+      no split: tiles of 192 or 128 rows by 128 columns, whichever takes
+      fewer rows of tiles per SM (the 132 SMs take 1440 rows as one wave
+      of 192-row tiles, 640 rows as one of 128-row tiles).
     - (0, K, 1): the generic kernel, for N not a multiple of 4.
     """
     def cdiv(a, b):
@@ -175,10 +178,13 @@ def proj_plan(M: int, N: int, K: int, n_sm: int):
 
     if N % 4 != 0:
         return 0, K, 1
-    if M <= 64 or 2 * cdiv(M, 96) * cdiv(N, 128) <= n_sm:
+    cols = cdiv(N, 128)
+    if M <= 64 or 2 * cdiv(M, 128) * cols <= n_sm:
         return (64, cdiv(cdiv(K, PROJ_SPLITS), PROJ_K_STEP) * PROJ_K_STEP,
                 PROJ_SPLITS)
-    return 96, cdiv(K, PROJ_K_STEP) * PROJ_K_STEP, 1
+    tile_m = min((192, 128),
+                 key=lambda bm: cdiv(cdiv(M, bm) * cols, n_sm) * bm)
+    return tile_m, cdiv(K, PROJ_K_STEP) * PROJ_K_STEP, 1
 
 
 def input_proj(x, wx, b):

@@ -169,17 +169,18 @@ def test_wrappers_raise_on_other_devices():
 
 
 @pytest.mark.parametrize("M,N,K,tile_m", [
-    (64, 2048, 6919, 64), (1440, 2048, 6919, 96), (21, 400, 130, 64),
-    (640, 2048, 6919, 96), (1, 8, 3, 64), (1, 2048, 6919, 64),
+    (64, 2048, 6919, 64), (1440, 2048, 6919, 192), (21, 400, 130, 64),
+    (640, 2048, 6919, 128), (1, 8, 3, 64), (1, 2048, 6919, 64),
     (63, 2048, 6919, 64), (65, 2048, 6919, 64), (128, 2048, 6919, 64),
     (1440, 2050, 6919, 0)])
 def test_proj_splits_cover_k(M, N, K, tile_m):
     """The projection's plan on 132 SMs: every row of W_x in exactly one
     split, each split a multiple of the kernel's K step; the few-row path
-    (64-row tiles, K over a cluster of 8) for M <= 64 and wherever 96-row
-    tiles would leave more than half of the SMs idle, the many-row path
-    (96-row tiles, no split) otherwise, the generic kernel when N is not a
-    multiple of 4."""
+    (64-row tiles, K over a cluster of 8) for M <= 64 and wherever
+    128-row tiles would leave more than half of the SMs idle; the
+    many-row path (no split) otherwise, in 192-row tiles for 1440 rows
+    (one wave of 128 CTAs) and 128-row tiles for 640 (80 CTAs); the
+    generic kernel when N is not a multiple of 4."""
     got_tile, k_chunk, splits = L.proj_plan(M, N, K, 132)
     assert got_tile == tile_m
     ranges = [range(z * k_chunk, min(K, (z + 1) * k_chunk))
@@ -187,7 +188,7 @@ def test_proj_splits_cover_k(M, N, K, tile_m):
     assert [k for r in ranges for k in r] == list(range(K))
     if tile_m == 64:
         assert splits == L.PROJ_SPLITS and k_chunk % L.PROJ_K_STEP == 0
-    elif tile_m == 96:
+    elif tile_m in (128, 192):
         assert splits == 1 and k_chunk % L.PROJ_K_STEP == 0
     else:
         assert (k_chunk, splits) == (K, 1)
