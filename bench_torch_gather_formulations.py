@@ -37,12 +37,15 @@ one it exits 1.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
+
+from rlpyt_tpu_torch.utils.cuda_timing import graph_ms, time_ms
 
 SIZE_T, B_LANES, F, U, BATCH = 390, 512, 8320, 7, 1024
 K, N_STEP = 4, 3                 # the masked kernel's split of U
@@ -58,50 +61,6 @@ WINDOW_PLAIN = "plain window gather"
 WINDOW_INDEXED = "indexed ring_lm[b, rows]"
 WINDOW_KERNEL = "K6 window gather"
 MASKED = f"masked K1/K2, K={K} n={N_STEP}"
-
-
-def time_ms(fn, iters: int = 48) -> float:
-    """Mean device time of ``fn(k)``, k = 0, 1, ..., in ms, by CUDA
-    events, after warm-up."""
-    for k in range(3):
-        fn(k)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for k in range(iters):
-        fn(k)
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
-def graph_ms(calls, replays: int = 5) -> float:
-    """Device time of one launch in ms with the host taken out: ``calls``
-    (functions of no argument, one launch each) are captured once into a
-    CUDA graph, the graph is replayed ``replays`` times between two
-    events, and the time is divided by the launches replayed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):    # warm up off the capture
-        for call in calls[:3]:
-            call()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for call in calls:
-            call()
-    graph.replay()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(replays):
-        graph.replay()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / (replays * len(calls))
 
 
 def make_case(g: torch.Generator, dev, size_T=SIZE_T, B=B_LANES, F=F, U=U,
@@ -193,7 +152,8 @@ def measure(ring, ring_lm, sets, g: torch.Generator):
     }
     res = {}
     for name, (fn, n_bytes) in fns.items():
-        ms = time_ms(fn)
+        k = itertools.count()
+        ms = time_ms(lambda: fn(next(k)), iters=48)
         res[name] = {"ms": ms, "bytes": n_bytes,
                      "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
                      "read_gb_per_s": union_bytes / ms / 1e6}

@@ -9,13 +9,15 @@ Phases, each fatal on failure:
   2. hold the frame gather against its plain PyTorch version on the card,
      bit-exact, at the flagship replay shapes (ring [1568, 128, 8320] u8,
      batch 256, K=4, n=1, wrap-around starts) and on ragged / unaligned
-     rows;
+     rows, each case with int64 indices (what the replay buffers pass)
+     and with int32 ones;
   3. time it, its plain version and one indexed PyTorch call at n=1 (the
      flagship's union of 5 rows) and at n=3 (the "ernbw" configuration's
      union of 7), two ways: the time of one Python call in a back-to-back
      loop, by CUDA events (what a trainer pays), and the device time of
      one launch with the host taken out, by replaying a captured CUDA
-     graph of 32 launches;
+     graph of 32 launches; on int64 indices, the int32 kernel's device
+     time beside it;
   4. train the flagship Nature-CNN DQN (bench_atari.py:157-175 settings,
      bf16, full width) for a few iterations through MinibatchRl, check
      the losses are finite, that every replay sample went through the
@@ -28,7 +30,8 @@ Phases, each fatal on failure:
   6. time each LSTM kernel at the update's shapes beside its plain
      version, its bound and one library call (addmm; cuDNN's LSTM), call
      time and device time as in phase 3, and K3a also at the collection's
-     shape (M = 64 rows, where it streams W_x);
+     shape (M = 64 rows, where it streams W_x); K3a's bound is that of
+     three TF32 tensor-core products, the fp32 pipes' figure beside it;
   7. train the Atari R2D1 configuration (bench_r2d1.py:68-104, first
      geometry) for 6 iterations through MinibatchRl, check finite
      losses and priorities, the LSTM launch counts, and that the card's
@@ -55,9 +58,10 @@ Without a CUDA device it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernels-only
 
-runs phases 1, 2, 3, 5 and 6 alone (no trainer) and prints their times as
-one JSON line, without the result line: the quick loop while a kernel is
-being worked on.
+runs phases 1, 2, 3, 5 and 6 alone (no trainer) and prints the same
+``kernels`` line for their six kernels, with null launch counts and no
+result line: the quick loop while a kernel is being worked on, and the way
+to compare two trees on one card.
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from pathlib import Path
 import torch
 
 import bench_torch_gather_formulations as harness
+from rlpyt_tpu_torch.utils.cuda_timing import graph_ms, time_ms
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 rate outside the tensor cores
@@ -90,39 +95,39 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events, after warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
 def random_case(g, size_T, B, F, batch, K, n, dev, mask_dtype=torch.uint8):
-    """Ring, starts (some wrapping past the ring's end), lanes, masks."""
+    """Ring, starts (some wrapping past the ring's end), lanes, masks.
+    The indices are int64, the type the replay buffers pass."""
     ring = torch.randint(0, 256, (size_T, B, F), generator=g, device=dev,
                          dtype=torch.uint8)
-    start = torch.randint(0, size_T, (batch,), generator=g, device=dev,
-                          dtype=torch.int32)
-    start[:8] = torch.arange(size_T - 8, size_T, device=dev,
-                             dtype=torch.int32)
-    b_idx = torch.randint(0, B, (batch,), generator=g, device=dev,
-                          dtype=torch.int32)
+    start = torch.randint(0, size_T, (batch,), generator=g, device=dev)
+    start[:8] = torch.arange(size_T - 8, size_T, device=dev)
+    b_idx = torch.randint(0, B, (batch,), generator=g, device=dev)
     masks = torch.randint(0, 2, (2, batch, K), generator=g, device=dev,
                           dtype=torch.uint8).to(mask_dtype)
     return ring, start, b_idx, masks[0].contiguous(), masks[1].contiguous()
 
 
 def check_gather(fg, g, dev):
-    """Phase 2: kernel vs plain, bit-exact.  Returns the flagship case's
-    max abs error."""
+    """Phase 2: kernel vs plain, bit-exact, every case with int64 indices
+    (the trainers' type) and with int32 ones (the kernel has an
+    instantiation for each).  Returns the flagship case's max abs error."""
+    def hold(name, ring, start, b_idx, ma, mt, k, nn):
+        ref = fg.gather_frame_stacks_plain(ring, start, b_idx, ma, mt, k, nn)
+        worst = 0
+        for cast in (torch.Tensor.long, torch.Tensor.int):
+            out = fg.gather_frame_stacks(ring, cast(start), cast(b_idx), ma,
+                                         mt, k, nn)
+            torch.cuda.synchronize()
+            err = max(int((o.int() - r.int()).abs().max()) for o, r in
+                      zip(out, ref))
+            if err != 0 or any(o.shape != r.shape for o, r in zip(out, ref)):
+                fail(f"frame gather differs from plain ({name}, "
+                     f"{cast(start).dtype} indices): max err {err}")
+            worst = max(worst, err)
+        print(f"gather check {name}: bit-exact (int64 and int32 indices)")
+        return worst
+
     K, n = 4, 1
     cases = [
         ("flagship", (1568, 128, 8320, 256, K, n), torch.uint8),
@@ -134,34 +139,24 @@ def check_gather(fg, g, dev):
     for name, (size_T, B, F, batch, k, nn), mdt in cases:
         ring, start, b_idx, ma, mt = random_case(g, size_T, B, F, batch, k,
                                                  nn, dev, mdt)
-        out = fg.gather_frame_stacks(ring, start, b_idx, ma, mt, k, nn)
-        ref = fg.gather_frame_stacks_plain(ring, start, b_idx, ma, mt, k, nn)
-        torch.cuda.synchronize()
-        err = max(int((o.int() - r.int()).abs().max()) for o, r in
-                  zip(out, ref))
-        if err != 0 or any(o.shape != r.shape for o, r in zip(out, ref)):
-            fail(f"frame gather differs from plain ({name}): max err {err}")
+        err = hold(name, ring, start, b_idx, ma, mt, k, nn)
         if worst is None:
             worst = err
-        print(f"gather check {name}: bit-exact")
     # Rows that are not 16-byte aligned take the byte path.
     size_T, B, F, batch = 32, 8, 8320, 64
     flat = torch.randint(0, 256, (size_T * B * F + 1,), generator=g,
                          device=dev, dtype=torch.uint8)
     ring = flat[1:].view(size_T, B, F)
     _, start, b_idx, ma, mt = random_case(g, size_T, B, 16, batch, K, n, dev)
-    out = fg.gather_frame_stacks(ring, start, b_idx, ma, mt, K, n)
-    ref = fg.gather_frame_stacks_plain(ring, start, b_idx, ma, mt, K, n)
-    if not all(torch.equal(o, r) for o, r in zip(out, ref)):
-        fail("frame gather differs from plain (unaligned ring)")
-    print("gather check unaligned ring: bit-exact")
+    hold("unaligned ring", ring, start, b_idx, ma, mt, K, n)
     return worst
 
 
 def time_gather(fg, g, dev, n: int):
-    """Phase 3 at the flagship replay's shapes with n-step ``n``.  Index
-    sets rotate so the union rows are not left in L2 from the previous
-    call."""
+    """Phase 3 at the flagship replay's shapes with n-step ``n``, on int64
+    indices as the trainers pass them (the int32 instantiation's device
+    time beside it).  Index sets rotate so the union rows are not left in
+    L2 from the previous call."""
     size_T, B, F, batch, K = 1568, 128, 8320, 256, 4
     U = K + n
     ring = torch.randint(0, 256, (size_T, B, F), generator=g, device=dev,
@@ -170,11 +165,10 @@ def time_gather(fg, g, dev, n: int):
     for _ in range(16):
         _, start, b_idx, ma, mt = random_case(g, size_T, B, 16, batch, K, n,
                                               dev)
-        rows = (start.long()[:, None]
-                + torch.arange(U, device=dev)) % size_T
-        flat = rows * B + b_idx.long()[:, None]                  # [batch, U]
+        rows = (start[:, None] + torch.arange(U, device=dev)) % size_T
+        flat = rows * B + b_idx[:, None]                         # [batch, U]
         both = torch.cat([flat[:, :K], flat[:, n:n + K]], 1).reshape(-1)
-        sets.append((start, b_idx, ma, mt, both))
+        sets.append((start, b_idx, ma, mt, both, start.int(), b_idx.int()))
     ring2d = ring.view(size_T * B, F)
     it = {"i": 0}
 
@@ -183,11 +177,15 @@ def time_gather(fg, g, dev, n: int):
         return sets[it["i"]]
 
     def kernel():
-        s, b, ma, mt, _ = nxt()
+        s, b, ma, mt = nxt()[:4]
+        fg.gather_frame_stacks(ring, s, b, ma, mt, K, n)
+
+    def kernel_int32():
+        _, _, ma, mt, _, s, b = nxt()
         fg.gather_frame_stacks(ring, s, b, ma, mt, K, n)
 
     def plain():
-        s, b, ma, mt, _ = nxt()
+        s, b, ma, mt = nxt()[:4]
         fg.gather_frame_stacks_plain(ring, s, b, ma, mt, K, n)
 
     def library():   # one indexed call, same output bytes, no masking
@@ -198,10 +196,12 @@ def time_gather(fg, g, dev, n: int):
     plain_ms = time_ms(plain)
     library_ms = time_ms(library)
     # Two passes over the index sets in one graph: 32 launches.
-    device_ms = harness.graph_ms([kernel] * (2 * len(sets)))
-    library_device_ms = harness.graph_ms([library] * (2 * len(sets)))
-    n_bytes = batch * (U + 2 * K) * F + batch * (4 + 4 + 2 * K)
-    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+    device_ms = graph_ms([kernel] * (2 * len(sets)))
+    device_int32_ms = graph_ms([kernel_int32] * (2 * len(sets)))
+    library_device_ms = graph_ms([library] * (2 * len(sets)))
+    n_bytes = batch * (U + 2 * K) * F + batch * (8 + 8 + 2 * K)
+    return {"ms": ms, "device_ms": device_ms,
+            "device_int32_ms": device_int32_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_device_ms,
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": n_bytes}
@@ -359,8 +359,8 @@ def time_lstm(L, g, dev):
             plain_ms=time_ms(
                 lambda: L.input_proj_plain(x, next(ws), a["b"]), iters),
             library_ms=time_ms(library, iters),
-            device_ms=harness.graph_ms([kernel] * 10),
-            library_device_ms=harness.graph_ms([library] * 10),
+            device_ms=graph_ms([kernel] * 10),
+            library_device_ms=graph_ms([library] * 10),
             ops=2 * M * F * 4 * H,
             bytes=4 * (M * F + F * 4 * H + 4 * H + M * 4 * H))
 
@@ -373,7 +373,7 @@ def time_lstm(L, g, dev):
                                           50),
         "lstm_fwd": dict(
             ms=time_ms(lambda: L.lstm_fwd(*fwd_args), 20),
-            device_ms=harness.graph_ms([lambda: L.lstm_fwd(*fwd_args)] * 5),
+            device_ms=graph_ms([lambda: L.lstm_fwd(*fwd_args)] * 5),
             plain_ms=time_ms(lambda: L.lstm_fwd_plain(*fwd_args), 10),
             library_ms=time_ms(cudnn_fwd, 10),
             # h @ W_h, plus ~10 operations per cell for the gates
@@ -383,7 +383,7 @@ def time_lstm(L, g, dev):
                        + T * B * (H + 4 * H + H) + 2 * B * H)),
         "lstm_bwd": dict(
             ms=time_ms(lambda: L.lstm_bwd(*bwd_args), 20),
-            device_ms=harness.graph_ms([lambda: L.lstm_bwd(*bwd_args)] * 5),
+            device_ms=graph_ms([lambda: L.lstm_bwd(*bwd_args)] * 5),
             plain_ms=time_ms(lambda: L.lstm_bwd_plain(*bwd_args), 10),
             library_ms=time_ms(cudnn_bwd, 10),
             # dgates @ W_h^T, plus ~20 operations per cell
@@ -396,12 +396,15 @@ def time_lstm(L, g, dev):
     for name, r in res.items():
         t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        if name.startswith("lstm_input_proj"):
+            # K3a runs on the tensor cores, three TF32 products for each
+            # fp32 one: that is its bound.  What the fp32 pipes could do
+            # at best (the bound of the kernel before the redesign) is
+            # kept beside it.
+            r["bound_ffma_ms"] = max(t_ops, t_bytes)
+            t_ops = 3 * r["ops"] / TF32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        if name.startswith("lstm_input_proj"):
-            # K3a runs three TF32 tensor-core products for each fp32 one.
-            r["bound_3xtf32_ms"] = max(3 * r["ops"] / TF32_OPS_PER_S * 1e3,
-                                       t_bytes)
     return res
 
 
@@ -832,14 +835,47 @@ def build_kernels():
     return fg, L, ug
 
 
-def kernel_entry(name, source, replaces, launches, max_err, t):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max_err, "ms": t["ms"],
-            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library_device_ms": t.get("library_device_ms")}
+_PALLAS = "rlpyt_tpu/ops/pallas/"
+_GATHER = ("rlpyt_tpu_torch/csrc/frame_gather.cu",
+           f"{_PALLAS}frame_gather.py:111 and {_PALLAS}window_gather.py:79")
+_LSTM_SRC = "rlpyt_tpu_torch/csrc/lstm.cu"
+_UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
+# name -> (source, the TPU kernel it replaces).  The flagship DQN path
+# (n=1) and the ernbw path (n=3) run the frame gather at two union
+# widths, one entry for each; K3a has one entry at the update's shape
+# (M = 1440: all of the path's launches) and one at the collection's
+# (M = 64: those of them that took the few-row path, one per env step).
+KERNELS = {
+    "frame_gather": _GATHER,
+    "frame_gather_u7": _GATHER,
+    "lstm_input_proj": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_input_proj_m64": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_bwd": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
+    "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
+}
+
+
+def kernels_line(times: dict, errs: dict, launches: dict) -> str:
+    """The ``kernels`` JSON line: one entry for each kernel in ``times``.
+    ``launches`` are the main paths' counts (null for a kernel whose path
+    was not driven)."""
+    entries = []
+    for name, t in times.items():
+        source, replaces = KERNELS[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches.get(name),
+                 "max_abs_err": errs[name], "ms": t["ms"],
+                 "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                 "library_ms": t["library_ms"],
+                 "library_device_ms": t.get("library_device_ms")}
+        for extra in ("device_int32_ms", "bound_ffma_ms"):
+            if extra in t:
+                entry[extra] = t[extra]
+        entries.append(entry)
+    return json.dumps({"kernels": entries})
 
 
 def nvidia_smi_line() -> str:
@@ -865,13 +901,17 @@ def main():
     fg, L, ug = build_kernels()
 
     g = torch.Generator(device=dev).manual_seed(0)
-    max_err = check_gather(fg, g, dev)
+    errs = {"frame_gather": check_gather(fg, g, dev)}
+    errs["frame_gather_u7"] = errs["frame_gather"]
     print("phase 2: kernel bit-exact against its plain version")
 
-    timing, timing_u7 = (time_gather(fg, g, dev, n) for n in (1, 3))
-    for n, t in ((1, timing), (3, timing_u7)):
+    times = {"frame_gather": time_gather(fg, g, dev, 1),
+             "frame_gather_u7": time_gather(fg, g, dev, 3)}
+    launches = {}
+    for n, t in zip((1, 3), times.values()):
         print(f"phase 3: gather n={n} call {t['ms']:.4f} ms, device "
-              f"{t['device_ms']:.4f} ms; index_select call "
+              f"{t['device_ms']:.4f} ms (int32 indices: "
+              f"{t['device_int32_ms']:.4f} ms); index_select call "
               f"{t['library_ms']:.4f} ms, device "
               f"{t['library_device_ms']:.4f} ms; plain {t['plain_ms']:.4f} "
               f"ms; bound {t['bound_ms']:.4f} ms ({t['bytes']} bytes at "
@@ -879,11 +919,12 @@ def main():
     torch.cuda.empty_cache()
 
     if not kernels_only:
-        runner, launches, sps = run_trainer(dev)
+        runner, launches["frame_gather"], sps = run_trainer(dev)
         steady = sorted(sps[1:])[len(sps[1:]) // 2]
         print(f"phase 4: flagship trainer {N_ITR} iterations, "
-              f"{launches} gather launches, median steady env-steps/s "
-              f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
+              f"{launches['frame_gather']} gather launches, median steady "
+              f"env-steps/s {steady:.1f} (per iteration: "
+              f"{[round(s, 1) for s in sps]})")
         check_replay_against_cpu(runner, dev)
         del runner
         torch.cuda.empty_cache()
@@ -896,7 +937,9 @@ def main():
     lstm_err = check_lstm(L, g, dev)
     print("phase 5: K3a, K3, K4 and the autograd Function agree with their "
           f"plain versions (max abs err {lstm_err})")
+    errs.update(lstm_err, lstm_input_proj_m64=lstm_err["lstm_input_proj"])
     lstm_t = time_lstm(L, g, dev)
+    times.update(lstm_t)
     for name, t in lstm_t.items():
         library_device = t.get("library_device_ms")
         print(f"phase 6: {name} call {t['ms']:.4f} ms, device "
@@ -906,20 +949,21 @@ def main():
                  else "")
               + f"; plain {t['plain_ms']:.4f} ms; bound "
               f"{t['bound_ms']:.4f} ms by {t['bound_by']}"
-              + (f" (three TF32 products: {t['bound_3xtf32_ms']:.4f} ms)"
-                 if "bound_3xtf32_ms" in t else "")
+              + (f" (three TF32 products at {TF32_OPS_PER_S:.3g} /s; on "
+                 f"the fp32 pipes: {t['bound_ffma_ms']:.4f} ms)"
+                 if "bound_ffma_ms" in t else "")
               + f" ({t['ops']} operations, {t['bytes']} bytes)")
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     torch.cuda.empty_cache()
     if kernels_only:
         print(nvidia_smi_line())
-        print(json.dumps({"kernels_only": {
-            "frame_gather": timing, "frame_gather_u7": timing_u7, **lstm_t},
-            "max_abs_err": {"frame_gather": max_err, **lstm_err}}))
+        print(kernels_line(times, errs, launches))
         return 0
 
     runner, lstm_launches, sps = run_r2d1(L, dev)
+    launches.update(lstm_launches)
+    launches["lstm_input_proj_m64"] = launches.pop("lstm_input_proj_split")
     print(f"phase 7: R2D1 trainer {R2D1_ITR} iterations, "
           f"{runner.algo.update_counter} updates, LSTM launches "
           f"{lstm_launches}, env-steps/s per iteration "
@@ -928,12 +972,15 @@ def main():
     del runner
     torch.cuda.empty_cache()
 
-    union_err = check_union(ug, g, dev)
+    errs["union_rows"], errs["union_window"] = check_union(ug, g, dev)
     print("phase 8: K5 and K6 bit-exact against their plain versions")
     union_launches, union_t = run_harness(ug, dev)
     print(f"phase 9: harness ran, union kernel launches {union_launches}")
+    launches.update(union_launches)
+    times.update(union_t)
 
     runner, ernbw_launches, sps = run_ernbw(fg, dev)
+    launches["frame_gather_u7"] = ernbw_launches
     steady = sorted(sps[1:])[len(sps[1:]) // 2]
     print(f"phase 10: ernbw trainer {ERNBW_ITR} iterations, "
           f"{ernbw_launches} gather launches, median steady env-steps/s "
@@ -941,44 +988,7 @@ def main():
     check_prioritized_against_cpu(runner, dev)
 
     print(nvidia_smi_line())
-    lstm_src = "rlpyt_tpu_torch/csrc/lstm.cu"
-    union_src = "rlpyt_tpu_torch/csrc/union_gather.cu"
-    gather_src = "rlpyt_tpu_torch/csrc/frame_gather.cu"
-    pallas = "rlpyt_tpu/ops/pallas/"
-    gather_replaces = (f"{pallas}frame_gather.py:111 and "
-                       f"{pallas}window_gather.py:79")
-    print(json.dumps({"kernels": [
-        # The flagship DQN path (n=1) and the ernbw path (n=3) run the
-        # same kernel at two union widths: one entry for each.
-        kernel_entry("frame_gather", gather_src, gather_replaces, launches,
-                     max_err, timing),
-        kernel_entry("frame_gather_u7", gather_src, gather_replaces,
-                     ernbw_launches, max_err, timing_u7),
-        # K3a at the update's shapes (M = 1440: all of the path's
-        # launches) and at the collection's (M = 64: those of them that
-        # took the split-K path, one per env step).
-        kernel_entry("lstm_input_proj", lstm_src, f"{pallas}lstm.py:109",
-                     lstm_launches["lstm_input_proj"],
-                     lstm_err["lstm_input_proj"], lstm_t["lstm_input_proj"]),
-        kernel_entry("lstm_input_proj_m64", lstm_src, f"{pallas}lstm.py:109",
-                     lstm_launches["lstm_input_proj_split"],
-                     lstm_err["lstm_input_proj"],
-                     lstm_t["lstm_input_proj_m64"]),
-        kernel_entry("lstm_fwd", lstm_src, f"{pallas}lstm.py:109",
-                     lstm_launches["lstm_fwd"], lstm_err["lstm_fwd"],
-                     lstm_t["lstm_fwd"]),
-        kernel_entry("lstm_bwd", lstm_src, f"{pallas}lstm.py:214",
-                     lstm_launches["lstm_bwd"], lstm_err["lstm_bwd"],
-                     lstm_t["lstm_bwd"]),
-        kernel_entry("union_rows", union_src,
-                     "bench_gather_formulations.py:106",
-                     union_launches["union_rows"], union_err[0],
-                     union_t["union_rows"]),
-        kernel_entry("union_window", union_src,
-                     "bench_gather_formulations.py:138",
-                     union_launches["union_window"], union_err[1],
-                     union_t["union_window"]),
-    ]}))
+    print(kernels_line(times, errs, launches))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -225,13 +225,6 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32],
 // mbarriers: full_raw / full_op are the producer's "landed" signals,
 // empty_raw / empty_op the consumers' "read" signals.
 // Needs N % 4 == 0 and B, bias, C 16-byte aligned.
-//
-// The PROJ_SKIP_* macros take one part of the work out (x's copies, W_x's
-// copies, the split and transpose, the tensor-core products) and leave
-// every barrier in place.  The results are then wrong: they exist for
-// bench_torch_proj_breakdown.py, which times such builds to see what
-// each part costs where no profiler reads the card, and are never defined
-// in the library the package loads.
 template <int CW, int RAW, int SPLIT>
 __global__ void __launch_bounds__((CW + 1) * 128, 1)
 proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
@@ -271,7 +264,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     const int p = tid - CW * 128, prow = p / 32, lane = p % 32;
     auto load_raw = [&](int kt) {
       const int slot = kt % RAW, k0 = kb + kt * kBK;
-#ifndef PROJ_SKIP_X
       {
         float* dst = rawA + slot * kRawA + prow * kAStride + lane;
         const float* src = A + (int64_t)(m0 + prow) * K + k0 + lane;
@@ -285,8 +277,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
           src += step;
         }
       }
-#endif
-#ifndef PROJ_SKIP_W
       {
         float* dst = rawB + slot * kRawB + prow * kWgBN + lane * 4;
         const float* src = Bm + (int64_t)(k0 + prow) * N + n0 + lane * 4;
@@ -300,7 +290,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
           src += step;
         }
       }
-#endif
     };
 #pragma unroll
     for (int kt = 0; kt < RAW - 1; ++kt) {
@@ -320,7 +309,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       const float* rb = rawB + (kt % RAW) * kRawB + p;
       float* hi = opB + o * 2 * kOpTile + p * 4;
       float* lo = hi + kOpTile;
-#ifndef PROJ_SKIP_SPLIT
 #pragma unroll
       for (int kc = 0; kc < kBK / 4; ++kc) {
         uint32_t h[4], l[4];
@@ -332,7 +320,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
         *reinterpret_cast<uint4*>(lo + kc * kWgBN * 4) =
             make_uint4(l[0], l[1], l[2], l[3]);
       }
-#endif
       // The tensor cores read shared memory through the async proxy.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive(&full_op[o]);
@@ -361,7 +348,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       mbar_wait(&full_op[o], (kt / kWgOp) & 1);
       const float* ap = rawA + (kt % RAW) * kRawA + row * kAStride + t;
       const float* hi = opB + o * 2 * kOpTile;
-#ifndef PROJ_SKIP_MMA
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float d[32];
@@ -402,7 +388,6 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
           acc[half * 32 + i] += d[i];
         }
       }
-#endif
       mbar_arrive(&empty_raw[kt % RAW]);
       mbar_arrive(&empty_op[o]);
     }
@@ -478,9 +463,13 @@ cudaError_t launch_proj_wgmma(const float* A, const float* Bm,
       sizeof(float) * (RAW * (BM * kAStride + kBK * kWgBN) +
                        kWgOp * 2 * kOpTile);
   auto kernel = proj_wgmma_kernel<CW, RAW, SPLIT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static bool opted_in = false;   // once for each shape of the kernel
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = 1;

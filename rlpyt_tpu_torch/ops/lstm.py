@@ -29,6 +29,7 @@ in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -153,6 +154,12 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def _n_sm(device) -> int:
+    """The device's count of SMs, asked once for each device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 PROJ_K_STEP = 32    # depth of one shared-memory stage of K3a
 PROJ_SPLITS = 8     # CTAs of a cluster that share the K range of a tile
 
@@ -197,8 +204,7 @@ def input_proj(x, wx, b):
                            ("b", b, (N,))):
         _check(name, t, shape, x.device)
     lib = load()
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile_m, k_chunk, splits = proj_plan(M, N, K, n_sm)
+    tile_m, k_chunk, splits = proj_plan(M, N, K, _n_sm(x.device))
     if wx.data_ptr() % 16 != 0 or b.data_ptr() % 16 != 0:
         tile_m, k_chunk, splits = 0, K, 1    # a view into another tensor
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
