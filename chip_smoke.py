@@ -25,17 +25,21 @@ Phases, each fatal on failure:
   5. hold the LSTM kernels (K3a input projection, K3 forward, K4
      backward) and the autograd Function against their plain versions,
      TF32 off, at R2D1's shapes (F=6919, H=512; (T, B) = (45, 32),
-     (20, 32), (1, 64)), two ragged cases and a W_x that is not 16-byte
-     aligned, with random dones;
+     (20, 32), (1, 64)), at B=128, three ragged cases and a W_x that is
+     not 16-byte aligned, with random dones; K3 and K4 run twice on the
+     same inputs and must give the same bits;
   6. time each LSTM kernel at the update's shapes beside its plain
      version, its bound and one library call (addmm; cuDNN's LSTM), call
-     time and device time as in phase 3, and K3a also at the collection's
-     shape (M = 64 rows, where it streams W_x); K3a's bound is that of
-     three TF32 tensor-core products, the fp32 pipes' figure beside it;
+     time and device time as in phase 3; K3a also at the collection's
+     shape (M = 64 rows, where it streams W_x), K3 also at the
+     collection's (T=1, B=64) and the burn-in's (T=20, B=32); K3a's bound
+     is that of three TF32 tensor-core products, the fp32 pipes' figure
+     beside it;
   7. train the Atari R2D1 configuration (bench_r2d1.py:68-104, first
      geometry) for 6 iterations through MinibatchRl, check finite
-     losses and priorities, the LSTM launch counts, and that the card's
-     sequence windows equal the CPU path's;
+     losses and priorities, the LSTM launch counts (K3's one-step
+     launches among them), and that the card's sequence windows equal
+     the CPU path's;
   8. hold the two unmasked union gathers (K5 row gather, K6 window gather
      on the lane-major ghost ring) against their plain versions,
      bit-exact, at the shapes of bench_torch_gather_formulations.py (ring
@@ -59,7 +63,7 @@ Without a CUDA device it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels-only
 
 runs phases 1, 2, 3, 5 and 6 alone (no trainer) and prints the same
-``kernels`` line for their six kernels, with null launch counts and no
+``kernels`` line for their seven kernels, with null launch counts and no
 result line: the quick loop while a kernel is being worked on, and the way
 to compare two trees on one card.
 """
@@ -233,8 +237,11 @@ def check_lstm(L, g, dev):
     forward.  fp32 with TF32 off on both sides; the kernels sum in
     another order than cuBLAS, so forward results must agree to 1e-4 of
     the largest reference value and backward results (a 45-step reverse
-    recurrence) to 1e-3.  Returns the max abs error of each kernel."""
-    worst = {"lstm_input_proj": 0.0, "lstm_fwd": 0.0, "lstm_bwd": 0.0}
+    recurrence) to 1e-3.  K3 and K4 run twice on the same inputs and
+    must give the same bits.  Returns the max abs error of each kernel
+    (K3's one-step shape, T=1, as ``lstm_fwd_t1``)."""
+    worst = {"lstm_input_proj": 0.0, "lstm_fwd": 0.0, "lstm_fwd_t1": 0.0,
+             "lstm_bwd": 0.0}
 
     def hold(kernel, what, out, ref, tol):
         err, rel = rel_err(out, ref)
@@ -243,10 +250,13 @@ def check_lstm(L, g, dev):
                  f" = {rel:.3g} of max|ref|, tolerance {tol:g}")
         worst[kernel] = max(worst[kernel], err)
 
-    # R2D1's shapes, then ragged ones: H = 102 leaves the last CTA two
-    # live units; B = 37 spans two passes of the warps, the second ragged.
+    # R2D1's shapes (update window, burn-in, collection step), B = 128
+    # (more rows than one stage of staged h holds), then ragged ones:
+    # H = 102 leaves the last CTA two live units; B = 37 spans two row
+    # blocks, the second ragged.
     cases = [(45, 32, LSTM_F, LSTM_H), (20, 32, LSTM_F, LSTM_H),
-             (1, 64, LSTM_F, LSTM_H), (7, 3, 130, 100), (3, 37, 33, 102)]
+             (1, 64, LSTM_F, LSTM_H), (5, 128, 33, LSTM_H), (7, 3, 130, 100),
+             (3, 37, 33, 102), (1, 5, 33, 102)]
     for T, B, F, H in cases:
         name = f"T={T} B={B} F={F} H={H}"
         a = lstm_case(g, T, B, F, H, dev)
@@ -258,8 +268,12 @@ def check_lstm(L, g, dev):
         xg = xg.view(T, B, 4 * H)
         ref = L.lstm_fwd_plain(xg, a["wh"], mask, a["h0"], a["c0"])
         out = L.lstm_fwd(xg, a["wh"], mask, a["h0"], a["c0"])
+        fwd = "lstm_fwd_t1" if T == 1 else "lstm_fwd"
         for what, o, r in zip(("y", "gates", "c", "hT", "cT"), out, ref):
-            hold("lstm_fwd", f"{name} {what}", o, r, 1e-4)
+            hold(fwd, f"{name} {what}", o, r, 1e-4)
+        again = L.lstm_fwd(xg, a["wh"], mask, a["h0"], a["c0"])
+        if not all(torch.equal(o, r) for o, r in zip(out, again)):
+            fail(f"lstm_fwd gives other bits on a second run ({name})")
         _, gates, cs, _, _ = ref
         dy = torch.randn((T, B, H), generator=g, device=dev)
         dcT = torch.randn((B, H), generator=g, device=dev)
@@ -267,6 +281,9 @@ def check_lstm(L, g, dev):
         out = L.lstm_bwd(gates, cs, a["c0"], mask, a["wh"], dy, dcT)
         for what, o, r in zip(("dgates", "dh0", "dc0"), out, ref):
             hold("lstm_bwd", f"{name} {what}", o, r, 1e-3)
+        again = L.lstm_bwd(gates, cs, a["c0"], mask, a["wh"], dy, dcT)
+        if not all(torch.equal(o, r) for o, r in zip(out, again)):
+            fail(f"lstm_bwd gives other bits on a second run ({name})")
 
         # The autograd Function (kernels) against autograd through the
         # plain forward.
@@ -291,7 +308,8 @@ def check_lstm(L, g, dev):
                                    [leaves[k] for k in names])
         for k, o, r in zip(names, got, want):
             hold("lstm_bwd", f"{name} d{k} (autograd)", o, r, 1e-3)
-        print(f"lstm check {name}: kernels agree with plain")
+        print(f"lstm check {name}: kernels agree with plain, K3 and K4 "
+              "bit-identical over two runs")
     # A W_x that is not 16-byte aligned (a view one float into a buffer)
     # takes K3a's generic kernel.
     M, F, N = 70, 130, 400
@@ -307,7 +325,9 @@ def check_lstm(L, g, dev):
 def time_lstm(L, g, dev):
     """Phase 6: each LSTM kernel at the update's shapes (T=45, B=32,
     F=6919, H=512) beside its plain version, its bound and one library
-    call, by CUDA events."""
+    call, by CUDA events; K3 also at the collection's shape (T=1,
+    B=R2D1_B) as its own entry, and at the burn-in's (T=20, B=32) in a
+    printed line."""
     T, B, F, H = 45, 32, LSTM_F, LSTM_H
     a = lstm_case(g, T, B, F, H, dev)
     mask = (~a["done"]).float()
@@ -317,26 +337,50 @@ def time_lstm(L, g, dev):
                                           a["c0"])
     dy = torch.randn((T, B, H), generator=g, device=dev)
     dcT = torch.randn((B, H), generator=g, device=dev)
-    fwd_args = (xg, a["wh"], mask, a["h0"], a["c0"])
     bwd_args = (gates, cs, a["c0"], mask, a["wh"], dy, dcT)
 
-    # cuDNN's LSTM with the same weights (gate order i, f, g, o), no dones.
-    # It also computes the input projection (forward) and the weight and
-    # input gradients (backward): more work than K3 and K4 alone.
-    cudnn = torch.nn.LSTM(F, H).to(dev)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(a["wx"].T)
-        cudnn.weight_hh_l0.copy_(a["wh"].T)
-        cudnn.bias_ih_l0.copy_(a["b"])
-        cudnn.bias_hh_l0.zero_()
+    def cudnn_lstm(c):
+        """cuDNN's LSTM with the weights of case ``c`` (gate order i, f, g,
+        o), no dones.  It also computes the input projection (forward)
+        and the weight and input gradients (backward): more work than K3
+        and K4 alone."""
+        cudnn = torch.nn.LSTM(F, H).to(dev)
+        with torch.no_grad():
+            cudnn.weight_ih_l0.copy_(c["wx"].T)
+            cudnn.weight_hh_l0.copy_(c["wh"].T)
+            cudnn.bias_ih_l0.copy_(c["b"])
+            cudnn.bias_hh_l0.zero_()
+        return cudnn, (c["h0"][None], c["c0"][None])
+
+    def fwd_times(c, iters, graph_len):
+        """K3 on case ``c`` beside its plain version and cuDNN's forward."""
+        Tc, Bc = c["done"].shape
+        m = (~c["done"]).float()
+        xgc = L.input_proj_plain(c["x"].view(Tc * Bc, F), c["wx"],
+                                 c["b"]).view(Tc, Bc, 4 * H)
+        args = (xgc, c["wh"], m, c["h0"], c["c0"])
+        cudnn, state = cudnn_lstm(c)
+
+        def library():
+            with torch.no_grad():
+                cudnn(c["x"], state)
+
+        return dict(
+            ms=time_ms(lambda: L.lstm_fwd(*args), iters),
+            device_ms=graph_ms([lambda: L.lstm_fwd(*args)] * graph_len),
+            plain_ms=time_ms(lambda: L.lstm_fwd_plain(*args), 10),
+            library_ms=time_ms(library, 10),
+            library_device_ms=graph_ms([library] * graph_len),
+            # h @ W_h, plus ~10 operations per cell for the gates
+            ops=2 * Tc * Bc * H * 4 * H + 10 * Tc * Bc * H,
+            # xg, W_h, mask, h0, c0 in; y, gates, c, hT, cT out
+            bytes=4 * (Tc * Bc * 4 * H + H * 4 * H + Tc * Bc + 2 * Bc * H
+                       + Tc * Bc * (H + 4 * H + H) + 2 * Bc * H))
+
+    cudnn, state = cudnn_lstm(a)
     x_leaf = a["x"].clone().requires_grad_(True)
-    state = (a["h0"][None], a["c0"][None])
     out, _ = cudnn(x_leaf, state)
     cudnn_params = [x_leaf] + list(cudnn.parameters())
-
-    def cudnn_fwd():
-        with torch.no_grad():
-            cudnn(a["x"], state)
 
     def cudnn_bwd():
         torch.autograd.grad(out, cudnn_params, dy, retain_graph=True)
@@ -371,16 +415,11 @@ def time_lstm(L, g, dev):
         "lstm_input_proj": proj_times(x2, [a["wx"]], 20),
         "lstm_input_proj_m64": proj_times(x64, [a["wx"], a["wx"].clone()],
                                           50),
-        "lstm_fwd": dict(
-            ms=time_ms(lambda: L.lstm_fwd(*fwd_args), 20),
-            device_ms=graph_ms([lambda: L.lstm_fwd(*fwd_args)] * 5),
-            plain_ms=time_ms(lambda: L.lstm_fwd_plain(*fwd_args), 10),
-            library_ms=time_ms(cudnn_fwd, 10),
-            # h @ W_h, plus ~10 operations per cell for the gates
-            ops=2 * T * B * H * 4 * H + 10 * T * B * H,
-            # xg, W_h, mask, h0, c0 in; y, gates, c, hT, cT out
-            bytes=4 * (T * B * 4 * H + H * 4 * H + T * B + 2 * B * H
-                       + T * B * (H + 4 * H + H) + 2 * B * H)),
+        "lstm_fwd": fwd_times(a, 20, 5),
+        # One collection step (T=1, B=R2D1_B): 40 of K3's 48 launches in
+        # an R2D1 iteration.  cuDNN's call also does the projection.
+        "lstm_fwd_t1": fwd_times(lstm_case(g, 1, R2D1_B, F, H, dev), 50,
+                                 20),
         "lstm_bwd": dict(
             ms=time_ms(lambda: L.lstm_bwd(*bwd_args), 20),
             device_ms=graph_ms([lambda: L.lstm_bwd(*bwd_args)] * 5),
@@ -393,7 +432,9 @@ def time_lstm(L, g, dev):
                        + H * 4 * H + T * B * H + B * H
                        + T * B * 4 * H + 2 * B * H)),
     }
-    for name, r in res.items():
+    # The burn-in's shape (T=20, B=32): printed, not an entry of its own.
+    t20 = fwd_times(lstm_case(g, 20, 32, F, H, dev), 20, 5)
+    for name, r in list(res.items()) + [("lstm_fwd T=20 B=32", t20)]:
         t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         if name.startswith("lstm_input_proj"):
@@ -405,6 +446,11 @@ def time_lstm(L, g, dev):
             t_ops = 3 * r["ops"] / TF32_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"phase 6: lstm_fwd T=20 B=32 call {t20['ms']:.4f} ms, device "
+          f"{t20['device_ms']:.4f} ms; cuDNN call {t20['library_ms']:.4f} "
+          f"ms, device {t20['library_device_ms']:.4f} ms; plain "
+          f"{t20['plain_ms']:.4f} ms; bound {t20['bound_ms']:.4f} ms by "
+          f"{t20['bound_by']}")
     return res
 
 
@@ -418,6 +464,7 @@ def zero_launches():
                ug.gather_union_rows, ug.gather_union_window):
         fn.launches = 0
     L.input_proj.split_launches = 0
+    L.lstm_fwd.step_launches = 0
 
 
 def build_flagship_runner(dev, n_itr: int, logger=None):
@@ -519,8 +566,8 @@ def run_r2d1(L, dev):
     """Phase 7: the R2D1 trainer through MinibatchRl.  Checks finite
     losses and priorities and that every LSTM call of the run went
     through the kernels: per iteration T collection steps (one K3a and
-    one K3 launch each), per update 4 forward calls (online and target,
-    burn-in and training window) and one backward (K4)."""
+    one K3 launch each, K3 at T=1), per update 4 forward calls (online
+    and target, burn-in and training window) and one backward (K4)."""
     from rlpyt_tpu_torch.ops import frame_gather as fg
 
     logger = row_logger()
@@ -532,6 +579,7 @@ def run_r2d1(L, dev):
     launches = {"lstm_input_proj": L.input_proj.launches,
                 "lstm_input_proj_split": L.input_proj.split_launches,
                 "lstm_fwd": L.lstm_fwd.launches,
+                "lstm_fwd_step": L.lstm_fwd.step_launches,
                 "lstm_bwd": L.lstm_bwd.launches}
     updates = algo.update_counter
     learning_itrs = sum(1 for i in range(1, R2D1_ITR + 1)
@@ -542,6 +590,7 @@ def run_r2d1(L, dev):
     want = {"lstm_input_proj": R2D1_ITR * R2D1_T + 4 * updates,
             "lstm_input_proj_split": R2D1_ITR * R2D1_T,
             "lstm_fwd": R2D1_ITR * R2D1_T + 4 * updates,
+            "lstm_fwd_step": R2D1_ITR * R2D1_T,
             "lstm_bwd": updates}
     if launches != want:
         fail(f"LSTM launches {launches}, expected {want}")
@@ -844,13 +893,15 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # (n=1) and the ernbw path (n=3) run the frame gather at two union
 # widths, one entry for each; K3a has one entry at the update's shape
 # (M = 1440: all of the path's launches) and one at the collection's
-# (M = 64: those of them that took the few-row path, one per env step).
+# (M = 64: those of them that took the few-row path, one per env step);
+# K3 likewise (T=45: all launches; T=1: the one-step launches).
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
     "lstm_input_proj": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_input_proj_m64": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_fwd": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_t1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_bwd": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
     "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
@@ -964,6 +1015,7 @@ def main():
     runner, lstm_launches, sps = run_r2d1(L, dev)
     launches.update(lstm_launches)
     launches["lstm_input_proj_m64"] = launches.pop("lstm_input_proj_split")
+    launches["lstm_fwd_t1"] = launches.pop("lstm_fwd_step")
     print(f"phase 7: R2D1 trainer {R2D1_ITR} iterations, "
           f"{runner.algo.update_counter} updates, LSTM launches "
           f"{lstm_launches}, env-steps/s per iteration "

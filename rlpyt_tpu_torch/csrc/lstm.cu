@@ -62,22 +62,34 @@
 //       W_x not 16-byte aligned or 4H not a multiple of 4 take a plain
 //       shared-memory-tiled FFMA kernel.
 //   K3 / K4 do 2*T*B*H*4H operations in T dependent steps: on paper bound
-//       by fp32 operations, in fact by the latency of each step.  Design:
-//       one persistent cooperative launch per call.  CTA j owns hidden
-//       units [4j, 4j+4) and all four of their gates.  It keeps its slice
-//       of W_h in shared memory for the whole sequence (K3: the 16 columns
-//       [H, 16]; K4: the 4 rows [4, 4H]; 32 KB each at H = 512), the
-//       Hopper counterpart of the TPU keeping W_h in VMEM, and keeps its
-//       units' cell state (K3) or dc carry (K4) in shared memory.  Each
-//       step it reads the previous step's h (K3) or dgates (K4) of all
-//       units from L2 (ld.global.cg: written by other CTAs, never cached
-//       in L1), writes its own units' outputs, and the grid synchronises
-//       (cooperative_groups grid.sync(), which orders the writes before
-//       the next step's reads).  A warp takes 4 batch rows at a time; its
-//       lanes split the contraction and reduce by shuffles; lanes
-//       r*4 + u then do the pointwise cell updates of row r, unit u, all
-//       16 side by side.
-//       Ragged H and B are masked in the kernels; H needs no padding.
+//       by fp32 operations (1.0 us a step at B = 32, H = 512), in fact by
+//       what each step waits for.  Design: one persistent launch per call,
+//       cooperative (all CTAs resident, or the launch is refused).  CTA j
+//       owns hidden units [U*j, U*j + U) (U = 4: 128 CTAs at H = 512) and
+//       all four of their gates, keeps its W_h slice ws [H][4U] (32 KB)
+//       in shared memory for the whole sequence, the Hopper counterpart of
+//       the TPU keeping W_h in VMEM, and its units' c (K3) or dc (K4).
+//       Per step:
+//       - a step barrier of one counter in device memory, arrive (release)
+//         apart from wait (acquire), so that a CTA loads the next step's
+//         own inputs (xg; gates, c, dy) between the two;
+//       - K3 stages the step's input h_prev [B][H] in shared memory (64 KB
+//         at B = 32; at most 64 rows at a time) by bulk copies multicast
+//         over a thread-block cluster of C CTAs, so L2 serves 128 / C
+//         copies of h a step, not 128, and contracts it with FFMA from
+//         shared memory: warp w takes an eighth of k, a lane 4 rows x its
+//         gate's U columns, and the 8 warps' tiles are summed in shared
+//         memory in warp order;
+//       - K4 needs dgates[s+1] of all 4H columns for its units' rows of
+//         W_h^T, 256 KB a CTA a step at B = 32; instead the CTAs of a
+//         cluster share their dgates over distributed shared memory, each
+//         forms the cluster's partial carry over its 4UC columns for a
+//         C-th of the units (B x H / C floats stored), and each CTA sums
+//         its units' columns of the 128 / C cluster partials in a fixed
+//         order (B x U x 128 / C floats read).
+//       No atomics on data: the same bits every run.  T = 1 (a collection
+//       step) is an ordinary launch of K3 with no barrier.  Ragged H and B
+//       are masked in the kernels; H needs no padding.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -550,237 +562,707 @@ proj_generic_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 // K3 / K4: persistent recurrences
 // ---------------------------------------------------------------------
 
-constexpr int kU = 4;                 // hidden units per CTA
-constexpr int kQ = 4 * kU;            // gate columns per CTA
-constexpr int kR = 4;                 // batch rows per warp pass
 constexpr int kRecThreads = 256;
-constexpr int kWarps = kRecThreads / 32;
-static_assert(kR * kU <= 32, "one lane per (row, unit) pair");
+constexpr int kRecWarps = kRecThreads / 32;
+constexpr int kRowBlock = 32;             // batch rows of a warp's tile
+constexpr int kGather = 8;                // K4: partial loads in flight
+constexpr int kPartRows = 4;              // K4: rows of a partial at once
+// Dynamic shared memory of a recurrence CTA: sm_90's 232448 bytes less
+// 1 KB, which leaves room for the kernels' static barriers.
+constexpr int kSmemMax = 232448 - 1024;
+constexpr size_t kOnePerSm = 116 * 1024;   // over half an SM's 228 KB
+constexpr int kErrNotResident = 10001;
+constexpr int kErrBadPlan = 10002;
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// Row stride of staged h in floats: H rounded up to 4, and an odd number
+// of 16-byte units, so that the 8 rows a quarter-warp reads at one k lie
+// in 8 different bank groups.
+__host__ __device__ __forceinline__ int padded_h(int H) { return (H + 3) & ~3; }
+__host__ __device__ __forceinline__ int h_stride(int H) {
+  const int hp = padded_h(H);
+  return (hp / 4) % 2 ? hp : hp + 4;
 }
 
-__global__ void __launch_bounds__(kRecThreads)
+// The step barrier.  After its stores of a step, each CTA adds one to a
+// counter in device memory (release); before it reads what the other
+// CTAs stored, it polls until the counter reaches the step's share of
+// the grid (acquire).  The arrival is taken apart from the wait, so a
+// CTA loads the next step's own inputs in between.  The counter is
+// zeroed on the stream by the wrapper before each launch.  A wait that
+// outlasts any real one traps instead of hanging the card.
+__device__ __forceinline__ void step_arrive(int* counter) {
+  // K3's readers take h through bulk copies (the async proxy).
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __syncthreads();   // every thread's stores of this step are issued
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1);
+  }
+}
+
+__device__ __forceinline__ void step_wait(const int* counter, int target) {
+  if (threadIdx.x == 0) {
+    int v = 0;
+    for (uint32_t spins = 0;; ++spins) {
+      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(counter)
+                   : "memory");
+      if (v >= target) break;
+      if (spins > (1u << 24)) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory to shared memory, completing on ``bar``;
+// with ``cluster`` > 1 multicast to the same offset in every CTA of the
+// cluster, each of which counts the bytes on its own ``bar``.
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          int cluster) {
+  if (cluster > 1) {
+    const uint16_t all = (uint16_t)((1u << cluster) - 1);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(all)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+// K3's slice of W_h, ws[k][q] = W_h[k, gate q / U, unit j0 + q % U],
+// for k < padded_h(H) (zero past H and past the last unit).  With
+// ``vec`` (H % 4 == 0, W_h 16-byte aligned) in 16-byte cp.async copies
+// that the caller waits for; else in scalar loads.
+template <int U>
+__device__ __forceinline__ void load_w_slice(float* ws,
+                                             const float* __restrict__ wh,
+                                             int H, int j0, bool vec) {
+  constexpr int Q = 4 * U;
+  const int hp = padded_h(H), H4 = 4 * H;
+  if (vec) {
+    for (int i = threadIdx.x; i < H * (Q / 4); i += kRecThreads) {
+      const int k = i / (Q / 4), v = i % (Q / 4);
+      const int g = v / (U / 4), u = (v % (U / 4)) * 4;
+      const bool ok = j0 + u < H;
+      cp_async<16>(ws + k * Q + v * 4,
+                   ok ? wh + (int64_t)k * H4 + g * H + j0 + u : wh, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  } else {
+    for (int i = threadIdx.x; i < hp * Q; i += kRecThreads) {
+      const int k = i / Q, q = i % Q, col = j0 + q % U;
+      ws[i] = k < H && col < H ? wh[(int64_t)k * H4 + (q / U) * H + col]
+                               : 0.f;
+    }
+  }
+}
+
+// K3.  CTA j owns hidden units [U*j, U*j + U) and their four gates (Q =
+// 4U columns of h @ W_h), keeps its W_h slice ws [Hp][Q] for the whole
+// sequence and its units' cell state in shared memory.  Each step:
+//   1. wait for every CTA's h of the step before (skipped at t = 0);
+//   2. stage h_prev [rows][H] in shared memory, at most S rows at a
+//      time: one bulk copy a row, multicast to the CTA's cluster (CTA r
+//      copies rows r, r + C, ...), so L2 serves a row once a cluster
+//      (with H % 4 != 0: scalar ld.global.cg, from L2, never a stale L1);
+//   3. for each 32-row block: warp w takes the k in {4w, 4w+32, ...} for
+//      the whole [32][Q] tile, lane (gate gq, row group rg) holds rows
+//      rg + 8i (i < 4) x its gate's U columns, FFMA over float4s of h
+//      and W; the 8 warps' partial tiles meet in shared memory and
+//      thread (row, unit) sums them in warp order (the same bits every
+//      run) and does the cell update, with xg and the mask it loaded
+//      before step 1;
+//   4. store y, gates, c (and hT, cT at the end) and arrive.
+// ``counter`` may be null when T == 1 (no barrier: the one-step shape is
+// an ordinary launch).
+template <int U>
+__global__ void __launch_bounds__(kRecThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ wh,
                 const float* __restrict__ mask, const float* __restrict__ h0,
                 const float* __restrict__ c0, float* y, float* gates,
-                float* cs, float* hT, float* cT, int T, int B, int H) {
+                float* cs, float* hT, float* cT, int* counter, int T, int B,
+                int H, int S, int vec) {
+  constexpr int Q = 4 * U;
+  constexpr int RS = Q + 4;   // row stride of a partial tile
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;              // [kQ][H]: ws[q*H + k] = W_h[k, gate col q]
-  float* c_s = smem + kQ * H;    // [B][kU]: cell state of this CTA's units
-  cg::grid_group grid = cg::this_grid();
-  const int j0 = blockIdx.x * kU;
-  const int H4 = 4 * H;
-  for (int idx = threadIdx.x; idx < kQ * H; idx += blockDim.x) {
-    const int k = idx / kQ, q = idx % kQ;
-    const int col = j0 + q % kU;
-    ws[q * H + k] = col < H ? wh[(int64_t)k * H4 + (q / kU) * H + col] : 0.f;
-  }
-  for (int idx = threadIdx.x; idx < B * kU; idx += blockDim.x) {
-    const int col = j0 + idx % kU;
-    c_s[idx] = col < H ? c0[(int64_t)(idx / kU) * H + col] : 0.f;
-  }
-  __syncthreads();
+  const int hp = padded_h(H), hs = h_stride(H), H4 = 4 * H;
+  float* ws = smem;                          // [hp][Q]
+  float* hbuf = ws + hp * Q;                 // [S][hs]
+  float* red = hbuf + S * hs;                // [kRecWarps][32][RS]
+  float* c_s = red + kRecWarps * kRowBlock * RS;   // [B][U]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 8, rg = lane % 8;    // contraction: gate, rows
+  const int cr = tid / U, cu = tid % U;      // cell update: row, unit
+  const int j0 = blockIdx.x * U, col = j0 + cu;
+  const int n_cta = gridDim.x;
+  const bool cell = tid < kRowBlock * U && col < H;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_peer = cluster.num_blocks(), rank = cluster.block_rank();
+  __shared__ __align__(8) uint64_t hbar;   // staged h has landed
+  uint32_t phase = 0;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = tid; i < S * hs; i += kRecThreads) hbuf[i] = 0.f;
+  for (int i = tid; i < B * U; i += kRecThreads) {
+    const int c = j0 + i % U;
+    c_s[i] = c < H ? c0[(int64_t)(i / U) * H + c] : 0.f;
+  }
+  if (tid == 0) {
+    mbar_init(&hbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // The zeros are stored before any bulk copy writes beside them.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  // No peer multicasts into this CTA before its barrier exists.
+  if (n_peer > 1) cluster.sync();
+  load_w_slice<U>(ws, wh, H, j0, vec);
+
+  // What a cell thread reads besides the sums: xg of its (row, unit)
+  // and the row's mask, loaded one row block ahead.
+  struct CellIn {
+    float x[4], m;
+  };
+  auto load_cell = [&](int t, int rb) {
+    CellIn in = {{0.f, 0.f, 0.f, 0.f}, 0.f};
+    const int b = rb + cr;
+    if (cell && b < B) {
+      const float* xrow = xg + ((int64_t)t * B + b) * H4;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) in.x[g] = xrow[g * H + col];
+      in.m = mask[(int64_t)t * B + b];
+    }
+    return in;
+  };
+
+  CellIn nxt = load_cell(0, 0);
   for (int t = 0; t < T; ++t) {
     const float* hprev = t == 0 ? h0 : y + (int64_t)(t - 1) * B * H;
-    const float* mrow = mask + (int64_t)t * B;
-    for (int rb = warp * kR; rb < B; rb += kWarps * kR) {
-      float mk[kR];
-      float acc[kR][kQ];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        mk[r] = rb + r < B ? mrow[rb + r] : 0.f;
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) acc[r][q] = 0.f;
-      }
-      for (int k = lane; k < H; k += 32) {
-        float hv[kR];
-#pragma unroll
-        for (int r = 0; r < kR; ++r)
-          hv[r] = rb + r < B
-                      ? __ldcg(hprev + (int64_t)(rb + r) * H + k) * mk[r]
-                      : 0.f;
-#pragma unroll
-        for (int q = 0; q < kQ; ++q) {
-          const float w = ws[q * H + k];
-#pragma unroll
-          for (int r = 0; r < kR; ++r) acc[r][q] = fmaf(hv[r], w, acc[r][q]);
+    for (int s0 = 0; s0 < B; s0 += S) {
+      const int s1 = min(B, s0 + S);
+      if (s0 == 0 && t > 0) step_wait(counter, t * n_cta);
+      // Stage rows [s0, s1) of h_prev: one bulk copy a row, CTA r of
+      // the cluster copying rows r, r + n_peer, ... to all of it.
+      if (vec) {
+        // Every peer is done with the last stage (the first stage of a
+        // step waited for every CTA's arrival instead).
+        if (s0 > 0 && n_peer > 1) cluster.sync();
+        if (tid == 0) {
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          mbar_expect_tx(&hbar, (uint32_t)((s1 - s0) * H * 4));
+          for (int r = rank; r < s1 - s0; r += n_peer)
+            bulk_load(hbuf + r * hs, hprev + (int64_t)(s0 + r) * H, H * 4,
+                      &hbar, n_peer);
         }
+        cp_async_wait<0>();   // the W slice, at t = 0
+        mbar_wait(&hbar, phase);
+        phase ^= 1;
+      } else {
+        const int n = (s1 - s0) * H;
+        for (int i = tid; i < n; i += kRecThreads) {
+          const int r = i / H, c = i - r * H;
+          hbuf[r * hs + c] = __ldcg(hprev + (int64_t)(s0 + r) * H + c);
+        }
+        cp_async_wait<0>();   // the W slice, at t = 0
       }
+      __syncthreads();
+
+      for (int rb = s0; rb < s1; rb += kRowBlock) {
+        const CellIn cur = nxt;
+        if (rb + kRowBlock < B)
+          nxt = load_cell(t, rb + kRowBlock);
+        else if (t + 1 < T)
+          nxt = load_cell(t + 1, 0);
+
+        float acc[4][U];
 #pragma unroll
-      for (int r = 0; r < kR; ++r)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int q = 0; q < kQ; ++q) acc[r][q] = warp_sum(acc[r][q]);
-      // Every lane now holds every sum; lane r*kU + u takes those of its
-      // (row, unit) pair, so the 16 cell updates run side by side.
-      float p[4] = {0.f, 0.f, 0.f, 0.f}, m = 0.f;
+          for (int c = 0; c < U; ++c) acc[i][c] = 0.f;
+        const float* hrow = hbuf + (rb - s0 + rg) * hs;
+        const float* wcol = ws + gq * U;
+#pragma unroll 4
+        for (int k = 4 * warp; k < hp; k += 4 * kRecWarps) {
+          float4 hv[4];
 #pragma unroll
-      for (int r = 0; r < kR; ++r)
+          for (int i = 0; i < 4; ++i)
+            hv[i] = *reinterpret_cast<const float4*>(hrow + 8 * i * hs + k);
 #pragma unroll
-        for (int u = 0; u < kU; ++u)
-          if (lane == r * kU + u) {
+          for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) p[k] = acc[r][k * kU + u];
-            m = mk[r];
+            for (int v = 0; v < U / 4; ++v) {
+              const float4 w = *reinterpret_cast<const float4*>(
+                  wcol + (k + kk) * Q + 4 * v);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float h = kk == 0   ? hv[i].x
+                                : kk == 1 ? hv[i].y
+                                : kk == 2 ? hv[i].z
+                                          : hv[i].w;
+                acc[i][4 * v] = fmaf(h, w.x, acc[i][4 * v]);
+                acc[i][4 * v + 1] = fmaf(h, w.y, acc[i][4 * v + 1]);
+                acc[i][4 * v + 2] = fmaf(h, w.z, acc[i][4 * v + 2]);
+                acc[i][4 * v + 3] = fmaf(h, w.w, acc[i][4 * v + 3]);
+              }
+            }
           }
-      const int b = rb + lane / kU, u = lane % kU, col = j0 + u;
-      if (lane < kR * kU && b < B && col < H) {
-        const int64_t row = (int64_t)t * B + b;
-        const float* xrow = xg + row * H4;
-        const float gi = sigmoid(p[0] + xrow[col]);
-        const float gf = sigmoid(p[1] + xrow[H + col]);
-        const float gg = tanhf(p[2] + xrow[2 * H + col]);
-        const float go = sigmoid(p[3] + xrow[3 * H + col]);
-        const float cn = gf * (c_s[b * kU + u] * m) + gi * gg;
-        const float hn = go * tanhf(cn);
-        c_s[b * kU + u] = cn;
-        y[row * H + col] = hn;
-        cs[row * H + col] = cn;
-        float* grow = gates + row * H4;
-        grow[col] = gi;
-        grow[H + col] = gf;
-        grow[2 * H + col] = gg;
-        grow[3 * H + col] = go;
-        if (t == T - 1) {
-          hT[(int64_t)b * H + col] = hn;
-          cT[(int64_t)b * H + col] = cn;
+        }
+        __syncthreads();   // the last block's cell updates are done with red
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int v = 0; v < U / 4; ++v)
+            *reinterpret_cast<float4*>(
+                red + (warp * kRowBlock + rg + 8 * i) * RS + gq * U + 4 * v) =
+                make_float4(acc[i][4 * v], acc[i][4 * v + 1],
+                            acc[i][4 * v + 2], acc[i][4 * v + 3]);
+        __syncthreads();
+
+        const int b = rb + cr;
+        if (cell && b < B) {
+          float p[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            float sum = 0.f;
+#pragma unroll
+            for (int w = 0; w < kRecWarps; ++w)
+              sum += red[(w * kRowBlock + cr) * RS + g * U + cu];
+            // (h * m) @ W_h = m * (h @ W_h) for m in {0, 1}
+            p[g] = fmaf(cur.m, sum, cur.x[g]);
+          }
+          const float gi = sigmoid(p[0]), gf = sigmoid(p[1]);
+          const float gg = tanhf(p[2]), go = sigmoid(p[3]);
+          const float cn = gf * (c_s[b * U + cu] * cur.m) + gi * gg;
+          const float hn = go * tanhf(cn);
+          c_s[b * U + cu] = cn;
+          const int64_t row = (int64_t)t * B + b;
+          y[row * H + col] = hn;
+          cs[row * H + col] = cn;
+          float* grow = gates + row * H4;
+          grow[col] = gi;
+          grow[H + col] = gf;
+          grow[2 * H + col] = gg;
+          grow[3 * H + col] = go;
+          if (t == T - 1) {
+            hT[(int64_t)b * H + col] = hn;
+            cT[(int64_t)b * H + col] = cn;
+          }
         }
       }
     }
-    if (t + 1 < T) grid.sync();   // y[t] of every unit before step t+1
+    if (t + 1 < T) step_arrive(counter);
   }
+  if (n_peer > 1) cluster.sync();   // no CTA leaves while a peer copies in
 }
 
-__global__ void __launch_bounds__(kRecThreads)
+// Rows of K4's W_h block for clusters of C CTAs of U units: the most k
+// any CTA of the cluster takes, in groups of 64 / (4 U C) rows.
+__host__ __device__ inline int bwd_k_rows(int H, int U, int C) {
+  const int kw = 64 / (4 * U * C), n_kg = padded_h(H) / kw;
+  return (n_kg + C - 1) / C * kw;
+}
+
+// K4.  The same CTAs and units as K3.  The carry into step s is dh =
+// (dgates[s+1] @ W_h^T) * mask[s+1], a sum over all 4H gate columns,
+// which no CTA holds.  Reduce-scatter: after the cell update of step s+1
+// the C CTAs of a cluster copy each other's dgates (the cluster's QC =
+// 4UC gate columns, B x QC floats, over distributed shared memory); CTA
+// r of the cluster forms the cluster's partial carry over those columns
+// for its C-th of the units, part[g][b][k] = sum_q dg[b][q] * W_h[k, q]
+// (QC FFMA each, 64 / QC rows of its W_h block [H / C][QC] in registers),
+// and stores it; at step s, CTA j reads its U units' columns of the
+// n_cta / C clusters' partials and sums them in a fixed order: the same
+// bits every run, no atomics.  Per step and CTA at B = 32, U = 4, C = 2
+// that is 32 KB stored and 32 KB read, against the 256 KB of all
+// dgates[s+1] that its units' rows of W_h would need.  Partials
+// alternate between two buffers by step parity: a CTA writes step s's
+// only after the barrier of step s+1, which every CTA passes only after
+// reading step s+2's.
+template <int U, int C>
+__global__ void __launch_bounds__(kRecThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                 const float* __restrict__ c0, const float* __restrict__ mask,
                 const float* __restrict__ wh, const float* __restrict__ dy,
                 const float* __restrict__ dcT, float* dgates, float* dh0,
-                float* dc0, int T, int B, int H) {
+                float* dc0, float* part, int* counter, int T, int B, int H,
+                int vec) {
+  constexpr int Q = 4 * U, QC = Q * C;
+  constexpr int KW = 64 / QC;   // k rows of a thread's partial
+  static_assert(KW >= 1 && KW * QC == 64, "a thread holds 64 weights");
   extern __shared__ __align__(16) float smem[];
-  const int H4 = 4 * H;
-  float* wr = smem;              // [kU][4H]: rows of W_h of this CTA's units
-  float* dc_s = smem + kU * H4;  // [B][kU]: dc carry of this CTA's units
-  cg::grid_group grid = cg::this_grid();
-  const int j0 = blockIdx.x * kU;
-  for (int idx = threadIdx.x; idx < kU * H4; idx += blockDim.x) {
-    const int col = j0 + idx / H4;
-    wr[idx] = col < H ? wh[(int64_t)col * H4 + idx % H4] : 0.f;
+  const int hp = padded_h(H), H4 = 4 * H;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  // This CTA's k groups of the cluster's partial.
+  const int n_kg = hp / KW, kg_lo = rank * n_kg / C;
+  const int n_my = (rank + 1) * n_kg / C - kg_lo;
+  const int k_lo = kg_lo * KW, kg_max = (n_kg + C - 1) / C;
+  // The cluster's W_h block, W_h[k_lo + kg*KW + kk, column c] at float4
+  // ws[(c/4 * KW + kk) * kg_max + kg], so that the lanes of a warp, which
+  // take consecutive kg, read consecutive 16-byte words.
+  float4* ws = reinterpret_cast<float4*>(smem);
+  float* dgc = smem + bwd_k_rows(H, U, C) * QC;   // [B][QC]: cluster's dg
+  float* dgo = dgc + B * QC;                  // [B][Q]: this CTA's dg
+  float* dc_s = dgo + B * Q;                  // [B][U]: dc carry
+  float* red = dc_s + B * U;                  // [kRecWarps][32][U]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cr = tid / U, cu = tid % U;
+  const int j0 = blockIdx.x * U, col = j0 + cu;
+  const int n_cta = gridDim.x;
+  const bool cell = tid < kRowBlock * U;
+  // Partials in device memory: one for each cluster.
+  const int n_grp = n_cta / C, grp = blockIdx.x / C;
+  const int64_t part_grp = (int64_t)B * hp;   // floats of one partial
+
+  // Column c of the block is gate g of unit (grp*C + p)*U + u, c = p*Q +
+  // g*U + u (zero past H); 16-byte copies where aligned.
+  const int unit0 = grp * C * U;
+  if (vec) {
+    for (int i = tid; i < n_my * KW * (QC / 4); i += kRecThreads) {
+      const int k = i / (QC / 4), c = (i % (QC / 4)) * 4;
+      const int p = c / Q, g = (c % Q) / U, u = unit0 + p * U + c % U;
+      const bool ok = k_lo + k < H && u < H;
+      cp_async<16>(reinterpret_cast<float*>(
+                       ws + (c / 4 * KW + k % KW) * kg_max + k / KW),
+                   ok ? wh + (int64_t)(k_lo + k) * H4 + g * H + u : wh, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  } else {
+    for (int i = tid; i < n_my * KW * QC; i += kRecThreads) {
+      const int k = i / QC, c = i % QC;
+      const int p = c / Q, g = (c % Q) / U, u = unit0 + p * U + c % U;
+      reinterpret_cast<float*>(ws + (c / 4 * KW + k % KW) * kg_max +
+                               k / KW)[c % 4] =
+          k_lo + k < H && u < H ? wh[(int64_t)(k_lo + k) * H4 + g * H + u]
+                                : 0.f;
+    }
   }
-  for (int idx = threadIdx.x; idx < B * kU; idx += blockDim.x) {
-    const int col = j0 + idx % kU;
-    dc_s[idx] = col < H ? dcT[(int64_t)(idx / kU) * H + col] : 0.f;
+  for (int i = tid; i < B * U; i += kRecThreads) {
+    const int c = j0 + i % U;
+    dc_s[i] = c < H ? dcT[(int64_t)(i / U) * H + c] : 0.f;
   }
+  cp_async_wait<0>();
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // Step s = T-1 .. 0 emits dgates[s]; the pass at s = -1 only forms
-  // dh0 from dgates[0].
+  struct CellIn {
+    float g[4], c, cp, dy, m, mn;
+  };
+  auto load_cell = [&](int s, int rb) {
+    CellIn in = {{0.f, 0.f, 0.f, 0.f}, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const int b = rb + cr;
+    if (cell && b < B && col < H) {
+      if (s + 1 < T) in.mn = mask[(int64_t)(s + 1) * B + b];
+      if (s >= 0) {
+        const int64_t row = (int64_t)s * B + b;
+        const float* grow = gates + row * H4;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) in.g[g] = grow[g * H + col];
+        in.c = cs[row * H + col];
+        in.cp = s == 0 ? c0[(int64_t)b * H + col] : cs[(row - B) * H + col];
+        in.dy = dy[row * H + col];
+        in.m = mask[row];
+      }
+    }
+    return in;
+  };
+
+  // Step s = T-1 .. 0 emits dgates[s]; the pass at s = -1 only forms dh0
+  // from the partials of step 0.
+  CellIn nxt = load_cell(T - 1, 0);
   for (int s = T - 1; s >= -1; --s) {
-    for (int rb = warp * kR; rb < B; rb += kWarps * kR) {
-      // dh carry into step s: (dgates[s+1] @ W_h^T) * mask[s+1].
-      float dhc[kR][kU];
-#pragma unroll
-      for (int r = 0; r < kR; ++r)
-#pragma unroll
-        for (int u = 0; u < kU; ++u) dhc[r][u] = 0.f;
+    const float* pin = part + (int64_t)((s + 1) & 1) * n_grp * part_grp;
+    for (int rb = 0; rb < B; rb += kRowBlock) {
+      const CellIn cur = nxt;
+      if (rb + kRowBlock < B)
+        nxt = load_cell(s, rb + kRowBlock);
+      else if (s >= 0)
+        nxt = load_cell(s - 1, 0);
+
       if (s + 1 < T) {
-        const float* dgn = dgates + (int64_t)(s + 1) * B * H4;
-        for (int q = lane; q < H4; q += 32) {
-          float dv[kR];
+        if (rb == 0) step_wait(counter, (T - 1 - s) * n_cta);
+        // Warp w sums partials w, w + 8, ... for row rb + lane, in that
+        // order, with the loads of 8 partials in flight at once.
+        float acc[U];
 #pragma unroll
-          for (int r = 0; r < kR; ++r)
-            dv[r] = rb + r < B ? __ldcg(dgn + (int64_t)(rb + r) * H4 + q)
-                               : 0.f;
+        for (int u = 0; u < U; ++u) acc[u] = 0.f;
+        const int b = rb + lane;
+        if (b < B) {
+          const float* src = pin + (int64_t)b * hp + j0;
+          for (int c0 = warp; c0 < n_grp; c0 += kGather * kRecWarps) {
+            float4 p[kGather][U / 4];
 #pragma unroll
-          for (int u = 0; u < kU; ++u) {
-            const float w = wr[u * H4 + q];
+            for (int i = 0; i < kGather; ++i)
 #pragma unroll
-            for (int r = 0; r < kR; ++r) dhc[r][u] = fmaf(dv[r], w, dhc[r][u]);
+              for (int v = 0; v < U / 4; ++v) {
+                const int c = c0 + i * kRecWarps;
+                // (units past H, U = 8: 4 v past the padded row)
+                p[i][v] = c < n_grp && j0 + 4 * v < hp
+                              ? __ldcg(reinterpret_cast<const float4*>(
+                                    src + c * part_grp + 4 * v))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+              }
+#pragma unroll
+            for (int i = 0; i < kGather; ++i)
+#pragma unroll
+              for (int v = 0; v < U / 4; ++v) {
+                acc[4 * v] += p[i][v].x;
+                acc[4 * v + 1] += p[i][v].y;
+                acc[4 * v + 2] += p[i][v].z;
+                acc[4 * v + 3] += p[i][v].w;
+              }
           }
         }
-        const float* mn = mask + (int64_t)(s + 1) * B;
 #pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float m = rb + r < B ? mn[rb + r] : 0.f;
+        for (int u = 0; u < U; ++u)
+          red[(warp * kRowBlock + lane) * U + u] = acc[u];
+        __syncthreads();
+      }
+
+      const int b = rb + cr;
+      if (cell && b < B) {
+        float dhp = 0.f;
+        if (s + 1 < T) {
 #pragma unroll
-          for (int u = 0; u < kU; ++u) dhc[r][u] = warp_sum(dhc[r][u]) * m;
+          for (int w = 0; w < kRecWarps; ++w)
+            dhp += red[(w * kRowBlock + cr) * U + cu];
+          dhp *= cur.mn;
+        }
+        if (col >= H) {
+          if (s >= 0)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dgo[b * Q + g * U + cu] = 0.f;
+        } else if (s < 0) {
+          dh0[(int64_t)b * H + col] = dhp;
+          dc0[(int64_t)b * H + col] = dc_s[b * U + cu];
+        } else {
+          const float gi = cur.g[0], gf = cur.g[1], gg = cur.g[2],
+                      go = cur.g[3];
+          const float tc = tanhf(cur.c);
+          const float dh = cur.dy + dhp;
+          const float dct = dh * go * (1.f - tc * tc) + dc_s[b * U + cu];
+          const float dg[4] = {dct * gg * gi * (1.f - gi),
+                               dct * (cur.cp * cur.m) * gf * (1.f - gf),
+                               dct * gi * (1.f - gg * gg),
+                               dh * tc * go * (1.f - go)};
+          float* drow = dgates + ((int64_t)s * B + b) * H4;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            drow[g * H + col] = dg[g];
+            dgo[b * Q + g * U + cu] = dg[g];
+          }
+          dc_s[b * U + cu] = dct * gf * cur.m;
         }
       }
-      // Lane r*kU + u takes the carry of its (row, unit) pair; the 16
-      // pairs' updates run side by side.
-      float dhp = 0.f;
+      __syncthreads();   // red is free again; dgo holds this block's rows
+    }
+    if (s < 0) break;
+
+    // The cluster's dgates of step s, from each CTA's dgo (its peers'
+    // over distributed shared memory, after the cluster's barrier).  A
+    // peer writes its dgo again only after every CTA's next arrival.
+    if (C > 1) cluster.sync();
+    for (int i = tid; i < B * (QC / 4); i += kRecThreads) {
+      const int b = i / (QC / 4), c = (i % (QC / 4)) * 4, p = c / Q;
+      const float* src = C > 1 ? cluster.map_shared_rank(dgo, p) : dgo;
+      *reinterpret_cast<float4*>(dgc + b * QC + c) =
+          *reinterpret_cast<const float4*>(src + b * Q + c % Q);
+    }
+    __syncthreads();
+
+    // The cluster's partial of the carry into step s - 1, for this CTA's
+    // k groups, to device memory.
+    float* pout = part + ((int64_t)(s & 1) * n_grp + grp) * part_grp + k_lo;
+    const int kg_threads = min(n_my, kRecThreads);
+    if (kg_threads > 0 && tid < kRecThreads / kg_threads * kg_threads) {
+      const int phases = kRecThreads / kg_threads;
+      for (int kg = tid % kg_threads; kg < n_my; kg += kg_threads) {
+        float w[KW][QC];
 #pragma unroll
-      for (int r = 0; r < kR; ++r)
+        for (int kk = 0; kk < KW; ++kk)
 #pragma unroll
-        for (int u = 0; u < kU; ++u)
-          if (lane == r * kU + u) dhp = dhc[r][u];
-      const int b = rb + lane / kU, u = lane % kU, col = j0 + u;
-      if (lane < kR * kU && b < B && col < H) {
-        if (s < 0) {
-          dh0[(int64_t)b * H + col] = dhp;
-          dc0[(int64_t)b * H + col] = dc_s[b * kU + u];
-        } else {
-          const int64_t row = (int64_t)s * B + b;
-          const float* grow = gates + row * H4;
-          const float gi = grow[col], gf = grow[H + col];
-          const float gg = grow[2 * H + col], go = grow[3 * H + col];
-          const float m = mask[row];
-          const float cp = (s == 0 ? c0[(int64_t)b * H + col]
-                                   : cs[(row - B) * H + col]) * m;
-          const float tc = tanhf(cs[row * H + col]);
-          const float dh = dy[row * H + col] + dhp;
-          const float dct = dh * go * (1.f - tc * tc) + dc_s[b * kU + u];
-          float* drow = dgates + row * H4;
-          drow[col] = dct * gg * gi * (1.f - gi);
-          drow[H + col] = dct * cp * gf * (1.f - gf);
-          drow[2 * H + col] = dct * gi * (1.f - gg * gg);
-          drow[3 * H + col] = dh * tc * go * (1.f - go);
-          dc_s[b * kU + u] = dct * gf * m;
+          for (int v = 0; v < QC / 4; ++v) {
+            const float4 x = ws[(v * KW + kk) * kg_max + kg];
+            w[kk][4 * v] = x.x;
+            w[kk][4 * v + 1] = x.y;
+            w[kk][4 * v + 2] = x.z;
+            w[kk][4 * v + 3] = x.w;
+          }
+        // kPartRows rows at once: as many independent FFMA chains.
+        for (int b0 = tid / kg_threads; b0 < B; b0 += kPartRows * phases) {
+          float o[kPartRows][KW];
+#pragma unroll
+          for (int r = 0; r < kPartRows; ++r)
+#pragma unroll
+            for (int kk = 0; kk < KW; ++kk) o[r][kk] = 0.f;
+#pragma unroll
+          for (int v = 0; v < QC / 4; ++v) {
+#pragma unroll
+            for (int r = 0; r < kPartRows; ++r) {
+              const int b = min(b0 + r * phases, B - 1);
+              const float4 d =
+                  *reinterpret_cast<const float4*>(dgc + b * QC + 4 * v);
+#pragma unroll
+              for (int kk = 0; kk < KW; ++kk) {
+                o[r][kk] = fmaf(d.x, w[kk][4 * v], o[r][kk]);
+                o[r][kk] = fmaf(d.y, w[kk][4 * v + 1], o[r][kk]);
+                o[r][kk] = fmaf(d.z, w[kk][4 * v + 2], o[r][kk]);
+                o[r][kk] = fmaf(d.w, w[kk][4 * v + 3], o[r][kk]);
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < kPartRows; ++r) {
+            const int b = b0 + r * phases;
+            if (b >= B) break;
+            float* dst = pout + (int64_t)b * hp + kg * KW;
+            if constexpr (KW == 4)
+              *reinterpret_cast<float4*>(dst) =
+                  make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+            else if constexpr (KW == 2)
+              *reinterpret_cast<float2*>(dst) =
+                  make_float2(o[r][0], o[r][1]);
+            else
+              *dst = o[r][0];
+          }
         }
       }
     }
-    if (s >= 0) grid.sync();   // dgates[s] of every unit before s-1
+    step_arrive(counter);
   }
+  if (C > 1) cluster.sync();   // no CTA leaves while a peer reads it
 }
 
-constexpr int kErrNotResident = 10001;
+__host__ __device__ inline size_t fwd_smem(int B, int H, int U, int S) {
+  return sizeof(float) *
+         ((size_t)padded_h(H) * 4 * U + (size_t)S * h_stride(H) +
+          (size_t)kRecWarps * kRowBlock * (4 * U + 4) + (size_t)B * U);
+}
 
-// Launch ``kernel`` cooperatively on ceil(H / kU) CTAs, after checking
-// that they can all be resident at once.
-cudaError_t launch_recurrence(const void* kernel, int H, size_t smem,
+__host__ __device__ inline size_t bwd_smem(int B, int H, int U, int C) {
+  return sizeof(float) *
+         ((size_t)(bwd_k_rows(H, U, C) + B) * 4 * U * C + (size_t)B * 4 * U +
+          (size_t)B * U + (size_t)kRecWarps * kRowBlock * U);
+}
+
+// Whether ``ctas`` CTAs of ``kernel`` in clusters of ``cluster`` can all
+// be resident at once; asked once for each kernel, device, shared memory
+// size and cluster size.
+cudaError_t clusters_fit(const void* kernel, int dev, size_t smem,
+                         int cluster, int ctas, bool* fit) {
+  struct Entry {
+    const void* kernel;
+    int dev, cluster;
+    size_t smem;
+    int n;
+  };
+  static Entry seen[64];
+  static int n_seen = 0;
+  for (int i = 0; i < n_seen; ++i) {
+    const Entry& e = seen[i];
+    if (e.kernel == kernel && e.dev == dev && e.smem == smem &&
+        e.cluster == cluster) {
+      *fit = (int64_t)e.n * cluster >= ctas;
+      return cudaSuccess;
+    }
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kRecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n_seen < 64) seen[n_seen++] = {kernel, dev, cluster, smem, n};
+  *fit = (int64_t)n * cluster >= ctas;
+  return cudaSuccess;
+}
+
+// Launch a recurrence on ``ctas`` CTAs in clusters of ``cluster``.  When
+// its CTAs wait for each other (``resident``) they must all be resident
+// at once: a cooperative launch guarantees it for clusters of one (or is
+// refused), the cluster occupancy check for larger clusters; otherwise
+// an ordinary launch.  The shared-memory opt-in is made once for each
+// kernel and device.
+cudaError_t launch_recurrence(const void* kernel, int which, int ctas,
+                              int cluster, size_t smem, bool resident,
                               void** args, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool opted_in[8][64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int dev = 0, n_sm = 0, per_sm = 0, coop = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kRecThreads, smem)) != cudaSuccess)
-    return err;
-  const int grid = (H + kU - 1) / kU;
-  if (!coop || grid > per_sm * n_sm)
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  // CTAs that wait for each other take an SM each: with more than half of
+  // an SM's shared memory no two share one.
+  if (resident) smem = smem > kOnePerSm ? smem : kOnePerSm;
+  if (!opted_in[which][dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    opted_in[which][dev] = true;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kRecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  if (cluster > 1) {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.numAttrs = 1;
+    if (resident) {
+      bool fit = false;
+      err = clusters_fit(kernel, dev, smem, cluster, ctas, &fit);
+      if (err != cudaSuccess) return err;
+      if (!fit) return static_cast<cudaError_t>(kErrNotResident);
+    }
+  } else if (resident) {
+    attr.id = cudaLaunchAttributeCooperative;
+    attr.val.cooperative = 1;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err == cudaErrorCooperativeLaunchTooLarge)
     return static_cast<cudaError_t>(kErrNotResident);
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kRecThreads),
-                                    args, smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return err;
+}
+
+// CTAs enough for H in whole clusters of 1, 2 or 4, at most 16 units a
+// cluster (K4 holds 64 weights a thread).
+bool plan_ok(int H, int units, int ctas, int cluster) {
+  return (units == 4 || units == 8) &&
+         (cluster == 1 || cluster == 2 || cluster == 4) &&
+         units * cluster <= 16 && ctas % cluster == 0 &&
+         (int64_t)ctas * units >= H && (ctas - cluster) * units < H;
 }
 
 }  // namespace
@@ -832,13 +1314,33 @@ int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Shared memory of the recurrences for a plan (``ops/lstm.py``'s
+// ``recurrence_plan`` computes the same and checks it against these).
+long long lstm_fwd_smem(int B, int H, int units, int stage_rows) {
+  return (long long)fwd_smem(B, H, units, stage_rows);
+}
+long long lstm_bwd_smem(int B, int H, int units, int cluster) {
+  return (long long)bwd_smem(B, H, units, cluster);
+}
+
 // K3.  xg [T, B, 4H], wh [H, 4H], mask [T, B], h0, c0 [B, H] ->
-// y, cs [T, B, H], gates [T, B, 4H], hT, cT [B, H].
+// y, cs [T, B, H], gates [T, B, 4H], hT, cT [B, H].  ``ctas`` CTAs of
+// ``units`` (4 or 8) hidden units (at least ceil(H / units)), in clusters
+// of ``cluster`` (1, 2 or 4; a divisor of ctas); h staged
+// ``stage_rows`` (a multiple of 32) rows at a time; ``counter`` a zeroed
+// int in device memory (unused, and may be null, when T == 1: then the
+// launch is an ordinary one).
 int lstm_fwd_launch(const void* xg, const void* wh, const void* mask,
                     const void* h0, const void* c0, void* y, void* gates,
-                    void* cs, void* hT, void* cT, int T, int B, int H,
+                    void* cs, void* hT, void* cT, void* counter, int T, int B,
+                    int H, int units, int ctas, int cluster, int stage_rows,
                     void* stream) {
   if (T == 0 || B == 0 || H == 0) return 0;
+  const size_t smem = fwd_smem(B, H, units, stage_rows);
+  if (stage_rows <= 0 || stage_rows % kRowBlock != 0 ||
+      smem > (size_t)kSmemMax || (T > 1 && counter == nullptr) ||
+      !plan_ok(H, units, ctas, cluster))
+    return kErrBadPlan;
   const float *a_xg = static_cast<const float*>(xg),
               *a_wh = static_cast<const float*>(wh),
               *a_mask = static_cast<const float*>(mask),
@@ -847,22 +1349,36 @@ int lstm_fwd_launch(const void* xg, const void* wh, const void* mask,
   float *a_y = static_cast<float*>(y), *a_g = static_cast<float*>(gates),
         *a_cs = static_cast<float*>(cs), *a_hT = static_cast<float*>(hT),
         *a_cT = static_cast<float*>(cT);
-  void* args[] = {&a_xg, &a_wh, &a_mask, &a_h0, &a_c0, &a_y, &a_g,
-                  &a_cs, &a_hT, &a_cT, &T, &B, &H};
-  const size_t smem = sizeof(float) * ((size_t)kQ * H + (size_t)B * kU);
-  return static_cast<int>(launch_recurrence(
-      reinterpret_cast<const void*>(lstm_fwd_kernel), H, smem, args,
-      static_cast<cudaStream_t>(stream)));
+  int* a_cnt = static_cast<int*>(counter);
+  int vec = H % 4 == 0 &&
+            ((reinterpret_cast<uintptr_t>(wh) | reinterpret_cast<uintptr_t>(h0) |
+              reinterpret_cast<uintptr_t>(y)) & 15u) == 0;
+  void* args[] = {&a_xg, &a_wh, &a_mask, &a_h0, &a_c0, &a_y, &a_g, &a_cs,
+                  &a_hT, &a_cT, &a_cnt, &T, &B, &H, &stage_rows, &vec};
+  const void* kernel =
+      units == 4 ? reinterpret_cast<const void*>(lstm_fwd_kernel<4>)
+                 : reinterpret_cast<const void*>(lstm_fwd_kernel<8>);
+  return static_cast<int>(launch_recurrence(kernel, units == 4 ? 0 : 1, ctas,
+                                            cluster, smem, T > 1, args,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 // K4.  gates [T, B, 4H], cs [T, B, H], c0 [B, H], mask [T, B], wh [H, 4H],
 // dy [T, B, H] (hT's cotangent already added to dy[T-1]), dcT [B, H] ->
-// dgates [T, B, 4H], dh0, dc0 [B, H].
+// dgates [T, B, 4H], dh0, dc0 [B, H].  CTAs and clusters as for K3.
+// ``part`` is scratch of 2 * (ctas / cluster) * B * padded_h(H) floats,
+// ``counter`` a zeroed int.
 int lstm_bwd_launch(const void* gates, const void* cs, const void* c0,
                     const void* mask, const void* wh, const void* dy,
                     const void* dcT, void* dgates, void* dh0, void* dc0,
-                    int T, int B, int H, void* stream) {
+                    void* part, void* counter, int T, int B, int H, int units,
+                    int ctas, int cluster, void* stream) {
   if (T == 0 || B == 0 || H == 0) return 0;
+  if (!plan_ok(H, units, ctas, cluster)) return kErrBadPlan;
+  const size_t smem = bwd_smem(B, H, units, cluster);
+  if (smem > (size_t)kSmemMax || counter == nullptr ||
+      (reinterpret_cast<uintptr_t>(part) & 15u) != 0)
+    return kErrBadPlan;
   const float *a_g = static_cast<const float*>(gates),
               *a_cs = static_cast<const float*>(cs),
               *a_c0 = static_cast<const float*>(c0),
@@ -871,19 +1387,33 @@ int lstm_bwd_launch(const void* gates, const void* cs, const void* c0,
               *a_dy = static_cast<const float*>(dy),
               *a_dcT = static_cast<const float*>(dcT);
   float *a_dg = static_cast<float*>(dgates), *a_dh0 = static_cast<float*>(dh0),
-        *a_dc0 = static_cast<float*>(dc0);
-  void* args[] = {&a_g, &a_cs, &a_c0, &a_mask, &a_wh, &a_dy, &a_dcT,
-                  &a_dg, &a_dh0, &a_dc0, &T, &B, &H};
-  const size_t smem = sizeof(float) * ((size_t)kU * 4 * H + (size_t)B * kU);
-  return static_cast<int>(launch_recurrence(
-      reinterpret_cast<const void*>(lstm_bwd_kernel), H, smem, args,
-      static_cast<cudaStream_t>(stream)));
+        *a_dc0 = static_cast<float*>(dc0), *a_part = static_cast<float*>(part);
+  int* a_cnt = static_cast<int*>(counter);
+  int vec = H % 4 == 0 && (reinterpret_cast<uintptr_t>(wh) & 15u) == 0;
+  void* args[] = {&a_g,   &a_cs, &a_c0,  &a_mask, &a_wh,   &a_dy,
+                  &a_dcT, &a_dg, &a_dh0, &a_dc0,  &a_part, &a_cnt,
+                  &T,     &B,    &H,     &vec};
+  const void* kernels[5] = {
+      reinterpret_cast<const void*>(lstm_bwd_kernel<4, 1>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<4, 2>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<4, 4>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<8, 1>),
+      reinterpret_cast<const void*>(lstm_bwd_kernel<8, 2>)};
+  const int which = (units == 4 ? 0 : 3) + (cluster == 4 ? 2 : cluster - 1);
+  return static_cast<int>(launch_recurrence(kernels[which], 2 + which, ctas,
+                                            cluster, smem, true, args,
+                                            static_cast<cudaStream_t>(stream)));
 }
 
 const char* lstm_error_string(int code) {
   if (code == kErrNotResident)
     return "the recurrence's CTAs cannot all be resident at once "
-           "(cooperative launch needs them to be)";
+           "(they wait for each other at every step)";
+  if (code == kErrBadPlan)
+    return "the recurrence's plan does not fit the kernel (units 4 or 8, "
+           "enough CTAs in whole clusters of 1, 2 or 4 of at most 16 "
+           "units, stage rows a multiple of 32, shared memory within "
+           "226 KB, a counter for T > 1, 16-byte aligned scratch)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -235,10 +235,14 @@ def test_three_tf32_products_reproduce_fp32():
 def test_cuda_kernels_match_plain(cuda_device):
     """K3a, K3 and K4 against their plain versions on the card (TF32 off;
     forward within 1e-4 and backward within 1e-3 of the largest value),
-    at a slice shape and ragged ones."""
+    at slice shapes, more rows than one stage of staged h and ragged
+    ones; the recurrences also in the other CTA shapes they are built
+    for (8 units, clusters of 1, 2 and 4), and twice with the same
+    bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for T, B, F, H in ((20, 32, 6919, 512), (1, 64, 6919, 512),
-                       (7, 3, 130, 100), (3, 37, 33, 102)):
+                       (5, 128, 33, 512), (7, 3, 130, 100),
+                       (3, 37, 33, 102)):
         a = {k: torch.from_numpy(v).to(cuda_device)
              for k, v in make_inputs(7, T, B, F, H).items()}
         mask = (~a["done"]).to(torch.float32)
@@ -254,5 +258,155 @@ def test_cuda_kernels_match_plain(cuda_device):
         dy = torch.randn((T, B, H), device=cuda_device)
         dcT = torch.randn((B, H), device=cuda_device)
         args = (ref[1], ref[2], a["c0"], mask, a["wh"], dy, dcT)
-        for o, r in zip(L.lstm_bwd(*args), L.lstm_bwd_plain(*args)):
+        want = L.lstm_bwd_plain(*args)
+        for o, r in zip(L.lstm_bwd(*args), want):
             assert (o - r).abs().max() <= 1e-3 * r.abs().max()
+        fargs = (xg, a["wh"], mask, a["h0"], a["c0"])
+        for units, cluster in ((8, 2), (4, 1), (4, 4)):
+            out = L.recurrence_fwd(*fargs, units, cluster)
+            assert all(torch.equal(o, p) for o, p in zip(
+                out, L.recurrence_fwd(*fargs, units, cluster)))
+            for o, r in zip(out, ref):
+                assert (o - r).abs().max() <= 1e-4 * r.abs().max()
+            out = L.recurrence_bwd(*args, units, cluster)
+            assert all(torch.equal(o, p) for o, p in zip(
+                out, L.recurrence_bwd(*args, units, cluster)))
+            for o, r in zip(out, want):
+                assert (o - r).abs().max() <= 1e-3 * r.abs().max()
+
+
+@pytest.mark.parametrize("B,H", [(32, 512), (64, 512), (128, 512), (3, 100),
+                                 (37, 102), (5, 102), (1, 8)])
+@pytest.mark.parametrize("units", [None, 8])
+def test_recurrence_plan_covers_units(B, H, units):
+    """The recurrences' plan on 132 SMs: every hidden unit owned by
+    exactly one CTA (CTA j owns [units * j, units * j + units)), no
+    cluster without a live unit, whole clusters, at most 132 CTAs (one
+    resident on each SM), shared memory within the 232,448 bytes a CTA
+    can have on sm_90, h staged in whole 32-row blocks; at R2D1's shapes
+    (H = 512, B = 32 or 64) 128 CTAs of 4 units stage all of h at once."""
+    plan = L.recurrence_plan(B, H, 132, units)
+    owners = [j for j in range(plan.ctas) for _ in range(plan.units)]
+    assert len(owners[:H]) == H and owners[:H] == sorted(owners[:H])
+    assert plan.ctas * plan.units >= H
+    assert (plan.ctas - plan.cluster) * plan.units < H
+    assert plan.ctas % plan.cluster == 0 and plan.cluster in (1, 2, 4)
+    assert plan.ctas <= 132
+    assert max(plan.fwd_smem, plan.bwd_smem) <= 232448
+    assert plan.stage_rows % 32 == 0 and plan.stage_rows >= 32
+    if H == 512 and B <= 64 and units is None:
+        assert (plan.ctas, plan.units, plan.cluster) == (128, 4, 2)
+        assert plan.stage_rows >= B
+
+
+def fwd_warp_order(xg, wh, mask, h0, c0, units):
+    """K3's arithmetic in its order: the [B, 4U] tile of CTA j is summed
+    over 8 warp slices of k (warp w: k = 4w .. 4w+3 mod 32) in warp order,
+    then pre = m * sum + xg."""
+    T, B, H4 = xg.shape
+    H = H4 // 4
+    slices = [[k for k in range(H) if (k // 4) % 8 == w] for w in range(8)]
+    h, c = h0, c0
+    ys = []
+    for t in range(T):
+        m = mask[t][:, None]
+        part = [h[:, ks] @ wh[ks] for ks in slices]
+        total = part[0]
+        for p in part[1:]:
+            total = total + p
+        pre = m * total + xg[t]
+        i, f, g, o = (torch.sigmoid(pre[:, :H]),
+                      torch.sigmoid(pre[:, H:2 * H]),
+                      torch.tanh(pre[:, 2 * H:3 * H]),
+                      torch.sigmoid(pre[:, 3 * H:]))
+        c = f * (c * m) + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys), h, c
+
+
+def bwd_reduce_scatter(gates, cs, c0, mask, wh, dy, dcT, units, cluster):
+    """K4's arithmetic in its order: each cluster's partial carry over the
+    gate columns of its CTAs, for every unit; warp w sums cluster
+    partials w, w + 8, ... and the warps' sums are added in warp order;
+    times mask[s+1]."""
+    T, B, H = cs.shape
+    plan = L.recurrence_plan(B, H, 132, units, cluster)
+    per = plan.units * plan.cluster
+    cols = [torch.tensor([g * H + u for g in range(4)
+                          for u in range(j * per, min(H, (j + 1) * per))],
+                         dtype=torch.long)
+            for j in range(plan.ctas // plan.cluster)]
+    dc = dcT
+    dgs = [None] * T
+    for s in range(T - 1, -2, -1):
+        carry = torch.zeros_like(c0)
+        if s + 1 < T:
+            dg = dgs[s + 1]
+            groups = [dg[:, q] @ wh[:, q].T if len(q)
+                      else torch.zeros_like(c0) for q in cols]
+            warps = []
+            for w in range(8):
+                acc = torch.zeros_like(c0)
+                for grp in groups[w::8]:
+                    acc = acc + grp
+                warps.append(acc)
+            for w in warps:
+                carry = carry + w
+            carry = carry * mask[s + 1][:, None]
+        if s < 0:
+            return torch.stack(dgs), carry, dc
+        m = mask[s][:, None]
+        cp = (c0 if s == 0 else cs[s - 1]) * m
+        i, f, g, o = gates[s].split(H, dim=1)
+        tc = torch.tanh(cs[s])
+        dh = dy[s] + carry
+        dct = dh * o * (1.0 - tc * tc) + dc
+        dgs[s] = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
+                            dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)],
+                           dim=1)
+        dc = dct * f * m
+
+
+ORDER_SHAPES = [(5, 4, 16), (7, 3, 100), (3, 37, 102), (4, 6, 512)]
+
+
+def recurrence_inputs(seed, T, B, H):
+    a = {k: torch.from_numpy(v)
+         for k, v in make_inputs(seed, T, B, 3, H).items()}
+    mask = (~a["done"]).to(torch.float32)
+    xg = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (T, B, 4 * H)).astype(np.float32))
+    return a, mask, xg
+
+
+@pytest.mark.parametrize("T,B,H", ORDER_SHAPES)
+def test_fwd_warp_order_matches_plain(T, B, H):
+    """K3's sum over warp slices of k covers every k once: its result
+    equals lstm_fwd_plain to 1e-6 of the largest value (float32)."""
+    a, mask, xg = recurrence_inputs(9, T, B, H)
+    wh = a["wh"] / np.sqrt(H)
+    y, hT, cT = fwd_warp_order(xg, wh, mask, a["h0"], a["c0"], 4)
+    ref = L.lstm_fwd_plain(xg, wh, mask, a["h0"], a["c0"])
+    for got, want in ((y, ref[0]), (hT, ref[3]), (cT, ref[4])):
+        assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+
+
+@pytest.mark.parametrize("units,cluster", [(4, 1), (4, 2), (8, 2), (4, 4)])
+@pytest.mark.parametrize("T,B,H", ORDER_SHAPES)
+def test_bwd_reduce_scatter_matches_plain(T, B, H, units, cluster):
+    """K4's reduce-scatter (partials by the clusters' gate columns, summed
+    over clusters by warps) equals lstm_bwd_plain, which
+    forms dgates @ W_h^T in one product, to 1e-6 of the largest value
+    (float32)."""
+    a, mask, xg = recurrence_inputs(10, T, B, H)
+    wh = a["wh"] / np.sqrt(H)
+    _, gates, cs, _, _ = L.lstm_fwd_plain(xg, wh, mask, a["h0"], a["c0"])
+    rng = np.random.default_rng(11)
+    dy = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32))
+    dcT = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+    got = bwd_reduce_scatter(gates, cs, a["c0"], mask, wh, dy, dcT, units,
+                             cluster)
+    want = L.lstm_bwd_plain(gates, cs, a["c0"], mask, wh, dy, dcT)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
