@@ -2,7 +2,7 @@
 """The LSTM recurrences (K3 forward, K4 backward) by sequence length, on
 the GPU.
 
-    python3 bench_torch_lstm_steps.py [--units 4|8] [--cluster 1|2|4]
+    python3 bench_torch_lstm_steps.py [--units 4|8] [--cluster 1|2]
     python3 bench_torch_lstm_steps.py --tree DIR
 
 Times ``rlpyt_tpu_torch.ops.lstm.lstm_fwd`` and ``lstm_bwd`` at H = 512

@@ -1256,13 +1256,12 @@ cudaError_t launch_recurrence(const void* kernel, int which, int ctas,
   return err;
 }
 
-// CTAs enough for H in whole clusters of 1, 2 or 4, at most 16 units a
-// cluster (K4 holds 64 weights a thread).
+// CTAs enough for H in whole clusters of 1 or 2.  (32 clusters of 4
+// one-SM CTAs are not all resident on an H100.)
 bool plan_ok(int H, int units, int ctas, int cluster) {
-  return (units == 4 || units == 8) &&
-         (cluster == 1 || cluster == 2 || cluster == 4) &&
-         units * cluster <= 16 && ctas % cluster == 0 &&
-         (int64_t)ctas * units >= H && (ctas - cluster) * units < H;
+  return (units == 4 || units == 8) && (cluster == 1 || cluster == 2) &&
+         ctas % cluster == 0 && (int64_t)ctas * units >= H &&
+         (ctas - cluster) * units < H;
 }
 
 }  // namespace
@@ -1326,7 +1325,7 @@ long long lstm_bwd_smem(int B, int H, int units, int cluster) {
 // K3.  xg [T, B, 4H], wh [H, 4H], mask [T, B], h0, c0 [B, H] ->
 // y, cs [T, B, H], gates [T, B, 4H], hT, cT [B, H].  ``ctas`` CTAs of
 // ``units`` (4 or 8) hidden units (at least ceil(H / units)), in clusters
-// of ``cluster`` (1, 2 or 4; a divisor of ctas); h staged
+// of ``cluster`` (1 or 2; a divisor of ctas); h staged
 // ``stage_rows`` (a multiple of 32) rows at a time; ``counter`` a zeroed
 // int in device memory (unused, and may be null, when T == 1: then the
 // launch is an ordinary one).
@@ -1393,13 +1392,12 @@ int lstm_bwd_launch(const void* gates, const void* cs, const void* c0,
   void* args[] = {&a_g,   &a_cs, &a_c0,  &a_mask, &a_wh,   &a_dy,
                   &a_dcT, &a_dg, &a_dh0, &a_dc0,  &a_part, &a_cnt,
                   &T,     &B,    &H,     &vec};
-  const void* kernels[5] = {
+  const void* kernels[4] = {
       reinterpret_cast<const void*>(lstm_bwd_kernel<4, 1>),
       reinterpret_cast<const void*>(lstm_bwd_kernel<4, 2>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<4, 4>),
       reinterpret_cast<const void*>(lstm_bwd_kernel<8, 1>),
       reinterpret_cast<const void*>(lstm_bwd_kernel<8, 2>)};
-  const int which = (units == 4 ? 0 : 3) + (cluster == 4 ? 2 : cluster - 1);
+  const int which = (units == 4 ? 0 : 2) + cluster - 1;
   return static_cast<int>(launch_recurrence(kernels[which], 2 + which, ctas,
                                             cluster, smem, true, args,
                                             static_cast<cudaStream_t>(stream)));
@@ -1411,9 +1409,9 @@ const char* lstm_error_string(int code) {
            "(they wait for each other at every step)";
   if (code == kErrBadPlan)
     return "the recurrence's plan does not fit the kernel (units 4 or 8, "
-           "enough CTAs in whole clusters of 1, 2 or 4 of at most 16 "
-           "units, stage rows a multiple of 32, shared memory within "
-           "226 KB, a counter for T > 1, 16-byte aligned scratch)";
+           "enough CTAs in whole clusters of 1 or 2, stage rows a "
+           "multiple of 32, shared memory within 226 KB, a counter for "
+           "T > 1, 16-byte aligned scratch)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

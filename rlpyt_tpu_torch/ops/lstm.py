@@ -76,7 +76,7 @@ def load():
         lib.lstm_fwd_smem.restype = lib.lstm_bwd_smem.restype = \
             ctypes.c_longlong
         for B, H, units, cluster in ((32, 512, 4, 2), (37, 102, 8, 1),
-                                     (128, 512, 4, 4), (5, 100, 8, 2)):
+                                     (128, 512, 4, 2), (5, 100, 8, 2)):
             plan = recurrence_plan(B, H, 132, units, cluster)
             if (lib.lstm_fwd_smem(B, H, units, plan.stage_rows),
                     lib.lstm_bwd_smem(B, H, units, cluster)) \
@@ -240,9 +240,8 @@ ROW_BLOCK = 32      # batch rows of one warp's tile in K3 / K4
 REC_WARPS = 8       # warps of a recurrence CTA
 
 
-# CTAs of a recurrence's thread-block cluster: clusters of 2 of
-# one-SM CTAs are all resident on an H100 at 128 CTAs, clusters of 4 are
-# not (``bench_torch_lstm_steps.py --cluster``).
+# CTAs of a recurrence's thread-block cluster: 64 clusters of 2 one-SM
+# CTAs are all resident on an H100, 32 clusters of 4 are not.
 CLUSTER = 2
 
 
@@ -268,7 +267,7 @@ def recurrence_plan(B: int, H: int, n_sm: int, units=None,
     """The recurrences' plan on a card of ``n_sm`` SMs.  Units per CTA:
     4 (128 CTAs at H = 512, one per SM), or 8 where ceil(H / 4) CTAs
     would not all be resident, or as given; CTAs rounded up to whole
-    clusters of 1, 2 or 4 (at most 16 units a cluster).  Shared memory
+    clusters of 1 or 2.  Shared memory
     (floats, H4 = H rounded up to 4): K3 the W_h slice [H4][4U], staged h
     [stage_rows][H4 (+ 4)], the warps' partial tiles [8][32][4U + 4] and
     c [B][U]; K4 the cluster's W_h block [~H4 / C][4UC], the cluster's
@@ -277,11 +276,10 @@ def recurrence_plan(B: int, H: int, n_sm: int, units=None,
     it fits, else the most multiples of 32 that do."""
     if units is None:
         units = 4 if -(-H // 4) <= n_sm else 8
-    if units not in (4, 8) or cluster not in (1, 2, 4) \
-            or units * cluster > 16:
+    if units not in (4, 8) or cluster not in (1, 2):
         raise ValueError(f"lstm: {units} units per CTA in clusters of "
-                         f"{cluster}; 4 or 8 units in clusters of 1, 2 or "
-                         "4, at most 16 units a cluster, are built")
+                         f"{cluster}; 4 or 8 units in clusters of 1 or 2 "
+                         "are built")
     q = 4 * units
     hp = -(-H // 4) * 4
     hs = hp if (hp // 4) % 2 else hp + 4
