@@ -17,7 +17,8 @@ included (the results of a variant are wrong; only its time is read):
 - ``barrier only``: all of the above left out.
 
 Each variant is the source with one or more lines rewritten; a rewrite
-that does not find its line stops the script.  The variants go to
+that does not find its line stops the script, so an edit of those lines
+of ``lstm.cu`` brings ``CUTS`` in step with it.  The variants go to
 ``rlpyt_tpu_torch/csrc/build/parts/`` (git-ignored) and are built in
 parallel.  For each it prints the device times (launches captured in a
 CUDA graph and replayed) of K3 at (T, B) = (45, 32), (20, 32), (1, 64)

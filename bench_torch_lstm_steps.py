@@ -2,8 +2,7 @@
 """The LSTM recurrences (K3 forward, K4 backward) by sequence length, on
 the GPU.
 
-    python3 bench_torch_lstm_steps.py [--units 4|8] [--cluster 1|2]
-    python3 bench_torch_lstm_steps.py --tree DIR
+    python3 bench_torch_lstm_steps.py [--tree DIR]
 
 Times ``rlpyt_tpu_torch.ops.lstm.lstm_fwd`` and ``lstm_bwd`` at H = 512
 (R2D1's LSTM) for T = 1, 2, 5, 10, 20, 45, 80 and B = 32 (an update's
@@ -16,11 +15,7 @@ between two events, after the card's clocks have been brought up (a
 card left idle reads 20 % slow).  Beside each fit: the bound of one step
 (2 * B * H * 4H operations on the fp32 pipes).
 
-``--units`` sets the hidden units each CTA owns (the recurrence plan's
-default for H = 512 is 4: 128 CTAs; 8 is 64 CTAs), ``--cluster`` the CTAs
-of a thread-block cluster (default ``ops/lstm.py``'s ``CLUSTER``); either
-times ``recurrence_fwd`` / ``recurrence_bwd`` with that plan.  ``--tree``
-times the wrappers of another checkout of the repo (one unpacked with
+``--tree`` times the wrappers of another checkout of the repo (one unpacked with
 ``git archive`` into the git-ignored ``_archive/``), to compare two trees
 on one card in one call.
 
@@ -56,10 +51,6 @@ def fit(ts, ms):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--units", type=int, default=None,
-                    help="hidden units per CTA (default: the plan's)")
-    ap.add_argument("--cluster", type=int, default=None,
-                    help="CTAs of a cluster (default: the plan's)")
     ap.add_argument("--tree", type=Path, default=None,
                     help="time the kernels of the checkout in this directory")
     args = ap.parse_args()
@@ -69,17 +60,7 @@ def main():
     graph_ms = importlib.import_module(
         "rlpyt_tpu_torch.utils.cuda_timing").graph_ms
     print(f"kernels of {Path(L.__file__).resolve().parents[2]}")
-    if args.units is None and args.cluster is None:
-        fwd, bwd = L.lstm_fwd, L.lstm_bwd
-    else:
-        plan = {"units": args.units, "cluster": args.cluster or L.CLUSTER}
-
-        def fwd(*a):
-            return L.recurrence_fwd(*a, **plan)
-
-        def bwd(*a):
-            return L.recurrence_bwd(*a, **plan)
-
+    fwd, bwd = L.lstm_fwd, L.lstm_bwd
     if not torch.cuda.is_available():
         print("bench_torch_lstm_steps: needs a CUDA device", file=sys.stderr)
         return 1
@@ -128,7 +109,6 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     print(json.dumps({"tree": str(Path(L.__file__).resolve().parents[2]),
-                      "units": args.units, "cluster": args.cluster,
                       "by_shape": res}))
     return 0
 

@@ -63,10 +63,11 @@
 //       shared-memory-tiled FFMA kernel.
 //   K3 / K4 do 2*T*B*H*4H operations in T dependent steps: on paper bound
 //       by fp32 operations (1.0 us a step at B = 32, H = 512), in fact by
-//       what each step waits for.  Design: one persistent launch per call,
-//       cooperative (all CTAs resident, or the launch is refused).  CTA j
-//       owns hidden units [U*j, U*j + U) (U = 4: 128 CTAs at H = 512) and
-//       all four of their gates, keeps its W_h slice ws [H][4U] (32 KB)
+//       what each step waits for.  Design: one persistent launch per call
+//       of ceil(H / 4) CTAs in thread-block clusters of 2 (128 CTAs at H =
+//       512; the plan refuses H above 4 x the SMs).  CTA j owns hidden
+//       units [4j, 4j + 4) and all four of their gates, keeps its W_h
+//       slice ws [H][16] (32 KB)
 //       in shared memory for the whole sequence, the Hopper counterpart of
 //       the TPU keeping W_h in VMEM, and its units' c (K3) or dc (K4).
 //       Per step:
@@ -75,21 +76,31 @@
 //         own inputs (xg; gates, c, dy) between the two;
 //       - K3 stages the step's input h_prev [B][H] in shared memory (64 KB
 //         at B = 32; at most 64 rows at a time) by bulk copies multicast
-//         over a thread-block cluster of C CTAs, so L2 serves 128 / C
-//         copies of h a step, not 128, and contracts it with FFMA from
+//         over the cluster, so L2 serves 64 copies of h a step, not 128,
+//         and contracts it with FFMA from
 //         shared memory: warp w takes an eighth of k, a lane 4 rows x its
 //         gate's U columns, and the 8 warps' tiles are summed in shared
 //         memory in warp order;
 //       - K4 needs dgates[s+1] of all 4H columns for its units' rows of
 //         W_h^T, 256 KB a CTA a step at B = 32; instead the CTAs of a
 //         cluster share their dgates over distributed shared memory, each
-//         forms the cluster's partial carry over its 4UC columns for a
-//         C-th of the units (B x H / C floats stored), and each CTA sums
-//         its units' columns of the 128 / C cluster partials in a fixed
-//         order (B x U x 128 / C floats read).
+//         forms the cluster's partial carry over its 32 columns for half
+//         the units (B x H / 2 floats stored), and each CTA sums its
+//         units' columns of the 64 cluster partials in a fixed order
+//         (B x 4 x 64 floats read).
 //       No atomics on data: the same bits every run.  T = 1 (a collection
 //       step) is an ordinary launch of K3 with no barrier.  Ragged H and B
 //       are masked in the kernels; H needs no padding.
+//       The CTAs of a launch with a step barrier spin until every CTA has
+//       arrived, so all must be resident at once.  The launch is
+//       cooperative as well as clustered: CUDA then places every CTA at
+//       once or refuses the launch with an error, before any CTA waits,
+//       when the grid cannot fit the card.  A wait that still outlasts any
+//       real one traps instead of hanging the card.
+//       (Measured on an H100: 8 units a CTA, 64 CTAs, was slower
+//       than 4 units in both kernels; clusters of 1 slower than of 2; 32
+//       clusters of 4 one-SM CTAs are not all resident.  Only the shape
+//       that won is built.)
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -562,6 +573,8 @@ proj_generic_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 // K3 / K4: persistent recurrences
 // ---------------------------------------------------------------------
 
+constexpr int kUnits = 4;                 // hidden units of a CTA
+constexpr int kCluster = 2;               // CTAs of a thread-block cluster
 constexpr int kRecThreads = 256;
 constexpr int kRecWarps = kRecThreads / 32;
 constexpr int kRowBlock = 32;             // batch rows of a warp's tile
@@ -627,37 +640,27 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 }
 
 // One bulk copy of ``bytes`` (a multiple of 16, both addresses 16-byte
-// aligned) from device memory to shared memory, completing on ``bar``;
-// with ``cluster`` > 1 multicast to the same offset in every CTA of the
-// cluster, each of which counts the bytes on its own ``bar``.
+// aligned) from device memory to shared memory, multicast to the same
+// offset in every CTA of the cluster, each of which counts the bytes on
+// its own ``bar``.
 __device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar,
-                                          int cluster) {
-  if (cluster > 1) {
-    const uint16_t all = (uint16_t)((1u << cluster) - 1);
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-        "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(all)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-        "l"(src), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
-  }
+                                          uint32_t bytes, uint64_t* bar) {
+  constexpr uint16_t all = (1u << kCluster) - 1;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(all)
+      : "memory");
 }
 
 // K3's slice of W_h, ws[k][q] = W_h[k, gate q / U, unit j0 + q % U],
 // for k < padded_h(H) (zero past H and past the last unit).  With
 // ``vec`` (H % 4 == 0, W_h 16-byte aligned) in 16-byte cp.async copies
 // that the caller waits for; else in scalar loads.
-template <int U>
 __device__ __forceinline__ void load_w_slice(float* ws,
                                              const float* __restrict__ wh,
                                              int H, int j0, bool vec) {
-  constexpr int Q = 4 * U;
+  constexpr int U = kUnits, Q = 4 * U;
   const int hp = padded_h(H), H4 = 4 * H;
   if (vec) {
     for (int i = threadIdx.x; i < H * (Q / 4); i += kRecThreads) {
@@ -677,13 +680,14 @@ __device__ __forceinline__ void load_w_slice(float* ws,
   }
 }
 
-// K3.  CTA j owns hidden units [U*j, U*j + U) and their four gates (Q =
-// 4U columns of h @ W_h), keeps its W_h slice ws [Hp][Q] for the whole
-// sequence and its units' cell state in shared memory.  Each step:
+// K3.  CTA j owns hidden units [U*j, U*j + U) (U = kUnits) and their four
+// gates (Q = 4U columns of h @ W_h), keeps its W_h slice ws [Hp][Q] for
+// the whole sequence and its units' cell state in shared memory.  Each
+// step:
 //   1. wait for every CTA's h of the step before (skipped at t = 0);
 //   2. stage h_prev [rows][H] in shared memory, at most S rows at a
 //      time: one bulk copy a row, multicast to the CTA's cluster (CTA r
-//      copies rows r, r + C, ...), so L2 serves a row once a cluster
+//      copies rows r, r + 2, ...), so L2 serves a row once a cluster
 //      (with H % 4 != 0: scalar ld.global.cg, from L2, never a stale L1);
 //   3. for each 32-row block: warp w takes the k in {4w, 4w+32, ...} for
 //      the whole [32][Q] tile, lane (gate gq, row group rg) holds rows
@@ -695,14 +699,13 @@ __device__ __forceinline__ void load_w_slice(float* ws,
 //   4. store y, gates, c (and hT, cT at the end) and arrive.
 // ``counter`` may be null when T == 1 (no barrier: the one-step shape is
 // an ordinary launch).
-template <int U>
 __global__ void __launch_bounds__(kRecThreads, 1)
 lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ wh,
                 const float* __restrict__ mask, const float* __restrict__ h0,
                 const float* __restrict__ c0, float* y, float* gates,
                 float* cs, float* hT, float* cT, int* counter, int T, int B,
                 int H, int S, int vec) {
-  constexpr int Q = 4 * U;
+  constexpr int U = kUnits, Q = 4 * U;
   constexpr int RS = Q + 4;   // row stride of a partial tile
   extern __shared__ __align__(16) float smem[];
   const int hp = padded_h(H), hs = h_stride(H), H4 = 4 * H;
@@ -717,7 +720,7 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ wh,
   const int n_cta = gridDim.x;
   const bool cell = tid < kRowBlock * U && col < H;
   cg::cluster_group cluster = cg::this_cluster();
-  const int n_peer = cluster.num_blocks(), rank = cluster.block_rank();
+  const int rank = cluster.block_rank();
   __shared__ __align__(8) uint64_t hbar;   // staged h has landed
   uint32_t phase = 0;
 
@@ -734,8 +737,8 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ wh,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
   // No peer multicasts into this CTA before its barrier exists.
-  if (n_peer > 1) cluster.sync();
-  load_w_slice<U>(ws, wh, H, j0, vec);
+  cluster.sync();
+  load_w_slice(ws, wh, H, j0, vec);
 
   // What a cell thread reads besides the sums: xg of its (row, unit)
   // and the row's mask, loaded one row block ahead.
@@ -761,17 +764,17 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ wh,
       const int s1 = min(B, s0 + S);
       if (s0 == 0 && t > 0) step_wait(counter, t * n_cta);
       // Stage rows [s0, s1) of h_prev: one bulk copy a row, CTA r of
-      // the cluster copying rows r, r + n_peer, ... to all of it.
+      // the cluster copying rows r, r + kCluster, ... to all of it.
       if (vec) {
         // Every peer is done with the last stage (the first stage of a
         // step waited for every CTA's arrival instead).
-        if (s0 > 0 && n_peer > 1) cluster.sync();
+        if (s0 > 0) cluster.sync();
         if (tid == 0) {
           asm volatile("fence.proxy.async.global;\n" ::: "memory");
           mbar_expect_tx(&hbar, (uint32_t)((s1 - s0) * H * 4));
-          for (int r = rank; r < s1 - s0; r += n_peer)
+          for (int r = rank; r < s1 - s0; r += kCluster)
             bulk_load(hbuf + r * hs, hprev + (int64_t)(s0 + r) * H, H * 4,
-                      &hbar, n_peer);
+                      &hbar);
         }
         cp_async_wait<0>();   // the W slice, at t = 0
         mbar_wait(&hbar, phase);
@@ -871,33 +874,36 @@ lstm_fwd_kernel(const float* __restrict__ xg, const float* __restrict__ wh,
     }
     if (t + 1 < T) step_arrive(counter);
   }
-  if (n_peer > 1) cluster.sync();   // no CTA leaves while a peer copies in
+  cluster.sync();   // no CTA leaves while a peer copies in
 }
 
-// Rows of K4's W_h block for clusters of C CTAs of U units: the most k
-// any CTA of the cluster takes, in groups of 64 / (4 U C) rows.
-__host__ __device__ inline int bwd_k_rows(int H, int U, int C) {
-  const int kw = 64 / (4 * U * C), n_kg = padded_h(H) / kw;
-  return (n_kg + C - 1) / C * kw;
+// K4: k rows of a thread's partial, so that it holds 64 weights.
+constexpr int kBwdKW = 64 / (4 * kUnits * kCluster);
+static_assert(kBwdKW == 2, "K4 stores a thread's partial as a float2");
+
+// Rows of K4's W_h block: the most k any CTA of the cluster takes, in
+// groups of kBwdKW rows.
+__host__ __device__ inline int bwd_k_rows(int H) {
+  const int n_kg = padded_h(H) / kBwdKW;
+  return (n_kg + kCluster - 1) / kCluster * kBwdKW;
 }
 
 // K4.  The same CTAs and units as K3.  The carry into step s is dh =
 // (dgates[s+1] @ W_h^T) * mask[s+1], a sum over all 4H gate columns,
 // which no CTA holds.  Reduce-scatter: after the cell update of step s+1
-// the C CTAs of a cluster copy each other's dgates (the cluster's QC =
-// 4UC gate columns, B x QC floats, over distributed shared memory); CTA
-// r of the cluster forms the cluster's partial carry over those columns
-// for its C-th of the units, part[g][b][k] = sum_q dg[b][q] * W_h[k, q]
-// (QC FFMA each, 64 / QC rows of its W_h block [H / C][QC] in registers),
-// and stores it; at step s, CTA j reads its U units' columns of the
-// n_cta / C clusters' partials and sums them in a fixed order: the same
-// bits every run, no atomics.  Per step and CTA at B = 32, U = 4, C = 2
+// the C = kCluster CTAs of a cluster copy each other's dgates (the
+// cluster's QC = 4UC gate columns, B x QC floats, over distributed shared
+// memory); CTA r of the cluster forms the cluster's partial carry over
+// those columns for its C-th of the units, part[g][b][k] = sum_q dg[b][q]
+// * W_h[k, q] (QC FFMA each, kBwdKW rows of its W_h block [H / C][QC] in
+// registers), and stores it; at step s, CTA j reads its U units' columns
+// of the n_cta / C clusters' partials and sums them in a fixed order: the
+// same bits every run, no atomics.  Per step and CTA at B = 32
 // that is 32 KB stored and 32 KB read, against the 256 KB of all
 // dgates[s+1] that its units' rows of W_h would need.  Partials
 // alternate between two buffers by step parity: a CTA writes step s's
 // only after the barrier of step s+1, which every CTA passes only after
 // reading step s+2's.
-template <int U, int C>
 __global__ void __launch_bounds__(kRecThreads, 1)
 lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                 const float* __restrict__ c0, const float* __restrict__ mask,
@@ -905,13 +911,12 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
                 const float* __restrict__ dcT, float* dgates, float* dh0,
                 float* dc0, float* part, int* counter, int T, int B, int H,
                 int vec) {
-  constexpr int Q = 4 * U, QC = Q * C;
-  constexpr int KW = 64 / QC;   // k rows of a thread's partial
-  static_assert(KW >= 1 && KW * QC == 64, "a thread holds 64 weights");
+  constexpr int U = kUnits, C = kCluster, Q = 4 * U, QC = Q * C;
+  constexpr int KW = kBwdKW;   // k rows of a thread's partial
   extern __shared__ __align__(16) float smem[];
   const int hp = padded_h(H), H4 = 4 * H;
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  const int rank = cluster.block_rank();
   // This CTA's k groups of the cluster's partial.
   const int n_kg = hp / KW, kg_lo = rank * n_kg / C;
   const int n_my = (rank + 1) * n_kg / C - kg_lo;
@@ -920,7 +925,7 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   // ws[(c/4 * KW + kk) * kg_max + kg], so that the lanes of a warp, which
   // take consecutive kg, read consecutive 16-byte words.
   float4* ws = reinterpret_cast<float4*>(smem);
-  float* dgc = smem + bwd_k_rows(H, U, C) * QC;   // [B][QC]: cluster's dg
+  float* dgc = smem + bwd_k_rows(H) * QC;    // [B][QC]: cluster's dg
   float* dgo = dgc + B * QC;                  // [B][Q]: this CTA's dg
   float* dc_s = dgo + B * Q;                  // [B][U]: dc carry
   float* red = dc_s + B * U;                  // [kRecWarps][32][U]
@@ -1014,7 +1019,7 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
 #pragma unroll
               for (int v = 0; v < U / 4; ++v) {
                 const int c = c0 + i * kRecWarps;
-                // (units past H, U = 8: 4 v past the padded row)
+                // (a CTA past H: j0 past the padded row)
                 p[i][v] = c < n_grp && j0 + 4 * v < hp
                               ? __ldcg(reinterpret_cast<const float4*>(
                                     src + c * part_grp + 4 * v))
@@ -1079,10 +1084,10 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
     // The cluster's dgates of step s, from each CTA's dgo (its peers'
     // over distributed shared memory, after the cluster's barrier).  A
     // peer writes its dgo again only after every CTA's next arrival.
-    if (C > 1) cluster.sync();
+    cluster.sync();
     for (int i = tid; i < B * (QC / 4); i += kRecThreads) {
       const int b = i / (QC / 4), c = (i % (QC / 4)) * 4, p = c / Q;
-      const float* src = C > 1 ? cluster.map_shared_rank(dgo, p) : dgo;
+      const float* src = cluster.map_shared_rank(dgo, p);
       *reinterpret_cast<float4*>(dgc + b * QC + c) =
           *reinterpret_cast<const float4*>(src + b * Q + c % Q);
     }
@@ -1133,86 +1138,41 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
           for (int r = 0; r < kPartRows; ++r) {
             const int b = b0 + r * phases;
             if (b >= B) break;
-            float* dst = pout + (int64_t)b * hp + kg * KW;
-            if constexpr (KW == 4)
-              *reinterpret_cast<float4*>(dst) =
-                  make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
-            else if constexpr (KW == 2)
-              *reinterpret_cast<float2*>(dst) =
-                  make_float2(o[r][0], o[r][1]);
-            else
-              *dst = o[r][0];
+            *reinterpret_cast<float2*>(pout + (int64_t)b * hp + kg * KW) =
+                make_float2(o[r][0], o[r][1]);
           }
         }
       }
     }
     step_arrive(counter);
   }
-  if (C > 1) cluster.sync();   // no CTA leaves while a peer reads it
+  cluster.sync();   // no CTA leaves while a peer reads it
 }
 
-__host__ __device__ inline size_t fwd_smem(int B, int H, int U, int S) {
+__host__ __device__ inline size_t fwd_smem(int B, int H, int S) {
+  constexpr int U = kUnits;
   return sizeof(float) *
          ((size_t)padded_h(H) * 4 * U + (size_t)S * h_stride(H) +
           (size_t)kRecWarps * kRowBlock * (4 * U + 4) + (size_t)B * U);
 }
 
-__host__ __device__ inline size_t bwd_smem(int B, int H, int U, int C) {
+__host__ __device__ inline size_t bwd_smem(int B, int H) {
+  constexpr int U = kUnits;
   return sizeof(float) *
-         ((size_t)(bwd_k_rows(H, U, C) + B) * 4 * U * C + (size_t)B * 4 * U +
+         ((size_t)(bwd_k_rows(H) + B) * 4 * U * kCluster + (size_t)B * 4 * U +
           (size_t)B * U + (size_t)kRecWarps * kRowBlock * U);
 }
 
-// Whether ``ctas`` CTAs of ``kernel`` in clusters of ``cluster`` can all
-// be resident at once; asked once for each kernel, device, shared memory
-// size and cluster size.
-cudaError_t clusters_fit(const void* kernel, int dev, size_t smem,
-                         int cluster, int ctas, bool* fit) {
-  struct Entry {
-    const void* kernel;
-    int dev, cluster;
-    size_t smem;
-    int n;
-  };
-  static Entry seen[64];
-  static int n_seen = 0;
-  for (int i = 0; i < n_seen; ++i) {
-    const Entry& e = seen[i];
-    if (e.kernel == kernel && e.dev == dev && e.smem == smem &&
-        e.cluster == cluster) {
-      *fit = (int64_t)e.n * cluster >= ctas;
-      return cudaSuccess;
-    }
-  }
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas);
-  cfg.blockDim = dim3(kRecThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (n_seen < 64) seen[n_seen++] = {kernel, dev, cluster, smem, n};
-  *fit = (int64_t)n * cluster >= ctas;
-  return cudaSuccess;
-}
-
-// Launch a recurrence on ``ctas`` CTAs in clusters of ``cluster``.  When
-// its CTAs wait for each other (``resident``) they must all be resident
-// at once: a cooperative launch guarantees it for clusters of one (or is
-// refused), the cluster occupancy check for larger clusters; otherwise
-// an ordinary launch.  The shared-memory opt-in is made once for each
-// kernel and device.
+// Launch a recurrence on ``ctas`` CTAs in clusters of kCluster.  When its
+// CTAs wait for each other (``resident``) they must all be resident at
+// once: the launch is also cooperative, which guarantees it or is refused
+// (kErrNotResident); otherwise an ordinary clustered launch.  The
+// shared-memory opt-in is made once for each kernel (``which``) and
+// device.
 cudaError_t launch_recurrence(const void* kernel, int which, int ctas,
-                              int cluster, size_t smem, bool resident,
-                              void** args, cudaStream_t stream) {
-  static bool opted_in[8][64];
+                              size_t smem, bool resident, void** args,
+                              cudaStream_t stream) {
+  static bool opted_in[2][64];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1226,42 +1186,30 @@ cudaError_t launch_recurrence(const void* kernel, int which, int ctas,
     if (err != cudaSuccess) return err;
     opted_in[which][dev] = true;
   }
-  cudaLaunchAttribute attr;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas);
   cfg.blockDim = dim3(kRecThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cfg.attrs = &attr;
-  if (cluster > 1) {
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cluster;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.numAttrs = 1;
-    if (resident) {
-      bool fit = false;
-      err = clusters_fit(kernel, dev, smem, cluster, ctas, &fit);
-      if (err != cudaSuccess) return err;
-      if (!fit) return static_cast<cudaError_t>(kErrNotResident);
-    }
-  } else if (resident) {
-    attr.id = cudaLaunchAttributeCooperative;
-    attr.val.cooperative = 1;
-    cfg.numAttrs = 1;
-  }
+  cfg.attrs = attr;
+  cfg.numAttrs = resident ? 2 : 1;
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err == cudaErrorCooperativeLaunchTooLarge)
     return static_cast<cudaError_t>(kErrNotResident);
   return err;
 }
 
-// CTAs enough for H in whole clusters of 1 or 2.  (32 clusters of 4
-// one-SM CTAs are not all resident on an H100.)
-bool plan_ok(int H, int units, int ctas, int cluster) {
-  return (units == 4 || units == 8) && (cluster == 1 || cluster == 2) &&
-         ctas % cluster == 0 && (int64_t)ctas * units >= H &&
-         (ctas - cluster) * units < H;
+// CTAs enough for H in whole clusters.
+bool plan_ok(int H, int ctas) {
+  return ctas % kCluster == 0 && (int64_t)ctas * kUnits >= H &&
+         (ctas - kCluster) * kUnits < H;
 }
 
 }  // namespace
@@ -1313,32 +1261,31 @@ int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of the recurrences for a plan (``ops/lstm.py``'s
-// ``recurrence_plan`` computes the same and checks it against these).
-long long lstm_fwd_smem(int B, int H, int units, int stage_rows) {
-  return (long long)fwd_smem(B, H, units, stage_rows);
+// The recurrences' CTA shape and shared memory for a plan
+// (``ops/lstm.py``'s ``recurrence_plan`` computes the same and checks it
+// against these).
+int lstm_rec_units() { return kUnits; }
+int lstm_rec_cluster() { return kCluster; }
+long long lstm_fwd_smem(int B, int H, int stage_rows) {
+  return (long long)fwd_smem(B, H, stage_rows);
 }
-long long lstm_bwd_smem(int B, int H, int units, int cluster) {
-  return (long long)bwd_smem(B, H, units, cluster);
-}
+long long lstm_bwd_smem(int B, int H) { return (long long)bwd_smem(B, H); }
 
 // K3.  xg [T, B, 4H], wh [H, 4H], mask [T, B], h0, c0 [B, H] ->
 // y, cs [T, B, H], gates [T, B, 4H], hT, cT [B, H].  ``ctas`` CTAs of
-// ``units`` (4 or 8) hidden units (at least ceil(H / units)), in clusters
-// of ``cluster`` (1 or 2; a divisor of ctas); h staged
-// ``stage_rows`` (a multiple of 32) rows at a time; ``counter`` a zeroed
-// int in device memory (unused, and may be null, when T == 1: then the
-// launch is an ordinary one).
+// kUnits hidden units (ceil(H / kUnits) rounded up to whole clusters);
+// h staged ``stage_rows`` (a multiple of 32) rows at a time; ``counter``
+// a zeroed int in device memory (unused, and may be null, when T == 1:
+// then the launch is an ordinary one).
 int lstm_fwd_launch(const void* xg, const void* wh, const void* mask,
                     const void* h0, const void* c0, void* y, void* gates,
                     void* cs, void* hT, void* cT, void* counter, int T, int B,
-                    int H, int units, int ctas, int cluster, int stage_rows,
-                    void* stream) {
+                    int H, int ctas, int stage_rows, void* stream) {
   if (T == 0 || B == 0 || H == 0) return 0;
-  const size_t smem = fwd_smem(B, H, units, stage_rows);
+  const size_t smem = fwd_smem(B, H, stage_rows);
   if (stage_rows <= 0 || stage_rows % kRowBlock != 0 ||
       smem > (size_t)kSmemMax || (T > 1 && counter == nullptr) ||
-      !plan_ok(H, units, ctas, cluster))
+      !plan_ok(H, ctas))
     return kErrBadPlan;
   const float *a_xg = static_cast<const float*>(xg),
               *a_wh = static_cast<const float*>(wh),
@@ -1354,27 +1301,24 @@ int lstm_fwd_launch(const void* xg, const void* wh, const void* mask,
               reinterpret_cast<uintptr_t>(y)) & 15u) == 0;
   void* args[] = {&a_xg, &a_wh, &a_mask, &a_h0, &a_c0, &a_y, &a_g, &a_cs,
                   &a_hT, &a_cT, &a_cnt, &T, &B, &H, &stage_rows, &vec};
-  const void* kernel =
-      units == 4 ? reinterpret_cast<const void*>(lstm_fwd_kernel<4>)
-                 : reinterpret_cast<const void*>(lstm_fwd_kernel<8>);
-  return static_cast<int>(launch_recurrence(kernel, units == 4 ? 0 : 1, ctas,
-                                            cluster, smem, T > 1, args,
-                                            static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_recurrence(
+      reinterpret_cast<const void*>(lstm_fwd_kernel), 0, ctas, smem, T > 1,
+      args, static_cast<cudaStream_t>(stream)));
 }
 
 // K4.  gates [T, B, 4H], cs [T, B, H], c0 [B, H], mask [T, B], wh [H, 4H],
 // dy [T, B, H] (hT's cotangent already added to dy[T-1]), dcT [B, H] ->
-// dgates [T, B, 4H], dh0, dc0 [B, H].  CTAs and clusters as for K3.
-// ``part`` is scratch of 2 * (ctas / cluster) * B * padded_h(H) floats,
+// dgates [T, B, 4H], dh0, dc0 [B, H].  CTAs as for K3.  ``part`` is
+// scratch of 2 * (ctas / kCluster) * B * padded_h(H) floats,
 // ``counter`` a zeroed int.
 int lstm_bwd_launch(const void* gates, const void* cs, const void* c0,
                     const void* mask, const void* wh, const void* dy,
                     const void* dcT, void* dgates, void* dh0, void* dc0,
-                    void* part, void* counter, int T, int B, int H, int units,
-                    int ctas, int cluster, void* stream) {
+                    void* part, void* counter, int T, int B, int H, int ctas,
+                    void* stream) {
   if (T == 0 || B == 0 || H == 0) return 0;
-  if (!plan_ok(H, units, ctas, cluster)) return kErrBadPlan;
-  const size_t smem = bwd_smem(B, H, units, cluster);
+  if (!plan_ok(H, ctas)) return kErrBadPlan;
+  const size_t smem = bwd_smem(B, H);
   if (smem > (size_t)kSmemMax || counter == nullptr ||
       (reinterpret_cast<uintptr_t>(part) & 15u) != 0)
     return kErrBadPlan;
@@ -1392,15 +1336,9 @@ int lstm_bwd_launch(const void* gates, const void* cs, const void* c0,
   void* args[] = {&a_g,   &a_cs, &a_c0,  &a_mask, &a_wh,   &a_dy,
                   &a_dcT, &a_dg, &a_dh0, &a_dc0,  &a_part, &a_cnt,
                   &T,     &B,    &H,     &vec};
-  const void* kernels[4] = {
-      reinterpret_cast<const void*>(lstm_bwd_kernel<4, 1>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<4, 2>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<8, 1>),
-      reinterpret_cast<const void*>(lstm_bwd_kernel<8, 2>)};
-  const int which = (units == 4 ? 0 : 2) + cluster - 1;
-  return static_cast<int>(launch_recurrence(kernels[which], 2 + which, ctas,
-                                            cluster, smem, true, args,
-                                            static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_recurrence(
+      reinterpret_cast<const void*>(lstm_bwd_kernel), 1, ctas, smem, true,
+      args, static_cast<cudaStream_t>(stream)));
 }
 
 const char* lstm_error_string(int code) {
@@ -1408,8 +1346,8 @@ const char* lstm_error_string(int code) {
     return "the recurrence's CTAs cannot all be resident at once "
            "(they wait for each other at every step)";
   if (code == kErrBadPlan)
-    return "the recurrence's plan does not fit the kernel (units 4 or 8, "
-           "enough CTAs in whole clusters of 1 or 2, stage rows a "
+    return "the recurrence's plan does not fit the kernel (CTAs of 4 "
+           "units enough for H in whole clusters of 2, stage rows a "
            "multiple of 32, shared memory within 226 KB, a counter for "
            "T > 1, 16-byte aligned scratch)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -18,8 +18,9 @@ become three kernels here:
   ``dh0`` and ``dc0``.  ``dx``, ``dW_x``, ``dW_h`` and ``db`` are plain
   matrix products over ``dgates`` after it, as in the JAX package.
 
-``recurrence_plan`` sizes K3 and K4 (CTAs, units per CTA, cluster, rows of h
-staged at a time, shared memory); the kernels check it.
+``recurrence_plan`` sizes K3 and K4 (CTAs of ``UNITS`` hidden units in
+clusters of ``CLUSTER``, rows of h staged at a time, shared memory); the
+kernels check it.
 
 Gate order is i, f, g, o.  ``done[t]`` zeroes h and c before step t
 (``lstm_scan``, lstm.py:43-64); the kernels take ``mask = 1 - done``.
@@ -58,28 +59,30 @@ def load():
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.lstm_proj_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
-        lib.lstm_fwd_launch.argtypes = [vp] * 11 + [ci] * 7 + [vp]
-        lib.lstm_bwd_launch.argtypes = [vp] * 12 + [ci] * 6 + [vp]
+        lib.lstm_fwd_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
+        lib.lstm_bwd_launch.argtypes = [vp] * 12 + [ci] * 4 + [vp]
         for fn in (lib.lstm_proj_launch, lib.lstm_fwd_launch,
                    lib.lstm_bwd_launch):
             fn.restype = ci
         lib.lstm_error_string.argtypes = [ci]
         lib.lstm_error_string.restype = ctypes.c_char_p
-        for fn in (lib.lstm_proj_split, lib.lstm_proj_k_step):
+        for fn in (lib.lstm_proj_split, lib.lstm_proj_k_step,
+                   lib.lstm_rec_units, lib.lstm_rec_cluster):
             fn.argtypes, fn.restype = [], ci
-        if (lib.lstm_proj_split(), lib.lstm_proj_k_step()) \
-                != (PROJ_SPLITS, PROJ_K_STEP):
+        if (lib.lstm_proj_split(), lib.lstm_proj_k_step(),
+                lib.lstm_rec_units(), lib.lstm_rec_cluster()) \
+                != (PROJ_SPLITS, PROJ_K_STEP, UNITS, CLUSTER):
             raise RuntimeError("lstm.cu and ops/lstm.py disagree on the "
-                               "projection's split or K step")
-        lib.lstm_fwd_smem.argtypes = [ci] * 4
-        lib.lstm_bwd_smem.argtypes = [ci] * 4
+                               "projection's split or K step or the "
+                               "recurrences' CTA shape")
+        lib.lstm_fwd_smem.argtypes = [ci] * 3
+        lib.lstm_bwd_smem.argtypes = [ci] * 2
         lib.lstm_fwd_smem.restype = lib.lstm_bwd_smem.restype = \
             ctypes.c_longlong
-        for B, H, units, cluster in ((32, 512, 4, 2), (37, 102, 8, 1),
-                                     (128, 512, 4, 2), (5, 100, 8, 2)):
-            plan = recurrence_plan(B, H, 132, units, cluster)
-            if (lib.lstm_fwd_smem(B, H, units, plan.stage_rows),
-                    lib.lstm_bwd_smem(B, H, units, cluster)) \
+        for B, H in ((32, 512), (37, 102), (128, 512), (5, 100)):
+            plan = recurrence_plan(B, H, 132)
+            if (lib.lstm_fwd_smem(B, H, plan.stage_rows),
+                    lib.lstm_bwd_smem(B, H)) \
                     != (plan.fwd_smem, plan.bwd_smem):
                 raise RuntimeError("lstm.cu and ops/lstm.py disagree on "
                                    "the recurrences' shared memory")
@@ -238,8 +241,7 @@ def input_proj(x, wx, b):
 SMEM_MAX = 232448 - 1024   # dynamic shared memory of a recurrence CTA
 ROW_BLOCK = 32      # batch rows of one warp's tile in K3 / K4
 REC_WARPS = 8       # warps of a recurrence CTA
-
-
+UNITS = 4           # hidden units of a recurrence CTA
 # CTAs of a recurrence's thread-block cluster: 64 clusters of 2 one-SM
 # CTAs are all resident on an H100, 32 clusters of 4 are not.
 CLUSTER = 2
@@ -247,71 +249,57 @@ CLUSTER = 2
 
 @dataclass(frozen=True)
 class RecurrencePlan:
-    """How K3 and K4 run for one (B, H): ``ctas`` CTAs of ``units``
-    hidden units each (CTA j owns units [units * j, units * j + units)
+    """How K3 and K4 run for one (B, H): ``ctas`` CTAs of ``UNITS``
+    hidden units each (CTA j owns units [UNITS * j, UNITS * j + UNITS)
     and their four gates; CTAs past H only take part in the barriers), in
-    thread-block clusters of ``cluster`` CTAs, which share K3's staged h
+    thread-block clusters of ``CLUSTER`` CTAs, which share K3's staged h
     and K4's dgates; K3 stages ``stage_rows`` rows of h at a time.
     Dynamic shared memory in bytes."""
     ctas: int
-    units: int
-    cluster: int
     stage_rows: int
     fwd_smem: int
     bwd_smem: int
 
 
 @functools.lru_cache(maxsize=None)
-def recurrence_plan(B: int, H: int, n_sm: int, units=None,
-                    cluster=CLUSTER) -> RecurrencePlan:
-    """The recurrences' plan on a card of ``n_sm`` SMs.  Units per CTA:
-    4 (128 CTAs at H = 512, one per SM), or 8 where ceil(H / 4) CTAs
-    would not all be resident, or as given; CTAs rounded up to whole
-    clusters of 1 or 2.  Shared memory
-    (floats, H4 = H rounded up to 4): K3 the W_h slice [H4][4U], staged h
-    [stage_rows][H4 (+ 4)], the warps' partial tiles [8][32][4U + 4] and
-    c [B][U]; K4 the cluster's W_h block [~H4 / C][4UC], the cluster's
-    dgates [B][4UC], its own [B][4U], dc [B][U] and the warps' partial
-    carries [8][32][U].  ``stage_rows``: all of B rounded up to 32 where
-    it fits, else the most multiples of 32 that do."""
-    if units is None:
-        units = 4 if -(-H // 4) <= n_sm else 8
-    if units not in (4, 8) or cluster not in (1, 2):
-        raise ValueError(f"lstm: {units} units per CTA in clusters of "
-                         f"{cluster}; 4 or 8 units in clusters of 1 or 2 "
-                         "are built")
-    q = 4 * units
+def recurrence_plan(B: int, H: int, n_sm: int) -> RecurrencePlan:
+    """The recurrences' plan on a card of ``n_sm`` SMs: ceil(H / UNITS)
+    CTAs rounded up to whole clusters (128 at H = 512), one per SM, so at
+    most ``n_sm``.  Shared memory (floats, U = UNITS, C = CLUSTER, H4 = H
+    rounded up to 4): K3 the W_h slice [H4][4U], staged h [stage_rows][H4
+    (+ 4)], the warps' partial tiles [8][32][4U + 4] and c [B][U]; K4 the
+    cluster's W_h block [~H4 / C][4UC], the cluster's dgates [B][4UC], its
+    own [B][4U], dc [B][U] and the warps' partial carries [8][32][U].
+    ``stage_rows``: all of B rounded up to 32 where it fits, else the
+    most multiples of 32 that do."""
+    q = 4 * UNITS
     hp = -(-H // 4) * 4
     hs = hp if (hp // 4) % 2 else hp + 4
-    fixed = 4 * (hp * q + REC_WARPS * ROW_BLOCK * (q + 4) + B * units)
+    fixed = 4 * (hp * q + REC_WARPS * ROW_BLOCK * (q + 4) + B * UNITS)
     rows = -(-B // ROW_BLOCK) * ROW_BLOCK
     stage_rows = min(rows, (SMEM_MAX - fixed) // (4 * hs)
                      // ROW_BLOCK * ROW_BLOCK)
-    kw = 64 // (q * cluster)          # k rows of a K4 thread's partial
-    k_rows = -(-(hp // kw) // cluster) * kw
-    bwd_smem = 4 * ((k_rows + B) * q * cluster + B * q + B * units
-                    + REC_WARPS * ROW_BLOCK * units)
+    kw = 64 // (q * CLUSTER)          # k rows of a K4 thread's partial
+    k_rows = -(-(hp // kw) // CLUSTER) * kw
+    bwd_smem = 4 * ((k_rows + B) * q * CLUSTER + B * q + B * UNITS
+                    + REC_WARPS * ROW_BLOCK * UNITS)
     if stage_rows < ROW_BLOCK or bwd_smem > SMEM_MAX:
         raise ValueError(f"lstm: B={B}, H={H} exceed the recurrences' "
                          f"shared memory ({SMEM_MAX} bytes)")
-    ctas = -(-H // units)
-    return RecurrencePlan(
-        ctas=-(-ctas // cluster) * cluster, units=units, cluster=cluster,
-        stage_rows=stage_rows, fwd_smem=fixed + 4 * stage_rows * hs,
-        bwd_smem=bwd_smem)
+    ctas = -(-H // (UNITS * CLUSTER)) * CLUSTER
+    if ctas > n_sm:
+        raise ValueError(f"lstm: H={H} needs {ctas} CTAs of {UNITS} units, "
+                         f"more than the {n_sm} SMs that can hold them at "
+                         "once")
+    return RecurrencePlan(ctas=ctas, stage_rows=stage_rows,
+                          fwd_smem=fixed + 4 * stage_rows * hs,
+                          bwd_smem=bwd_smem)
 
 
 def lstm_fwd(xg, wh, mask, h0, c0):
     """K3: the recurrence; same contract as ``lstm_fwd_plain``."""
     if _device(xg) == "cpu":
         return lstm_fwd_plain(xg, wh, mask, h0, c0)
-    return recurrence_fwd(xg, wh, mask, h0, c0)
-
-
-def recurrence_fwd(xg, wh, mask, h0, c0, units=None, cluster=CLUSTER):
-    """K3 on CUDA tensors, ``units`` per CTA and ``cluster`` as
-    ``recurrence_plan`` takes them (``bench_torch_lstm_steps.py`` compares
-    shapes)."""
     T, B, H4 = xg.shape
     H = H4 // 4
     dev = xg.device
@@ -319,7 +307,7 @@ def recurrence_fwd(xg, wh, mask, h0, c0, units=None, cluster=CLUSTER):
                            ("mask", mask, (T, B)), ("h0", h0, (B, H)),
                            ("c0", c0, (B, H))):
         _check(name, t, shape, dev)
-    plan = recurrence_plan(B, H, _n_sm(dev), units, cluster)
+    plan = recurrence_plan(B, H, _n_sm(dev))
     y = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(y)
     gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
@@ -334,8 +322,7 @@ def recurrence_fwd(xg, wh, mask, h0, c0, units=None, cluster=CLUSTER):
             c0.data_ptr(), y.data_ptr(), gates.data_ptr(), cs.data_ptr(),
             hT.data_ptr(), cT.data_ptr(),
             None if counter is None else counter.data_ptr(), T, B, H,
-            plan.units, plan.ctas, plan.cluster, plan.stage_rows,
-            _stream(dev))
+            plan.ctas, plan.stage_rows, _stream(dev))
     _raise_on(err, "lstm forward")
     lstm_fwd.launches += 1
     lstm_fwd.step_launches += T == 1
@@ -346,13 +333,6 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
     """K4: the reverse recurrence; same contract as ``lstm_bwd_plain``."""
     if _device(gates) == "cpu":
         return lstm_bwd_plain(gates, cs, c0, mask, wh, dy, dcT)
-    return recurrence_bwd(gates, cs, c0, mask, wh, dy, dcT)
-
-
-def recurrence_bwd(gates, cs, c0, mask, wh, dy, dcT, units=None,
-                   cluster=CLUSTER):
-    """K4 on CUDA tensors, ``units`` and ``cluster`` as in
-    ``recurrence_fwd``."""
     T, B, H = cs.shape
     dev = gates.device
     for name, t, shape in (("gates", gates, (T, B, 4 * H)),
@@ -360,12 +340,12 @@ def recurrence_bwd(gates, cs, c0, mask, wh, dy, dcT, units=None,
                            ("mask", mask, (T, B)), ("wh", wh, (H, 4 * H)),
                            ("dy", dy, (T, B, H)), ("dcT", dcT, (B, H))):
         _check(name, t, shape, dev)
-    plan = recurrence_plan(B, H, _n_sm(dev), units, cluster)
+    plan = recurrence_plan(B, H, _n_sm(dev))
     dgates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
     # Each cluster's partial carry [B, H rounded up to 4], two steps'.
-    part = torch.empty((2, plan.ctas // plan.cluster, B, -(-H // 4) * 4),
+    part = torch.empty((2, plan.ctas // CLUSTER, B, -(-H // 4) * 4),
                        dtype=torch.float32, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -373,8 +353,7 @@ def recurrence_bwd(gates, cs, c0, mask, wh, dy, dcT, units=None,
             gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), mask.data_ptr(),
             wh.data_ptr(), dy.data_ptr(), dcT.data_ptr(), dgates.data_ptr(),
             dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(),
-            counter.data_ptr(), T, B, H, plan.units, plan.ctas, plan.cluster,
-            _stream(dev))
+            counter.data_ptr(), T, B, H, plan.ctas, _stream(dev))
     _raise_on(err, "lstm backward")
     lstm_bwd.launches += 1
     return dgates, dh0, dc0

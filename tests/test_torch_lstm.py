@@ -236,9 +236,7 @@ def test_cuda_kernels_match_plain(cuda_device):
     """K3a, K3 and K4 against their plain versions on the card (TF32 off;
     forward within 1e-4 and backward within 1e-3 of the largest value),
     at slice shapes, more rows than one stage of staged h and ragged
-    ones; the recurrences also in the other CTA shapes they are built
-    for (8 units, clusters of 1 and 2), and twice with the same
-    bits."""
+    ones; the recurrences twice, with the same bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     for T, B, F, H in ((20, 32, 6919, 512), (1, 64, 6919, 512),
                        (5, 128, 33, 512), (7, 3, 130, 100),
@@ -252,91 +250,72 @@ def test_cuda_kernels_match_plain(cuda_device):
         assert (out - xg).abs().max() <= 1e-4 * xg.abs().max()
         xg = xg.reshape(T, B, 4 * H)
         ref = L.lstm_fwd_plain(xg, a["wh"], mask, a["h0"], a["c0"])
-        out = L.lstm_fwd(xg, a["wh"], mask, a["h0"], a["c0"])
+        fargs = (xg, a["wh"], mask, a["h0"], a["c0"])
+        out = L.lstm_fwd(*fargs)
+        assert all(torch.equal(o, p) for o, p in zip(out, L.lstm_fwd(*fargs)))
         for o, r in zip(out, ref):
             assert (o - r).abs().max() <= 1e-4 * r.abs().max()
         dy = torch.randn((T, B, H), device=cuda_device)
         dcT = torch.randn((B, H), device=cuda_device)
         args = (ref[1], ref[2], a["c0"], mask, a["wh"], dy, dcT)
         want = L.lstm_bwd_plain(*args)
-        for o, r in zip(L.lstm_bwd(*args), want):
+        out = L.lstm_bwd(*args)
+        assert all(torch.equal(o, p) for o, p in zip(out, L.lstm_bwd(*args)))
+        for o, r in zip(out, want):
             assert (o - r).abs().max() <= 1e-3 * r.abs().max()
-        fargs = (xg, a["wh"], mask, a["h0"], a["c0"])
-        for units, cluster in ((8, 2), (4, 1), (8, 1)):
-            out = L.recurrence_fwd(*fargs, units, cluster)
-            assert all(torch.equal(o, p) for o, p in zip(
-                out, L.recurrence_fwd(*fargs, units, cluster)))
-            for o, r in zip(out, ref):
-                assert (o - r).abs().max() <= 1e-4 * r.abs().max()
-            out = L.recurrence_bwd(*args, units, cluster)
-            assert all(torch.equal(o, p) for o, p in zip(
-                out, L.recurrence_bwd(*args, units, cluster)))
-            for o, r in zip(out, want):
-                assert (o - r).abs().max() <= 1e-3 * r.abs().max()
 
 
 @pytest.mark.parametrize("B,H", [(32, 512), (64, 512), (128, 512), (3, 100),
-                                 (37, 102), (5, 102), (1, 8)])
-@pytest.mark.parametrize("units", [None, 8])
-def test_recurrence_plan_covers_units(B, H, units):
+                                 (37, 102), (5, 102), (1, 8), (64, 528),
+                                 (1, 1), (128, 100)])
+def test_recurrence_plan_covers_units(B, H):
     """The recurrences' plan on 132 SMs: every hidden unit owned by
-    exactly one CTA (CTA j owns [units * j, units * j + units)), no
+    exactly one CTA (CTA j owns [UNITS * j, UNITS * j + UNITS)), no
     cluster without a live unit, whole clusters, at most 132 CTAs (one
     resident on each SM), shared memory within the 232,448 bytes a CTA
     can have on sm_90, h staged in whole 32-row blocks; at R2D1's shapes
-    (H = 512, B = 32 or 64) 128 CTAs of 4 units stage all of h at once."""
-    plan = L.recurrence_plan(B, H, 132, units)
-    owners = [j for j in range(plan.ctas) for _ in range(plan.units)]
+    (H = 512, B = 32 or 64) 128 CTAs of 4 units stage all of h at once.
+    K3's warps take k in blocks of 4 (warp w: 4w, 4w + 32, ...): each k
+    below H, rounded up to 4, exactly once."""
+    plan = L.recurrence_plan(B, H, 132)
+    owners = [j for j in range(plan.ctas) for _ in range(L.UNITS)]
     assert len(owners[:H]) == H and owners[:H] == sorted(owners[:H])
-    assert plan.ctas * plan.units >= H
-    assert (plan.ctas - plan.cluster) * plan.units < H
-    assert plan.ctas % plan.cluster == 0 and plan.cluster in (1, 2)
+    assert plan.ctas * L.UNITS >= H
+    assert (plan.ctas - L.CLUSTER) * L.UNITS < H
+    assert plan.ctas % L.CLUSTER == 0
     assert plan.ctas <= 132
     assert max(plan.fwd_smem, plan.bwd_smem) <= 232448
     assert plan.stage_rows % 32 == 0 and plan.stage_rows >= 32
-    if H == 512 and B <= 64 and units is None:
-        assert (plan.ctas, plan.units, plan.cluster) == (128, 4, 2)
+    if H == 512 and B <= 64:
+        assert (plan.ctas, L.UNITS, L.CLUSTER) == (128, 4, 2)
         assert plan.stage_rows >= B
+    hp = -(-H // 4) * 4
+    taken = sorted(k + kk for w in range(L.REC_WARPS)
+                   for k in range(4 * w, hp, 4 * L.REC_WARPS)
+                   for kk in range(4))
+    assert taken == list(range(hp))
 
 
-def fwd_warp_order(xg, wh, mask, h0, c0, units):
-    """K3's arithmetic in its order: the [B, 4U] tile of CTA j is summed
-    over 8 warp slices of k (warp w: k = 4w .. 4w+3 mod 32) in warp order,
-    then pre = m * sum + xg."""
-    T, B, H4 = xg.shape
-    H = H4 // 4
-    slices = [[k for k in range(H) if (k // 4) % 8 == w] for w in range(8)]
-    h, c = h0, c0
-    ys = []
-    for t in range(T):
-        m = mask[t][:, None]
-        part = [h[:, ks] @ wh[ks] for ks in slices]
-        total = part[0]
-        for p in part[1:]:
-            total = total + p
-        pre = m * total + xg[t]
-        i, f, g, o = (torch.sigmoid(pre[:, :H]),
-                      torch.sigmoid(pre[:, H:2 * H]),
-                      torch.tanh(pre[:, 2 * H:3 * H]),
-                      torch.sigmoid(pre[:, 3 * H:]))
-        c = f * (c * m) + i * g
-        h = o * torch.tanh(c)
-        ys.append(h)
-    return torch.stack(ys), h, c
+@pytest.mark.parametrize("B,H", [(32, 529), (64, 1024)])
+def test_recurrence_plan_refuses_more_ctas_than_sms(B, H):
+    """H above 4 units x 132 SMs would need CTAs that cannot all be
+    resident at once: the plan raises instead of launching them."""
+    with pytest.raises(ValueError, match="SMs"):
+        L.recurrence_plan(B, H, 132)
 
 
-def bwd_reduce_scatter(gates, cs, c0, mask, wh, dy, dcT, units, cluster):
+def bwd_reduce_scatter(gates, cs, c0, mask, wh, dy, dcT):
     """K4's arithmetic in its order: each cluster's partial carry over the
     gate columns of its CTAs, for every unit; warp w sums cluster
     partials w, w + 8, ... and the warps' sums are added in warp order;
     times mask[s+1]."""
     T, B, H = cs.shape
-    plan = L.recurrence_plan(B, H, 132, units, cluster)
-    per = plan.units * plan.cluster
+    plan = L.recurrence_plan(B, H, 132)
+    per = L.UNITS * L.CLUSTER
     cols = [torch.tensor([g * H + u for g in range(4)
                           for u in range(j * per, min(H, (j + 1) * per))],
                          dtype=torch.long)
-            for j in range(plan.ctas // plan.cluster)]
+            for j in range(plan.ctas // L.CLUSTER)]
     dc = dcT
     dgs = [None] * T
     for s in range(T - 1, -2, -1):
@@ -381,20 +360,7 @@ def recurrence_inputs(seed, T, B, H):
 
 
 @pytest.mark.parametrize("T,B,H", ORDER_SHAPES)
-def test_fwd_warp_order_matches_plain(T, B, H):
-    """K3's sum over warp slices of k covers every k once: its result
-    equals lstm_fwd_plain to 1e-6 of the largest value (float32)."""
-    a, mask, xg = recurrence_inputs(9, T, B, H)
-    wh = a["wh"] / np.sqrt(H)
-    y, hT, cT = fwd_warp_order(xg, wh, mask, a["h0"], a["c0"], 4)
-    ref = L.lstm_fwd_plain(xg, wh, mask, a["h0"], a["c0"])
-    for got, want in ((y, ref[0]), (hT, ref[3]), (cT, ref[4])):
-        assert (got - want).abs().max() <= 1e-6 * want.abs().max()
-
-
-@pytest.mark.parametrize("units,cluster", [(4, 1), (4, 2), (8, 1), (8, 2)])
-@pytest.mark.parametrize("T,B,H", ORDER_SHAPES)
-def test_bwd_reduce_scatter_matches_plain(T, B, H, units, cluster):
+def test_bwd_reduce_scatter_matches_plain(T, B, H):
     """K4's reduce-scatter (partials by the clusters' gate columns, summed
     over clusters by warps) equals lstm_bwd_plain, which
     forms dgates @ W_h^T in one product, to 1e-6 of the largest value
@@ -405,8 +371,7 @@ def test_bwd_reduce_scatter_matches_plain(T, B, H, units, cluster):
     rng = np.random.default_rng(11)
     dy = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32))
     dcT = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
-    got = bwd_reduce_scatter(gates, cs, a["c0"], mask, wh, dy, dcT, units,
-                             cluster)
+    got = bwd_reduce_scatter(gates, cs, a["c0"], mask, wh, dy, dcT)
     want = L.lstm_bwd_plain(gates, cs, a["c0"], mask, wh, dy, dcT)
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-6 * w.abs().max()
