@@ -6,15 +6,19 @@
     python3 bench_torch_profile.py --r2d1    # Atari-geometry R2D1
     python3 bench_torch_profile.py --ernbw   # Atari "ernbw" (C51, dueling,
                                              # prioritized replay, n-step 3)
+    python3 bench_torch_profile.py --minatar # MinAtar-Breakout DQN of
+                                             # bench.py (B=8192, flat replay)
 
-Builds the trainer of chip_smoke.py (full width, bf16), warms it up
-(DQN and ernbw: two iterations; R2D1: three, the third being the first
-with updates), then measures:
+Builds the trainer of chip_smoke.py (full width; the Atari trainers in
+bf16, MinAtar in fp32), warms it up (DQN, ernbw and MinAtar: two
+iterations, MinAtar after its 100 decorrelation steps; R2D1: three, the
+third being the first with updates), then measures:
   - host wall time of one iteration split into collect and optimize,
     each ended by a device sync (median of 3);
   - host wall time per replay sample (DQN and ernbw: sample_idxs +
     extract_batch, including the frame-gather kernel, for ernbw also
-    the prioritized draw; R2D1: sample_idxs + extract_window) and per
+    the prioritized draw; MinAtar: the same on flat rows, no kernel;
+    R2D1: sample_idxs + extract_window) and per
     gradient update (R2D1 and ernbw: including the priority write-back);
   - a torch.profiler trace of one iteration: device busy time (sum of
     kernel, copy and set times), the idle share of the iteration's wall
@@ -22,6 +26,7 @@ with updates), then measures:
     top device operations by time.
 Prints one JSON line; the profiler table goes to
 chiprun_out/profile_table[_r2d1|_ernbw].txt.  Needs a CUDA device.
+With --minatar the table is profile_table_minatar.txt, beside them.
 """
 from __future__ import annotations
 
@@ -55,7 +60,10 @@ def main():
     dev = torch.device("cuda")
     r2d1 = "--r2d1" in sys.argv[1:]
     ernbw = "--ernbw" in sys.argv[1:]
-    if r2d1:
+    if "--minatar" in sys.argv[1:]:
+        runner = cs.build_minatar_runner(dev, n_itr=10)
+        steps, warmup, suffix = cs.MINATAR_T * cs.MINATAR_B, 2, "_minatar"
+    elif r2d1:
         runner = cs.build_r2d1_runner(dev, n_itr=20)
         steps, warmup, suffix = cs.R2D1_T * cs.R2D1_B, 3, "_r2d1"
     elif ernbw:

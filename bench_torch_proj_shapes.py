@@ -12,6 +12,11 @@ shared-memory stage.  Every time is a device time: 20 launches captured
 in one CUDA graph and replayed five times between two events, after the
 card's clocks have been brought up (a card left idle reads 20 % slow).
 
+Beside each shape's times stands its bound, as chip_smoke.py reckons
+K3a's: the larger of its bytes (x, W_x, b and y, each moved once) at the
+HBM rate and its operations (2 M F 4H) done as three TF32 tensor-core
+products; the fp32 pipes' time for the operations is printed beside it.
+
 It prints one line for each shape, the card's name and power limit, and
 one JSON line with every number.  Needs one CUDA device.
 """
@@ -24,12 +29,23 @@ import time
 
 import torch
 
+from chip_smoke import FP32_OPS_PER_S, HBM_BYTES_PER_S, TF32_OPS_PER_S
 from rlpyt_tpu_torch.ops import lstm as L
 from rlpyt_tpu_torch.utils.cuda_timing import graph_ms
 
 F, N4H = 6919, 2048
 ROWS = (64, 640, 1440)
 DEPTHS = (256, 1024, 2048, 4096, 6919, 13838)
+
+
+def bound(M: int, K: int = F) -> dict:
+    """K3a's bound at M rows and depth K, in ms."""
+    ops = 2 * M * K * N4H
+    t_bytes = 4 * (M * K + K * N4H + N4H + M * N4H) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * ops / TF32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ffma_ms": max(ops / FP32_OPS_PER_S * 1e3, t_bytes)}
 
 
 def main():
@@ -57,12 +73,16 @@ def main():
         plan = L.proj_plan(M, N4H, K, n_sm)
         return {"plan": plan,
                 "ms": graph_ms([lambda: L.input_proj(x, w, b)] * 20),
-                "addmm_ms": graph_ms([lambda: torch.addmm(b, x, w)] * 20)}
+                "addmm_ms": graph_ms([lambda: torch.addmm(b, x, w)] * 20),
+                **bound(M, K)}
 
     by_rows = {M: device_ms(M, F) for M in ROWS}
     for M, r in by_rows.items():
         print(f"M={M}: kernel {r['ms']:.4f} ms, addmm {r['addmm_ms']:.4f} ms "
-              f"(tile rows, K chunk, splits: {r['plan']})")
+              f"(tile rows, K chunk, splits: {r['plan']}); bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} (fp32 pipes: "
+              f"{r['bound_ffma_ms']:.4f} ms), kernel "
+              f"{r['ms'] / r['bound_ms']:.2f} x the bound")
     by_depth = {M: {K: device_ms(M, K) for K in DEPTHS} for M in (64, 1440)}
     for M, row in by_depth.items():
         print(f"M={M}, kernel by K: " + "  ".join(

@@ -53,7 +53,19 @@ Phases, each fatal on failure:
      at the flagship's geometry) for a few iterations through
      MinibatchRl, check finite losses and priorities, priorities > 0 on
      every written row, importance weights in (0, 1], one frame-gather
-     launch per update, and a prioritized batch against the CPU path.
+     launch per update, and a prioritized batch against the CPU path;
+ 11. the MinAtar-Breakout flagship of bench.py:44-58, on flat replay:
+     (a) each of the five MinAtar games steps 8192 lanes for 64 steps on
+     the card and on the CPU from the same draws and actions (made once on
+     a CPU generator; resets after every done, sticky actions, spawns, a
+     time limit of 40 so that truncations happen) and must give equal
+     observations, rewards, dones and timeouts, bit for bit; (b) trains
+     the flagship (full width, B=8192, T=32, update batch 8192, replay 4M,
+     replay ratio 1, n-step 3, double DQN) for 3 iterations through
+     MinibatchRl after its 100 decorrelation steps: finite losses, replay
+     ratio 1, no frame-gather launch; (c) a flat uniform batch of the
+     trained ring and a flat prioritized batch (its rows refilled from
+     that ring, priorities scattered) equal the CPU path's bit for bit.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -92,6 +104,10 @@ LSTM_F, LSTM_H = 6919, 512   # R2D1's LSTM input (conv 6912 + 6 + 1), size
 R2D1_ITR = 6                 # R2D1 iterations; updates start in the third
 R2D1_B, R2D1_T = 64, 40      # R2D1 env lanes and steps per iteration
 ERNBW_ITR = 3                # "ernbw" iterations, 128 updates each
+MINATAR_ITR = 3              # MinAtar iterations, 32 updates each
+MINATAR_B, MINATAR_T = 8192, 32   # bench.py's MinAtar lanes and steps
+MINATAR_MODEL = dict(channels=(16,), kernel_sizes=(3,), strides=(1,),
+                     paddings=(0,), fc_sizes=(128,))
 
 
 def fail(msg: str):
@@ -482,10 +498,12 @@ def build_flagship_runner(dev, n_itr: int, logger=None):
     algo = DQN(discount=0.99, batch_size=256, min_steps_learn=0,
                replay_size=200_000, replay_ratio=8.0,
                target_update_interval=2_500, learning_rate=2.5e-4,
-               double_dqn=True, n_step_return=1, frames_per_obs=4)
+               double_dqn=True, n_step_return=1, frame_buffer=True,
+               frames_per_obs=4)
     return MinibatchRl(algo, agent, SyntheticAtariEnv(dev),
                        BatchSpec(T=T, B=B), n_steps=n_itr * T * B, seed=0,
-                       log_interval_steps=T * B, logger=logger, device=dev)
+                       log_interval_steps=T * B, max_decorrelation_steps=0,
+                       logger=logger, device=dev)
 
 
 def row_logger():
@@ -558,8 +576,8 @@ def build_r2d1_runner(dev, n_itr: int, logger=None):
     return MinibatchRl(algo, agent, SyntheticAtariEnv(dev),
                        BatchSpec(T=R2D1_T, B=R2D1_B),
                        n_steps=n_itr * R2D1_T * R2D1_B, seed=0,
-                       log_interval_steps=R2D1_T * R2D1_B, logger=logger,
-                       device=dev)
+                       log_interval_steps=R2D1_T * R2D1_B,
+                       max_decorrelation_steps=0, logger=logger, device=dev)
 
 
 def run_r2d1(L, dev):
@@ -755,10 +773,12 @@ def build_ernbw_runner(dev, n_itr: int, logger=None):
         discount=0.99, batch_size=256, min_steps_learn=0,
         replay_size=200_000, replay_ratio=8.0, target_update_interval=2_500,
         learning_rate=6.25e-5, double_dqn=True, prioritized_replay=True,
-        pri_alpha=0.5, pri_beta=0.4, n_step_return=3, frames_per_obs=4)
+        pri_alpha=0.5, pri_beta=0.4, n_step_return=3, frame_buffer=True,
+        frames_per_obs=4)
     return MinibatchRl(algo, agent, SyntheticAtariEnv(dev),
                        BatchSpec(T=T, B=B), n_steps=n_itr * T * B, seed=0,
-                       log_interval_steps=T * B, logger=logger, device=dev)
+                       log_interval_steps=T * B, max_decorrelation_steps=0,
+                       logger=logger, device=dev)
 
 
 def run_ernbw(fg, dev):
@@ -860,6 +880,140 @@ def check_prioritized_against_cpu(runner, dev):
           f"draws inside their strata; weights in [{float(w.min()):.4f}, "
           f"{float(w.max()):.4f}]; {same} of {batch} indices equal the CPU's "
           "float32 draws")
+
+
+def check_minatar_envs(dev):
+    """Phase 11a: every MinAtar game, card against CPU, bit for bit, from
+    one set of draws and actions made on a CPU generator.  Lanes reset
+    after every done, as the collector does; a time limit of 40 makes
+    truncations happen within the 64 steps."""
+    from rlpyt_tpu_torch.envs.minatar import MINATAR_ENVS
+    from rlpyt_tpu_torch.struct import tree_select
+
+    B, n_steps, max_steps = MINATAR_B, 64, 40
+    for name, cls in MINATAR_ENVS.items():
+        envs = [cls(max_steps=max_steps, device=d) for d in ("cpu", dev)]
+        g = torch.Generator().manual_seed(11)
+        resets = [envs[0].draw_reset(B, g) for _ in range(n_steps + 1)]
+        steps = [envs[0].draw_step(B, g) for _ in range(n_steps)]
+        actions = torch.randint(0, 6, (n_steps, B), generator=g)
+        states = [env.reset_batch(B, draws=resets[0])[0] for env in envs]
+        totals = torch.zeros(3, dtype=torch.float64)
+        for i in range(n_steps):
+            outs = []
+            for k, env in enumerate(envs):
+                s, st = env.step_batch(states[k], actions[i].to(env.device),
+                                       draws=steps[i])
+                reset_state, _ = env.reset_batch(B, draws=resets[i + 1])
+                states[k] = tree_select(st.done, reset_state, s)
+                outs.append((st.observation, st.reward, st.done,
+                             st.info["timeout"]))
+            for field, want, got in zip(
+                    ("observation", "reward", "done", "timeout"), *outs):
+                if not torch.equal(got.cpu(), want):
+                    fail(f"minatar {name}: {field} differs between card "
+                         f"and CPU at step {i}")
+            totals += torch.stack([outs[0][2].sum(), outs[0][3].sum(),
+                                   outs[0][1].sum()]).double()
+        done, timeout, reward = totals.tolist()
+        print(f"phase 11a: minatar {name} B={B} {n_steps} steps equal on "
+              f"card and CPU: {done:.0f} dones ({timeout:.0f} time limits), "
+              f"reward {reward:.0f}")
+
+
+def build_minatar_runner(dev, n_itr: int, logger=None):
+    """The MinAtar-Breakout DQN flagship of bench.py:44-58: one 3x3 conv
+    of 16 and fc 128, fp32, eps to 0.1 over 250k steps; B=8192, T=32,
+    update batch 8192, flat uniform replay of 4M, replay ratio 1 (32
+    updates an iteration), target update every 500, lr 3e-4, double DQN,
+    n-step 3; 100 decorrelation steps.  One iteration per log row."""
+    from rlpyt_tpu_torch.agents.dqn import DqnAgent
+    from rlpyt_tpu_torch.algos.dqn import DQN
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    agent = DqnAgent(model_kwargs=MINATAR_MODEL, eps_steps=250_000,
+                     eps_final=0.1, device=dev)
+    algo = DQN(discount=0.99, batch_size=8192, min_steps_learn=0,
+               replay_size=4_000_000, replay_ratio=1.0,
+               target_update_interval=500, learning_rate=3e-4,
+               double_dqn=True, n_step_return=3)
+    steps = MINATAR_T * MINATAR_B
+    return MinibatchRl(algo, agent, Breakout(device=dev),
+                       BatchSpec(T=MINATAR_T, B=MINATAR_B),
+                       n_steps=n_itr * steps, seed=0,
+                       log_interval_steps=steps, max_decorrelation_steps=100,
+                       logger=logger, device=dev)
+
+
+def run_minatar(fg, dev):
+    """Phase 11b: the MinAtar flagship through MinibatchRl, on flat
+    replay: the frame gather must not run."""
+    from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
+
+    logger = row_logger()
+    runner = build_minatar_runner(dev, MINATAR_ITR, logger)
+    algo = runner.algo
+    zero_launches()
+    runner.train()
+    torch.cuda.synchronize()
+    if type(algo.replay) is not UniformReplayBuffer:
+        fail(f"minatar: replay is {type(algo.replay).__name__}, not flat")
+    if fg.gather_frame_stacks.launches != 0:
+        fail("minatar: flat replay launched the frame-gather kernel")
+    updates = algo.update_counter
+    if updates != MINATAR_ITR * algo.updates_per_optimize:
+        fail(f"minatar ran {updates} updates, expected "
+             f"{MINATAR_ITR * algo.updates_per_optimize}")
+    for row in logger.rows:
+        for key in ("loss", "grad_norm", "td_abs_err", "StepsPerSecond"):
+            if not math.isfinite(row[key]):
+                fail(f"minatar: non-finite {key} in iteration "
+                     f"{row['Iteration']}")
+        if row["ReplayRatio"] != 1.0:
+            fail(f"minatar: replay ratio {row['ReplayRatio']}, not 1")
+    for r in logger.rows:
+        print(f"minatar itr {r['Iteration']}: loss {r['loss']:.6g} "
+              f"grad_norm {r['grad_norm']:.6g} "
+              f"td_abs_err {r['td_abs_err']:.6g} "
+              f"StepsPerSecond {r['StepsPerSecond']:.1f} "
+              f"UpdatesPerSecond {r['UpdatesPerSecond']:.1f} "
+              f"ReplayRatio {r['ReplayRatio']}")
+    return runner, [r["StepsPerSecond"] for r in logger.rows]
+
+
+def check_flat_prioritized_against_cpu(runner, dev):
+    """Phase 11c, prioritized: a flat prioritized ring of 4 iterations'
+    rows, filled with 5 of the trained ring's blocks (so its cursor has
+    wrapped) and with priorities written back at random rows, against
+    the CPU path as in phase 10."""
+    from types import SimpleNamespace
+
+    from rlpyt_tpu_torch.replay.base import SamplesToBuffer
+    from rlpyt_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+
+    src = runner.algo.replay
+    T_, B_ = src.sample_T, src.B
+    pri = PrioritizedReplayBuffer(size=4 * T_ * B_, B=B_, sample_T=T_,
+                                  discount=src.discount,
+                                  n_step_return=src.n_step, alpha=0.6,
+                                  beta=0.4, device=dev)
+    pri.init(SamplesToBuffer(*(x[0, 0] for x in src.data))._replace(
+        observation=src.data.observation[0, 0].view(
+            src._obs_shapes)))
+    n_blocks = src.filled_t // T_
+    for k in range(5):
+        t0 = (k % n_blocks) * T_
+        pri.append(SamplesToBuffer(*(x[t0:t0 + T_] for x in src.data)))
+    g = torch.Generator(device=dev).manual_seed(5)
+    n = 4 * B_
+    rows = (torch.randint(0, pri.size_T, (n,), generator=g, device=dev),
+            torch.randint(0, B_, (n,), generator=g, device=dev))
+    pri.update_priorities(rows, 4 * torch.rand((n,), generator=g,
+                                               device=dev))
+    check_prioritized_against_cpu(
+        SimpleNamespace(algo=SimpleNamespace(replay=pri)), dev)
 
 
 def build_kernels():
@@ -1038,6 +1192,19 @@ def main():
           f"{ernbw_launches} gather launches, median steady env-steps/s "
           f"{steady:.1f} (per iteration: {[round(s, 1) for s in sps]})")
     check_prioritized_against_cpu(runner, dev)
+    del runner
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    check_minatar_envs(dev)
+    runner, sps = run_minatar(fg, dev)
+    print(f"phase 11b: minatar trainer {MINATAR_ITR} iterations after 100 "
+          f"decorrelation steps, {runner.algo.update_counter} updates, 0 "
+          f"gather launches, env-steps/s per iteration "
+          f"{[round(s, 1) for s in sps]}")
+    check_replay_against_cpu(runner, dev)
+    check_flat_prioritized_against_cpu(runner, dev)
+    print(f"phase 11: {time.time() - t0:.1f} s")
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

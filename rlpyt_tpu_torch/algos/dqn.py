@@ -1,5 +1,6 @@
-"""DQN (port of rlpyt_tpu/algos/dqn.py) on frame-compressed replay,
-uniform or prioritized.
+"""DQN (port of rlpyt_tpu/algos/dqn.py) on uniform or prioritized
+replay of flat observations or, with ``frame_buffer=True``, of
+frame-compressed stacks.
 
 Per iteration: append the [T, B] batch to replay, then, once
 ``min_steps_learn`` env steps have been taken, ``updates_per_optimize``
@@ -20,6 +21,8 @@ from rlpyt_tpu_torch.replay.frame import (
     PrioritizedFrameReplayBuffer,
     UniformFrameReplayBuffer,
 )
+from rlpyt_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
+from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
 from rlpyt_tpu_torch.struct import select_at_indexes, valid_mean
 
 
@@ -47,6 +50,7 @@ class DQN(RlAlgorithm):
         prioritized_replay: bool = False,
         pri_alpha: float = 0.6,
         pri_beta: float = 0.4,
+        frame_buffer: bool = False,
         frames_per_obs: int = 4,
     ):
         self.discount = discount
@@ -64,11 +68,13 @@ class DQN(RlAlgorithm):
         self.prioritized_replay = prioritized_replay
         self.pri_alpha = pri_alpha
         self.pri_beta = pri_beta
+        self.frame_buffer = frame_buffer
         self.frames_per_obs = frames_per_obs
 
     def initialize(self, agent, batch_spec, example_obs, generator):
         """Target network, optimizer and replay.  ``example_obs``: one
-        [B, K, H, W] batch of observations."""
+        [B, ...] batch of observations ([B, K, H, W] frame stacks under
+        ``frame_buffer``)."""
         self.agent = agent
         self.model = agent.model
         self.target_model = copy.deepcopy(agent.model)
@@ -81,15 +87,21 @@ class DQN(RlAlgorithm):
             self.model.parameters(), lr=self.learning_rate,
             eps=0.01 / self.batch_size)
         self.update_counter = 0
+        # The reference's table: (uniform | prioritized) x (flat | frame).
         kwargs = dict(size=self.replay_size, B=batch_spec.B,
                       sample_T=batch_spec.T, discount=self.discount,
-                      n_step_return=self.n_step,
-                      frames_per_obs=self.frames_per_obs, device=agent.device)
+                      n_step_return=self.n_step, device=agent.device)
         if self.prioritized_replay:
-            self.replay = PrioritizedFrameReplayBuffer(
-                alpha=self.pri_alpha, beta=self.pri_beta, **kwargs)
+            kwargs.update(alpha=self.pri_alpha, beta=self.pri_beta)
+        if self.frame_buffer:
+            kwargs.update(frames_per_obs=self.frames_per_obs)
+            ReplayCls = (PrioritizedFrameReplayBuffer
+                         if self.prioritized_replay
+                         else UniformFrameReplayBuffer)
         else:
-            self.replay = UniformFrameReplayBuffer(**kwargs)
+            ReplayCls = (PrioritizedReplayBuffer if self.prioritized_replay
+                         else UniformReplayBuffer)
+        self.replay = ReplayCls(**kwargs)
         space = agent.env_spaces.action
         dev = agent.device
         self.replay.init(SamplesToBuffer(

@@ -3,7 +3,7 @@
 The JAX package writes a single-env pure function and vmaps it; here an
 env is written directly on batched tensors: ``reset_batch`` and
 ``step_batch`` act on a [B] state held on the env's device.  Randomness
-comes from an explicit ``torch.Generator`` on that device.
+comes from an explicit ``torch.Generator``, passed to both.
 """
 from __future__ import annotations
 
@@ -47,6 +47,8 @@ class Env:
         """Fresh state and observation for ``n`` lanes."""
         raise NotImplementedError
 
-    def step_batch(self, state, action: torch.Tensor
-                   ) -> Tuple[Any, EnvStep]:
+    def step_batch(self, state, action: torch.Tensor,
+                   generator: torch.Generator) -> Tuple[Any, EnvStep]:
+        """One step of every lane; a stochastic env draws from
+        ``generator``."""
         raise NotImplementedError

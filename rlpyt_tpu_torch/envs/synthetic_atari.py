@@ -57,7 +57,8 @@ class SyntheticAtariEnv(Env):
                            device=generator.device).to(self.device) * EP_LEN
         return State(t0), self.stack_at(t0)
 
-    def step_batch(self, state, action):
+    def step_batch(self, state, action, generator=None):
+        """Deterministic: draws nothing from ``generator``."""
         t = state.t + 1
         reward = (action == t % N_ACTIONS).to(torch.float32)
         done = t % EP_LEN == 0

@@ -3,7 +3,8 @@
 The ring is a tree of [size_T, B, ...] tensors on ``device``, with
 ``size_T`` rounded up to a multiple of the sampler's T so that every
 insert is one aligned slice write.  Observation leaves are stored with
-their feature dims flattened to rows.
+their feature dims flattened to rows, and restored to their stored
+shape at sample.
 
 The JAX buffer is a pure function of an immutable ``ReplayState``; here
 the buffer object owns its ring and cursor and ``append`` writes in
@@ -66,6 +67,8 @@ class BaseReplayBuffer:
 
     def init(self, example: SamplesToBuffer):
         """Allocate the ring from one single-step example (no lead dims)."""
+        self._obs_shapes = tree_map(lambda o: tuple(o.shape),
+                                    example.observation)
         example = example._replace(
             observation=self._flatten_obs(example.observation, lead=0))
         self.data = buffer_from_example(example, (self.size_T, self.B),
@@ -109,9 +112,19 @@ class BaseReplayBuffer:
                               device=dev)
         return t_idx.to(self.device), b_idx.to(self.device)
 
+    def _obs_at(self, t_idx, b_idx, k: int):
+        """Observation rows at t + k, in their stored shape."""
+        rows = (t_idx + k) % self.size_T
+        return tree_map(
+            lambda leaf, shape: leaf[rows, b_idx].reshape(
+                tuple(t_idx.shape) + shape),
+            self.data.observation, self._obs_shapes)
+
     def _obs_pair_at(self, t_idx, b_idx):
-        """(obs at t, obs at t + n_step) for the sampled rows."""
-        raise NotImplementedError
+        """(obs at t, obs at t + n_step) for the sampled rows; the frame
+        buffers override it to serve both from one gather."""
+        return (self._obs_at(t_idx, b_idx, 0),
+                self._obs_at(t_idx, b_idx, self.n_step))
 
     def extract_batch(self, t_idx: torch.Tensor, b_idx: torch.Tensor,
                       is_weights: Optional[torch.Tensor] = None

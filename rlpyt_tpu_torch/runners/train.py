@@ -1,5 +1,5 @@
 """Training runner (port of rlpyt_tpu/runners/train.py:MinibatchRl:
-startup, train, one log interval).
+startup with start-state decorrelation, train, one log interval).
 
 The JAX runner compiles a whole log interval into one device program.
 Here the loop runs on the host and launches work on the device; values
@@ -28,6 +28,7 @@ class MinibatchRl:
     def __init__(self, algo, agent, env, batch_spec: BatchSpec,
                  n_steps: int, seed: int = 0,
                  log_interval_steps: int = int(1e5),
+                 max_decorrelation_steps: int = 100,
                  logger: Optional[TabularLogger] = None, device="cuda"):
         self.algo = algo
         self.agent = agent
@@ -36,12 +37,14 @@ class MinibatchRl:
         self.n_steps = int(n_steps)
         self.seed = seed
         self.log_interval_steps = int(log_interval_steps)
+        self.max_decorrelation_steps = int(max_decorrelation_steps)
         self.logger = logger or TabularLogger(None)
         self.device = torch.device(device)
         self._last_traj_vals = None
 
     def startup(self):
-        """Seed, build the model, collector and algorithm state."""
+        """Seed, build the model, collector and algorithm state, then
+        decorrelate the lanes' start states."""
         torch.manual_seed(self.seed)   # model weights, drawn on the CPU
         gens = [torch.Generator(device=self.device).manual_seed(self.seed + i)
                 for i in range(2)]
@@ -55,6 +58,9 @@ class MinibatchRl:
             1, self.log_interval_steps // self.batch_spec.size)
         self.algo.initialize(self.agent, self.batch_spec,
                              self.rollout_state.observation, algo_generator)
+        self.rollout_state = self.collector.decorrelate(
+            self.rollout_state, self.max_decorrelation_steps,
+            self.env_generator)
 
     def run_interval(self):
         """``itrs_per_interval`` iterations; returns (list of OptInfo,

@@ -1,5 +1,5 @@
 """Lockstep collector (port of rlpyt_tpu/samplers/rollout.py: BatchSpec,
-Samples, TrajStats, RolloutState, Collector.collect).
+Samples, TrajStats, RolloutState, Collector.collect and decorrelate).
 
 B envs step together on the device; the JAX ``lax.scan`` over T is a
 Python loop here, writing each step into preallocated [T, B] buffers.
@@ -10,7 +10,7 @@ recurrent carry (None for a feedforward agent) is zeroed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -103,26 +103,70 @@ class Collector:
     def reset_traj_stats(self, state: RolloutState) -> RolloutState:
         return state._replace(traj_stats=TrajStats.zeros(self.device))
 
-    def collect(self, state: RolloutState, generator: torch.Generator
-                ) -> Tuple[RolloutState, Samples]:
-        """Collect one [T, B] batch."""
+    def decorrelate(self, state: RolloutState, max_steps: int,
+                    generator: torch.Generator,
+                    draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> RolloutState:
+        """Random-action start-state decorrelation (rlpyt's
+        DecorrelatingStartCollector): lane b takes ``n_steps[b]`` uniform
+        random steps, ``n_steps`` uniform in [0, max_steps), resetting
+        when done.  Every lane runs all ``max_steps`` iterations and keeps
+        the result only while active, so the loop costs no device sync.
+        ``draws`` = (n_steps [B], actions [max_steps, B]) replaces the
+        draws of the step counts and actions."""
+        if max_steps <= 0:
+            return state
+        B = self.batch_spec.B
+        space = self.env.spaces.action
+        if draws is None:
+            n_steps = torch.randint(0, max_steps, (B,), generator=generator,
+                                    device=generator.device)
+        else:
+            n_steps, actions = draws
+        n_steps = n_steps.to(self.device)
+        env_state, obs = state.env_state, state.observation
+        prev_a, prev_r = state.prev_action, state.prev_reward
+        for i in range(max_steps):
+            action = (space.sample(generator, (B,)) if draws is None
+                      else actions[i]).to(self.device)
+            new_state, env_step = self.env.step_batch(env_state, action,
+                                                      generator)
+            reset_state, reset_obs = self.env.reset_batch(B, generator)
+            done = env_step.done
+            new_state = tree_select(done, reset_state, new_state)
+            new_obs = tree_select(done, reset_obs, env_step.observation)
+            active = i < n_steps
+            env_state = tree_select(active, new_state, env_state)
+            obs = tree_select(active, new_obs, obs)
+            new_a = tree_select(done, torch.zeros_like(action), action)
+            prev_a = tree_select(active, new_a, prev_a)
+            prev_r = torch.where(
+                active, torch.where(done, 0.0, env_step.reward), prev_r)
+        return state._replace(env_state=env_state, observation=obs,
+                              prev_action=prev_a, prev_reward=prev_r)
+
+    def collect(self, state: RolloutState, generator: torch.Generator,
+                is_eval: bool = False) -> Tuple[RolloutState, Samples]:
+        """Collect one [T, B] batch; ``is_eval``: the agent acts with its
+        evaluation epsilon."""
         T = self.batch_spec.T
         buf = None
         for t in range(T):
-            state, out = self._step(state, generator)
+            state, out = self._step(state, generator, is_eval)
             if buf is None:
                 buf = buffer_from_example(out, (T,), self.device)
             tree_map(lambda b, x: b[t].copy_(x), buf, out)
         return state, buf
 
-    def _step(self, carry: RolloutState, generator: torch.Generator
-              ) -> Tuple[RolloutState, Samples]:
+    def _step(self, carry: RolloutState, generator: torch.Generator,
+              is_eval: bool = False) -> Tuple[RolloutState, Samples]:
         B = self.batch_spec.B
         agent_step, agent_carry = self.agent.step(
             carry.observation, carry.prev_action, carry.prev_reward,
-            carry.agent_carry, carry.cum_steps, generator)
+            carry.agent_carry, carry.cum_steps, generator, is_eval=is_eval)
         action = agent_step.action
-        env_state, env_step = self.env.step_batch(carry.env_state, action)
+        env_state, env_step = self.env.step_batch(carry.env_state, action,
+                                                  generator)
         reward = env_step.reward.to(torch.float32)
         done = env_step.done
         out = Samples(carry.observation, action, reward, done,

@@ -22,6 +22,15 @@ class IntBox:
     def n(self) -> int:
         return self.high - self.low
 
+    def sample(self, generator: torch.Generator,
+               batch_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Uniform draws of shape ``batch_shape + shape`` on the
+        generator's device."""
+        return torch.randint(self.low, self.high,
+                             tuple(batch_shape) + self.shape,
+                             generator=generator, device=generator.device,
+                             dtype=self.dtype)
+
     def null_value(self, device="cuda") -> torch.Tensor:
         """The zero element used to prefill buffers (prev_action at reset)."""
         return torch.zeros(self.shape, dtype=self.dtype, device=device)

@@ -283,7 +283,7 @@ def cat_sides(b, clip, double_dqn, dueling):
     # The algorithm's own defaults differ from the agent's support: the
     # agent's must win.
     algo = CategoricalDQN(replay_size=64, v_min=-10.0, v_max=10.0,
-                          n_atoms=51, **kw)
+                          n_atoms=51, frame_buffer=True, **kw)
     algo.initialize(tagent, BatchSpec(T=8, B=2),
                     torch.zeros((2, K, H, W), dtype=torch.uint8),
                     torch.Generator().manual_seed(0))
@@ -385,7 +385,7 @@ def test_per_dqn_loss_weights_and_write_back_match_jax():
     tagent.initialize(tspaces)
     kw = dict(ALGO_KW, double_dqn=True, clip_grad_norm=10.0)
     ref = jax_update(jagent, JaxDQN(frame_buffer=True, **kw), b, 10.0)
-    algo = DQN(replay_size=64, **kw)
+    algo = DQN(replay_size=64, frame_buffer=True, **kw)
     algo.initialize(tagent, BatchSpec(T=8, B=2),
                     torch.zeros((2, K, H, W), dtype=torch.uint8),
                     torch.Generator().manual_seed(0))
@@ -409,7 +409,7 @@ def test_per_dqn_loss_weights_and_write_back_match_jax():
 def test_uniform_dqn_writes_no_priorities():
     tagent = DqnAgent(model_kwargs=NARROW, device="cpu")
     tagent.initialize(env_spaces()[1])
-    algo = DQN(batch_size=BS, replay_size=64)
+    algo = DQN(batch_size=BS, replay_size=64, frame_buffer=True)
     algo.initialize(tagent, BatchSpec(T=8, B=2),
                     torch.zeros((2, K, H, W), dtype=torch.uint8),
                     torch.Generator().manual_seed(0))

@@ -88,6 +88,7 @@ def torch_side(ref, clip, target_update_interval=312, double_dqn=True,
                                IntBox(0, A)))
     algo = DQN(batch_size=BS, double_dqn=double_dqn, discount=0.9,
                clip_grad_norm=clip, learning_rate=LR, replay_size=64,
+               frame_buffer=True,
                target_update_interval=target_update_interval,
                target_update_tau=target_update_tau)
     algo.initialize(agent, BatchSpec(T=8, B=2),

@@ -1,5 +1,6 @@
-"""The PyTorch port, its chip smoke test and its bench_torch_* harnesses
-import nothing of JAX (jax, flax, optax) and nothing of the JAX package
+"""The PyTorch port, its chip smoke test, its bench_torch_* harnesses and
+its learning test (which runs where only PyTorch is installed) import
+nothing of JAX (jax, flax, optax) and nothing of the JAX package
 (rlpyt_tpu)."""
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rlpyt_tpu")
 PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py"]
-              + sorted(ROOT.glob("bench_torch_*.py")))
+              + sorted(ROOT.glob("bench_torch_*.py"))
+              + [ROOT / "tests" / "test_torch_minatar_learning.py"])
 
 
 def imported_modules(path: Path):
@@ -32,7 +34,9 @@ def test_port_file_imports_no_jax(path):
 def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("ops/frame_gather.py", "ops/union_gather.py",
-                 "replay/prioritized.py", "algos/cat_dqn.py"):
+                 "replay/prioritized.py", "algos/cat_dqn.py",
+                 "envs/minatar.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
+    assert "bench_torch_minatar.py" in names
     assert "chip_smoke.py" in names and len(names) > 20

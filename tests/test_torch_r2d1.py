@@ -592,7 +592,7 @@ def test_minibatch_rl_r2d1_smoke(tmp_path):
                 frame_compress=True)
     runner = MinibatchRl(algo, agent, SyntheticAtariEnv("cpu"),
                          BatchSpec(T_, B_), n_steps=5 * T_ * B_, seed=0,
-                         log_interval_steps=T_ * B_,
+                         log_interval_steps=T_ * B_, max_decorrelation_steps=0,
                          logger=TabularLogger(str(tmp_path)), device="cpu")
     runner.train()
     runner.logger.close()

@@ -45,7 +45,7 @@ NARROW = dict(channels=(8, 8, 8), fc_sizes=(32,))
 T, B = 8, 3
 ALGO_KW = dict(batch_size=T * B, min_steps_learn=T * B + 1,
                replay_size=T * B * 6, replay_ratio=1.0, n_step_return=3,
-               double_dqn=True, frames_per_obs=4)
+               double_dqn=True, frame_buffer=True, frames_per_obs=4)
 # The "ernbw" configuration, narrow: categorical, dueling, prioritized.
 ERNBW_AGENT = dict(model_kwargs=dict(NARROW, dueling=True), n_atoms=11,
                    v_min=-2.0, v_max=2.0)
@@ -77,11 +77,11 @@ def jax_setup(ernbw):
     if ernbw:
         agent = JaxCatDqnAgent(ModelCls=JaxAtariCatDqnModel, eps_init=0.0,
                                eps_final=0.0, **ERNBW_AGENT)
-        algo = JaxCategoricalDQN(frame_buffer=True, **ALGO_KW, **ERNBW_ALGO)
+        algo = JaxCategoricalDQN(**ALGO_KW, **ERNBW_ALGO)
     else:
         agent = JaxDqnAgent(ModelCls=JaxAtariDqnModel, model_kwargs=NARROW,
                             eps_init=0.0, eps_final=0.0)
-        algo = JaxDQN(frame_buffer=True, **ALGO_KW)
+        algo = JaxDQN(**ALGO_KW)
     agent.initialize(env.spaces)
     collector = JaxCollector(env, agent, JaxBatchSpec(T, B),
                              discount=algo.discount)
@@ -216,10 +216,11 @@ def test_collect_and_optimize_match_jax(ernbw):
 def test_minibatch_rl_smoke(tmp_path):
     agent = DqnAgent(model_kwargs=NARROW, eps_steps=1000, device="cpu")
     algo = DQN(batch_size=16, min_steps_learn=0, replay_size=T * B * 4,
-               replay_ratio=2.0, target_update_interval=2, double_dqn=True)
+               replay_ratio=2.0, target_update_interval=2, double_dqn=True,
+               frame_buffer=True)
     runner = MinibatchRl(algo, agent, SyntheticAtariEnv("cpu"),
                          BatchSpec(T, B), n_steps=2 * T * B, seed=0,
-                         log_interval_steps=T * B,
+                         log_interval_steps=T * B, max_decorrelation_steps=0,
                          logger=TabularLogger(str(tmp_path)), device="cpu")
     runner.train()
     runner.logger.close()
@@ -247,10 +248,10 @@ def test_minibatch_rl_ernbw_smoke(tmp_path):
                           replay_size=T * B * 4, replay_ratio=2.0,
                           target_update_interval=2, double_dqn=True,
                           n_step_return=3, learning_rate=6.25e-5,
-                          **ERNBW_ALGO)
+                          frame_buffer=True, **ERNBW_ALGO)
     runner = MinibatchRl(algo, agent, SyntheticAtariEnv("cpu"),
                          BatchSpec(T, B), n_steps=3 * T * B, seed=0,
-                         log_interval_steps=T * B,
+                         log_interval_steps=T * B, max_decorrelation_steps=0,
                          logger=TabularLogger(str(tmp_path)), device="cpu")
     weights = []
     runner.startup()
