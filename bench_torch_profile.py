@@ -8,6 +8,9 @@
                                              # prioritized replay, n-step 3)
     python3 bench_torch_profile.py --minatar # MinAtar-Breakout DQN of
                                              # bench.py (B=8192, flat replay)
+    python3 bench_torch_profile.py --minatar-pg lstm_ppo
+                     # a config of experiments/configs/minatar_pg.py
+                     # (a2c, ppo, lstm_a2c, lstm_ppo) at its widths
 
 Builds the trainer of chip_smoke.py (full width; the Atari trainers in
 bf16, MinAtar in fp32), warms it up (DQN, ernbw and MinAtar: two
@@ -27,6 +30,11 @@ third being the first with updates), then measures:
 Prints one JSON line; the profiler table goes to
 chiprun_out/profile_table[_r2d1|_ernbw].txt.  Needs a CUDA device.
 With --minatar the table is profile_table_minatar.txt, beside them.
+With --minatar-pg CONFIG (after its 100 decorrelation steps and two
+iterations) there is no replay: collect and optimize are timed as above,
+``update_ms`` is the optimize time over its updates (16 for PPO), one
+evaluation (32 lanes, at most 100 episodes) is timed as ``eval_ms`` with
+the episodes it completed, and the table is profile_table_minatar_pg_CONFIG.txt.
 """
 from __future__ import annotations
 
@@ -60,7 +68,19 @@ def main():
     dev = torch.device("cuda")
     r2d1 = "--r2d1" in sys.argv[1:]
     ernbw = "--ernbw" in sys.argv[1:]
-    if "--minatar" in sys.argv[1:]:
+    pg = sys.argv[sys.argv.index("--minatar-pg") + 1] \
+        if "--minatar-pg" in sys.argv[1:] else None
+    if pg is not None:
+        from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
+        from rlpyt_tpu_torch.experiments.scripts.minatar_pg import \
+            build_runner
+
+        sampler = configs[pg]["sampler"]
+        steps = sampler["batch_T"] * sampler["batch_B"]
+        runner, _ = build_runner(pg, device=dev, config_overrides={
+            "runner": {"log_interval_steps": steps}})
+        warmup, suffix = 2, f"_minatar_pg_{pg}"
+    elif "--minatar" in sys.argv[1:]:
         runner = cs.build_minatar_runner(dev, n_itr=10)
         steps, warmup, suffix = cs.MINATAR_T * cs.MINATAR_B, 2, "_minatar"
     elif r2d1:
@@ -74,7 +94,6 @@ def main():
         steps, warmup, suffix = cs.T * cs.B, 2, ""
     runner.startup()
     algo, coll = runner.algo, runner.collector
-    batch_size = algo.batch_b if r2d1 else algo.batch_size
     for _ in range(warmup):
         runner.run_interval()
     torch.cuda.synchronize()
@@ -85,14 +104,27 @@ def main():
             runner.rollout_state, runner.env_generator))
         runner.rollout_state = state
         collect_s.append(dt)
-        dt, _ = wall(lambda: algo.optimize(samples, state.cum_steps))
+        dt, _ = wall(lambda: algo.optimize(samples, state))
         optimize_s.append(dt)
 
-    n = 64
-    dt_sample, batches = wall(lambda: [
-        algo.replay.sample(batch_size, algo.generator)
-        for _ in range(n)])
-    dt_update, _ = wall(lambda: [algo.update(b) for b in batches])
+    extra = {}
+    if pg is None:
+        n = 64
+        batch_size = algo.batch_b if r2d1 else algo.batch_size
+        dt_sample, batches = wall(lambda: [
+            algo.replay.sample(batch_size, algo.generator)
+            for _ in range(n)])
+        dt_update, _ = wall(lambda: [algo.update(b) for b in batches])
+        extra.update(sample_ms_per_batch=1e3 * dt_sample / n,
+                     update_ms=1e3 * dt_update / n)
+    else:
+        extra["update_ms"] = (1e3 * statistics.median(optimize_s)
+                              / algo.updates_per_optimize)
+        dt_eval, stats = wall(lambda: runner.eval_collector.evaluate(
+            runner.eval_generator, runner.eval_T,
+            runner.eval_max_trajectories))
+        extra.update(eval_ms=1e3 * dt_eval,
+                     eval_trajectories=int(stats.completed))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -124,8 +156,7 @@ def main():
         "updates_per_iteration": algo.updates_per_optimize,
         "collect_ms": 1e3 * statistics.median(collect_s),
         "optimize_ms": 1e3 * statistics.median(optimize_s),
-        "sample_ms_per_batch": 1e3 * dt_sample / n,
-        "update_ms": 1e3 * dt_update / n,
+        **extra,
         "profiled_iteration_ms": 1e3 * dt_itr,
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / dt_itr,

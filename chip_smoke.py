@@ -65,7 +65,18 @@ Phases, each fatal on failure:
      MinibatchRl after its 100 decorrelation steps: finite losses, replay
      ratio 1, no frame-gather launch; (c) a flat uniform batch of the
      trained ring and a flat prioritized batch (its rows refilled from
-     that ring, priorities scattered) equal the CPU path's bit for bit.
+     that ring, priorities scattered) equal the CPU path's bit for bit;
+ 12. the MinAtar policy-gradient configs of
+     rlpyt_tpu_torch/experiments/configs/minatar_pg.py: (a) one recurrent
+     PPO and one recurrent A2C optimize on the card (K3a, K3, K4) against
+     the same calls on the CPU (plain versions), TF32 off, from the same
+     weights, batch and permutations; (b) lstm_ppo through build_and_train
+     at the config's widths (B=128, T=16, LSTM 128, PPO 4 x 4, evaluation
+     on 32 lanes) for 4 iterations: finite losses, completed evaluation
+     episodes, and exactly the path's K3a, K3 and K4 launches; (c) a2c,
+     ppo and lstm_a2c for 2 iterations each, the feedforward two with no
+     LSTM launch; (d) K3a, K3 and K4 against their plain versions and
+     timed at the PG shapes (F=135, H=128).
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -108,6 +119,10 @@ MINATAR_ITR = 3              # MinAtar iterations, 32 updates each
 MINATAR_B, MINATAR_T = 8192, 32   # bench.py's MinAtar lanes and steps
 MINATAR_MODEL = dict(channels=(16,), kernel_sizes=(3,), strides=(1,),
                      paddings=(0,), fc_sizes=(128,))
+# minatar_pg.py: lanes, steps, evaluation lanes, LSTM size and its input
+# (fc 128 + one-hot of 6 actions + the reward)
+PG_B, PG_T, PG_EVAL_B, PG_H, PG_F = 128, 16, 32, 128, 135
+PG_ITR = 4                   # lstm_ppo iterations in phase 12b
 
 
 def fail(msg: str):
@@ -247,32 +262,40 @@ def rel_err(out, ref) -> tuple:
     return err, err / max(float(ref.abs().max()), 1e-30)
 
 
-def check_lstm(L, g, dev):
-    """Phase 5: K3a, K3 and K4 against their plain versions on the card,
-    and the autograd Function's grads against autograd through the plain
-    forward.  fp32 with TF32 off on both sides; the kernels sum in
-    another order than cuBLAS, so forward results must agree to 1e-4 of
-    the largest reference value and backward results (a 45-step reverse
-    recurrence) to 1e-3.  K3 and K4 run twice on the same inputs and
-    must give the same bits.  Returns the max abs error of each kernel
-    (K3's one-step shape, T=1, as ``lstm_fwd_t1``)."""
-    worst = {"lstm_input_proj": 0.0, "lstm_fwd": 0.0, "lstm_fwd_t1": 0.0,
-             "lstm_bwd": 0.0}
+# R2D1's shapes (update window, burn-in, collection step), B = 128 (more
+# rows than one stage of staged h holds), then ragged ones: H = 102 leaves
+# the last CTA two live units; B = 37 spans two row blocks, the second
+# ragged.
+R2D1_CASES = [(45, 32, LSTM_F, LSTM_H), (20, 32, LSTM_F, LSTM_H),
+              (1, 64, LSTM_F, LSTM_H), (5, 128, 33, LSTM_H),
+              (7, 3, 130, 100), (3, 37, 33, 102), (1, 5, 33, 102)]
+# minatar_pg.py's LSTM shapes: the recurrent PPO minibatch window, the
+# A2C window, a collection step, an evaluation step.
+PG_CASES = [(PG_T, PG_B // 4, PG_F, PG_H), (PG_T, PG_B, PG_F, PG_H),
+            (1, PG_B, PG_F, PG_H), (1, PG_EVAL_B, PG_F, PG_H)]
+
+
+def check_lstm(L, g, dev, cases=R2D1_CASES, suffix=""):
+    """Phase 5 (and 12d at the PG shapes): K3a, K3 and K4 against their
+    plain versions on the card, and the autograd Function's grads against
+    autograd through the plain forward.  fp32 with TF32 off on both sides;
+    the kernels sum in another order than cuBLAS, so forward results must
+    agree to 1e-4 of the largest reference value and backward results (a
+    reverse recurrence) to 1e-3.  K3 and K4 run twice on the same inputs
+    and must give the same bits.  Returns the max abs error of each kernel
+    (K3's one-step shape, T=1, as ``lstm_fwd_t1``), each name followed by
+    ``suffix``."""
+    worst = {name + suffix: 0.0 for name in
+             ("lstm_input_proj", "lstm_fwd", "lstm_fwd_t1", "lstm_bwd")}
 
     def hold(kernel, what, out, ref, tol):
+        kernel += suffix
         err, rel = rel_err(out, ref)
         if not (rel <= tol) or out.shape != ref.shape:
             fail(f"{kernel} differs from plain ({what}): max err {err:.3g}"
                  f" = {rel:.3g} of max|ref|, tolerance {tol:g}")
         worst[kernel] = max(worst[kernel], err)
 
-    # R2D1's shapes (update window, burn-in, collection step), B = 128
-    # (more rows than one stage of staged h holds), then ragged ones:
-    # H = 102 leaves the last CTA two live units; B = 37 spans two row
-    # blocks, the second ragged.
-    cases = [(45, 32, LSTM_F, LSTM_H), (20, 32, LSTM_F, LSTM_H),
-             (1, 64, LSTM_F, LSTM_H), (5, 128, 33, LSTM_H), (7, 3, 130, 100),
-             (3, 37, 33, 102), (1, 5, 33, 102)]
     for T, B, F, H in cases:
         name = f"T={T} B={B} F={F} H={H}"
         a = lstm_case(g, T, B, F, H, dev)
@@ -338,6 +361,121 @@ def check_lstm(L, g, dev):
     return worst
 
 
+def cudnn_lstm(c, dev):
+    """cuDNN's LSTM with the weights of case ``c`` (gate order i, f, g, o),
+    no dones.  It also computes the input projection (forward) and the
+    weight and input gradients (backward): more work than K3 and K4
+    alone."""
+    F, H = c["wx"].shape[0], c["wh"].shape[0]
+    cudnn = torch.nn.LSTM(F, H).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(c["wx"].T)
+        cudnn.weight_hh_l0.copy_(c["wh"].T)
+        cudnn.bias_ih_l0.copy_(c["b"])
+        cudnn.bias_hh_l0.zero_()
+    return cudnn, (c["h0"][None], c["c0"][None])
+
+
+def fwd_times(L, c, dev, iters, graph_len):
+    """K3 on case ``c`` beside its plain version and cuDNN's forward."""
+    Tc, Bc = c["done"].shape
+    F, H = c["wx"].shape[0], c["wh"].shape[0]
+    m = (~c["done"]).float()
+    xgc = L.input_proj_plain(c["x"].view(Tc * Bc, F), c["wx"],
+                             c["b"]).view(Tc, Bc, 4 * H)
+    args = (xgc, c["wh"], m, c["h0"], c["c0"])
+    cudnn, state = cudnn_lstm(c, dev)
+
+    def library():
+        with torch.no_grad():
+            cudnn(c["x"], state)
+
+    return dict(
+        ms=time_ms(lambda: L.lstm_fwd(*args), iters),
+        device_ms=graph_ms([lambda: L.lstm_fwd(*args)] * graph_len),
+        plain_ms=time_ms(lambda: L.lstm_fwd_plain(*args), 10),
+        library_ms=time_ms(library, 10),
+        library_device_ms=graph_ms([library] * graph_len),
+        # h @ W_h, plus ~10 operations per cell for the gates
+        ops=2 * Tc * Bc * H * 4 * H + 10 * Tc * Bc * H,
+        # xg, W_h, mask, h0, c0 in; y, gates, c, hT, cT out
+        bytes=4 * (Tc * Bc * 4 * H + H * 4 * H + Tc * Bc + 2 * Bc * H
+                   + Tc * Bc * (H + 4 * H + H) + 2 * Bc * H))
+
+
+def bwd_times(L, c, g, dev, iters, graph_len):
+    """K4 on case ``c`` beside its plain version and cuDNN's backward."""
+    Tc, Bc = c["done"].shape
+    F, H = c["wx"].shape[0], c["wh"].shape[0]
+    mask = (~c["done"]).float()
+    xg = L.input_proj_plain(c["x"].view(Tc * Bc, F), c["wx"],
+                            c["b"]).view(Tc, Bc, 4 * H)
+    _, gates, cs, _, _ = L.lstm_fwd_plain(xg, c["wh"], mask, c["h0"],
+                                          c["c0"])
+    dy = torch.randn((Tc, Bc, H), generator=g, device=dev)
+    dcT = torch.randn((Bc, H), generator=g, device=dev)
+    args = (gates, cs, c["c0"], mask, c["wh"], dy, dcT)
+    cudnn, state = cudnn_lstm(c, dev)
+    x_leaf = c["x"].clone().requires_grad_(True)
+    out, _ = cudnn(x_leaf, state)
+    cudnn_params = [x_leaf] + list(cudnn.parameters())
+
+    def library():
+        torch.autograd.grad(out, cudnn_params, dy, retain_graph=True)
+
+    return dict(
+        ms=time_ms(lambda: L.lstm_bwd(*args), iters),
+        device_ms=graph_ms([lambda: L.lstm_bwd(*args)] * graph_len),
+        plain_ms=time_ms(lambda: L.lstm_bwd_plain(*args), 10),
+        library_ms=time_ms(library, 10),
+        # dgates @ W_h^T, plus ~20 operations per cell
+        ops=2 * Tc * Bc * 4 * H * H + 20 * Tc * Bc * H,
+        # gates, c, c0, mask, W_h, dy, dcT in; dgates, dh0, dc0 out
+        bytes=4 * (Tc * Bc * 4 * H + Tc * Bc * H + Bc * H + Tc * Bc
+                   + H * 4 * H + Tc * Bc * H + Bc * H
+                   + Tc * Bc * 4 * H + 2 * Bc * H))
+
+
+def proj_times(L, x, weights, b, iters):
+    """K3a on ``x`` beside its plain version and ``torch.addmm``: call
+    times by events and device times by graph replay.  ``weights``
+    rotate, so that a W_x that is too large for L2 is read cold."""
+    ws = itertools.cycle(weights)
+    M, F = x.shape
+    N = weights[0].shape[1]
+
+    def kernel():
+        L.input_proj(x, next(ws), b)
+
+    def library():
+        torch.addmm(b, x, next(ws))
+
+    return dict(
+        ms=time_ms(kernel, iters),
+        plain_ms=time_ms(lambda: L.input_proj_plain(x, next(ws), b), iters),
+        library_ms=time_ms(library, iters),
+        device_ms=graph_ms([kernel] * 10),
+        library_device_ms=graph_ms([library] * 10),
+        ops=2 * M * F * N, bytes=4 * (M * F + F * N + N + M * N))
+
+
+def add_bounds(res: dict):
+    """Each entry's bound: its operations at the fp32 pipes' rate or its
+    bytes at HBM's, the larger time.  K3a (``lstm_input_proj*``) runs on
+    the tensor cores, three TF32 products for each fp32 one: that is its
+    bound, with what the fp32 pipes could do at best (the bound of the
+    kernel before the redesign) kept beside it."""
+    for name, r in res.items():
+        t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        if name.startswith("lstm_input_proj"):
+            r["bound_ffma_ms"] = max(t_ops, t_bytes)
+            t_ops = 3 * r["ops"] / TF32_OPS_PER_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return res
+
+
 def time_lstm(L, g, dev):
     """Phase 6: each LSTM kernel at the update's shapes (T=45, B=32,
     F=6919, H=512) beside its plain version, its bound and one library
@@ -346,122 +484,24 @@ def time_lstm(L, g, dev):
     printed line."""
     T, B, F, H = 45, 32, LSTM_F, LSTM_H
     a = lstm_case(g, T, B, F, H, dev)
-    mask = (~a["done"]).float()
     x2 = a["x"].view(T * B, F)
-    xg = L.input_proj_plain(x2, a["wx"], a["b"]).view(T, B, 4 * H)
-    _, gates, cs, _, _ = L.lstm_fwd_plain(xg, a["wh"], mask, a["h0"],
-                                          a["c0"])
-    dy = torch.randn((T, B, H), generator=g, device=dev)
-    dcT = torch.randn((B, H), generator=g, device=dev)
-    bwd_args = (gates, cs, a["c0"], mask, a["wh"], dy, dcT)
-
-    def cudnn_lstm(c):
-        """cuDNN's LSTM with the weights of case ``c`` (gate order i, f, g,
-        o), no dones.  It also computes the input projection (forward)
-        and the weight and input gradients (backward): more work than K3
-        and K4 alone."""
-        cudnn = torch.nn.LSTM(F, H).to(dev)
-        with torch.no_grad():
-            cudnn.weight_ih_l0.copy_(c["wx"].T)
-            cudnn.weight_hh_l0.copy_(c["wh"].T)
-            cudnn.bias_ih_l0.copy_(c["b"])
-            cudnn.bias_hh_l0.zero_()
-        return cudnn, (c["h0"][None], c["c0"][None])
-
-    def fwd_times(c, iters, graph_len):
-        """K3 on case ``c`` beside its plain version and cuDNN's forward."""
-        Tc, Bc = c["done"].shape
-        m = (~c["done"]).float()
-        xgc = L.input_proj_plain(c["x"].view(Tc * Bc, F), c["wx"],
-                                 c["b"]).view(Tc, Bc, 4 * H)
-        args = (xgc, c["wh"], m, c["h0"], c["c0"])
-        cudnn, state = cudnn_lstm(c)
-
-        def library():
-            with torch.no_grad():
-                cudnn(c["x"], state)
-
-        return dict(
-            ms=time_ms(lambda: L.lstm_fwd(*args), iters),
-            device_ms=graph_ms([lambda: L.lstm_fwd(*args)] * graph_len),
-            plain_ms=time_ms(lambda: L.lstm_fwd_plain(*args), 10),
-            library_ms=time_ms(library, 10),
-            library_device_ms=graph_ms([library] * graph_len),
-            # h @ W_h, plus ~10 operations per cell for the gates
-            ops=2 * Tc * Bc * H * 4 * H + 10 * Tc * Bc * H,
-            # xg, W_h, mask, h0, c0 in; y, gates, c, hT, cT out
-            bytes=4 * (Tc * Bc * 4 * H + H * 4 * H + Tc * Bc + 2 * Bc * H
-                       + Tc * Bc * (H + 4 * H + H) + 2 * Bc * H))
-
-    cudnn, state = cudnn_lstm(a)
-    x_leaf = a["x"].clone().requires_grad_(True)
-    out, _ = cudnn(x_leaf, state)
-    cudnn_params = [x_leaf] + list(cudnn.parameters())
-
-    def cudnn_bwd():
-        torch.autograd.grad(out, cudnn_params, dy, retain_graph=True)
-
-    def proj_times(x, weights, iters):
-        """K3a on ``x`` beside its plain version and ``torch.addmm``: call
-        times by events and device times by graph replay.  ``weights``
-        rotate, so that more than one copy of W_x does not fit in L2."""
-        ws = itertools.cycle(weights)
-
-        def kernel():
-            L.input_proj(x, next(ws), a["b"])
-
-        def library():
-            torch.addmm(a["b"], x, next(ws))
-
-        M = x.shape[0]
-        return dict(
-            ms=time_ms(kernel, iters),
-            plain_ms=time_ms(
-                lambda: L.input_proj_plain(x, next(ws), a["b"]), iters),
-            library_ms=time_ms(library, iters),
-            device_ms=graph_ms([kernel] * 10),
-            library_device_ms=graph_ms([library] * 10),
-            ops=2 * M * F * 4 * H,
-            bytes=4 * (M * F + F * 4 * H + 4 * H + M * 4 * H))
-
     # The collection's shape: one step of R2D1_B lanes, M = 64.  There the
     # product streams W_x (56.7 MB; two copies exceed the 50 MB L2).
     x64 = torch.randn((R2D1_B, F), generator=g, device=dev)
-    res = {
-        "lstm_input_proj": proj_times(x2, [a["wx"]], 20),
-        "lstm_input_proj_m64": proj_times(x64, [a["wx"], a["wx"].clone()],
-                                          50),
-        "lstm_fwd": fwd_times(a, 20, 5),
+    res = add_bounds({
+        "lstm_input_proj": proj_times(L, x2, [a["wx"]], a["b"], 20),
+        "lstm_input_proj_m64": proj_times(
+            L, x64, [a["wx"], a["wx"].clone()], a["b"], 50),
+        "lstm_fwd": fwd_times(L, a, dev, 20, 5),
         # One collection step (T=1, B=R2D1_B): 40 of K3's 48 launches in
         # an R2D1 iteration.  cuDNN's call also does the projection.
-        "lstm_fwd_t1": fwd_times(lstm_case(g, 1, R2D1_B, F, H, dev), 50,
-                                 20),
-        "lstm_bwd": dict(
-            ms=time_ms(lambda: L.lstm_bwd(*bwd_args), 20),
-            device_ms=graph_ms([lambda: L.lstm_bwd(*bwd_args)] * 5),
-            plain_ms=time_ms(lambda: L.lstm_bwd_plain(*bwd_args), 10),
-            library_ms=time_ms(cudnn_bwd, 10),
-            # dgates @ W_h^T, plus ~20 operations per cell
-            ops=2 * T * B * 4 * H * H + 20 * T * B * H,
-            # gates, c, c0, mask, W_h, dy, dcT in; dgates, dh0, dc0 out
-            bytes=4 * (T * B * 4 * H + T * B * H + B * H + T * B
-                       + H * 4 * H + T * B * H + B * H
-                       + T * B * 4 * H + 2 * B * H)),
-    }
+        "lstm_fwd_t1": fwd_times(L, lstm_case(g, 1, R2D1_B, F, H, dev), dev,
+                                 50, 20),
+        "lstm_bwd": bwd_times(L, a, g, dev, 20, 5),
+    })
     # The burn-in's shape (T=20, B=32): printed, not an entry of its own.
-    t20 = fwd_times(lstm_case(g, 20, 32, F, H, dev), 20, 5)
-    for name, r in list(res.items()) + [("lstm_fwd T=20 B=32", t20)]:
-        t_ops = r["ops"] / FP32_OPS_PER_S * 1e3
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        if name.startswith("lstm_input_proj"):
-            # K3a runs on the tensor cores, three TF32 products for each
-            # fp32 one: that is its bound.  What the fp32 pipes could do
-            # at best (the bound of the kernel before the redesign) is
-            # kept beside it.
-            r["bound_ffma_ms"] = max(t_ops, t_bytes)
-            t_ops = 3 * r["ops"] / TF32_OPS_PER_S * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    t20 = add_bounds({"t20": fwd_times(L, lstm_case(g, 20, 32, F, H, dev),
+                                       dev, 20, 5)})["t20"]
     print(f"phase 6: lstm_fwd T=20 B=32 call {t20['ms']:.4f} ms, device "
           f"{t20['device_ms']:.4f} ms; cuDNN call {t20['library_ms']:.4f} "
           f"ms, device {t20['library_device_ms']:.4f} ms; plain "
@@ -1016,6 +1056,235 @@ def check_flat_prioritized_against_cpu(runner, dev):
         SimpleNamespace(algo=SimpleNamespace(replay=pri)), dev)
 
 
+def pg_batch(dev):
+    """A recurrent PG batch at minatar_pg.py's widths (T=16, B=128,
+    [4, 10, 10] planes, 6 actions, H=128) and the collector's state after
+    it, drawn on a CPU generator and moved to ``dev``."""
+    from types import SimpleNamespace
+
+    from rlpyt_tpu_torch.distributions.categorical import DistInfo
+    from rlpyt_tpu_torch.samplers.rollout import Samples
+    from rlpyt_tpu_torch.struct import tree_map
+
+    cg = torch.Generator().manual_seed(12)
+    T_, B_, H, A = PG_T, PG_B, PG_H, 6
+    obs = (torch.rand((T_ + 1, B_, 4, 10, 10), generator=cg) < 0.1).to(
+        torch.uint8)
+    pa = torch.randint(0, A, (T_ + 1, B_), generator=cg)
+    pr = (torch.rand((T_ + 1, B_), generator=cg) < 0.2).float()
+
+    def rnn(*lead):
+        return tuple(0.5 * torch.randn(lead + (H,), generator=cg)
+                     for _ in range(2))
+
+    info = {"dist_info": DistInfo(torch.softmax(
+                torch.randn((T_, B_, A), generator=cg), -1)),
+            "value": torch.randn((T_, B_), generator=cg),
+            "prev_rnn_state": rnn(T_, B_)}
+    samples = Samples(obs[:T_], torch.randint(0, A, (T_, B_), generator=cg),
+                      pr[1:], torch.rand((T_, B_), generator=cg) < 0.05,
+                      pa[:T_], pr[:T_], info, {})
+    perms = torch.stack([torch.randperm(B_, generator=cg)
+                         for _ in range(4)])
+
+    def move(x):
+        return x.to(dev)
+
+    last = SimpleNamespace(observation=obs[T_].to(dev),
+                           prev_action=pa[T_].to(dev),
+                           prev_reward=pr[T_].to(dev),
+                           agent_carry=tree_map(move, rnn(B_)),
+                           cum_steps=T_ * B_)
+    return tree_map(move, samples), last, perms
+
+
+def check_pg_against_cpu(L, dev):
+    """Phase 12a: one recurrent PPO optimize (lstm_ppo: 4 epochs x 4
+    minibatches of 32 lanes, Adam, clip 1.0, the linear schedule) and one
+    recurrent A2C optimize (lstm_a2c: RMSprop) on the card, through
+    K3a/K3/K4, against the same calls on the CPU through the plain
+    versions, from the same weights, batch and permutations; TF32 off.
+    Loss, grad norm, entropy and perplexity must agree to 1e-4 (relative,
+    or absolute below 1); every parameter after the step to 1e-3 of the
+    largest change any parameter made."""
+    from rlpyt_tpu_torch.agents.pg import RecurrentCategoricalPgAgent
+    from rlpyt_tpu_torch.algos.pg import A2C, PPO
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    spaces = Breakout(device="cpu").spaces
+    for key, Cls, k4 in (("lstm_ppo", PPO, 16), ("lstm_a2c", A2C, 1)):
+        cfg = configs[key]
+        out = {}
+        for d in ("cpu", dev):
+            agent = RecurrentCategoricalPgAgent(model_kwargs=cfg["model"],
+                                                device=d)
+            torch.manual_seed(0)    # the same weights on both sides
+            agent.initialize(spaces)
+            before = {k: v.detach().clone().cpu()
+                      for k, v in agent.model.state_dict().items()}
+            algo = Cls(**cfg["algo"])
+            algo.initialize(agent, BatchSpec(PG_T, PG_B), None,
+                            torch.Generator(device=d), n_itr=10)
+            samples, last, perms = pg_batch(d)
+            kw = {"permutations": perms} if Cls is PPO else {}
+            zero_launches()
+            info = algo.optimize(samples, last, **kw)
+            after = {k: v.detach().cpu()
+                     for k, v in agent.model.state_dict().items()}
+            out[d] = (info, before, after, L.lstm_bwd.launches)
+        (info_c, before, after_c, _), (info_g, _, after_g, k4_g) = \
+            out["cpu"], out[dev]
+        if k4_g != k4:
+            fail(f"phase 12a {key}: K4 launched {k4_g} times, not {k4}")
+        for field in info_c._fields:
+            want, got = (float(getattr(i, field)) for i in (info_c, info_g))
+            if not abs(got - want) <= 1e-4 * max(1.0, abs(want)):
+                fail(f"phase 12a {key}: {field} {got!r} on the card, "
+                     f"{want!r} on the CPU")
+        change = max(float((after_c[k] - before[k]).abs().max())
+                     for k in before)
+        diff = max(float((after_g[k] - after_c[k]).abs().max())
+                   for k in before)
+        if not diff <= 1e-3 * change:
+            fail(f"phase 12a {key}: params differ by {diff:.3g} after the "
+                 f"step; the largest change is {change:.3g}")
+        print(f"phase 12a: {key} optimize card against CPU: loss "
+              f"{float(info_g.loss):.6g} / {float(info_c.loss):.6g}, "
+              f"grad_norm {float(info_g.grad_norm):.6g} / "
+              f"{float(info_c.grad_norm):.6g}; params differ by "
+              f"{diff:.3g} = {diff / change:.3g} of the largest change; "
+              f"{k4_g} K4 launches")
+
+
+def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
+    """Phases 12b and 12c: ``build_and_train(key)`` at the config's widths
+    for ``n_itr`` iterations (only n_steps and log_interval_steps
+    overridden), evaluating after each.  Checks finite losses, completed
+    evaluation episodes, and the LSTM launches of the path: per iteration
+    T collection steps and one bootstrap (K3a and K3 at T=1 each), then
+    lstm_ppo's 16 minibatch windows (K3a, K3, K4 each) or lstm_a2c's one
+    window; each evaluation step one K3a and one K3 at T=1; none for the
+    feedforward configs.  Evaluation steps are counted at the env (its
+    lanes are 32, the trainer's 128).  Returns the LSTM launch counts."""
+    import contextlib
+    import csv
+    import io
+    import tempfile
+
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
+    from rlpyt_tpu_torch.experiments.scripts.minatar_pg import \
+        build_and_train
+
+    cfg = configs[key]
+    steps = cfg["sampler"]["batch_T"] * cfg["sampler"]["batch_B"]
+    eval_steps = [0]
+    step_batch = Breakout.step_batch
+
+    def counted(env, state, action, *args, **kwargs):
+        eval_steps[0] += action.shape[0] == cfg["sampler"]["eval_n_envs"]
+        return step_batch(env, state, action, *args, **kwargs)
+
+    Breakout.step_batch = counted
+    zero_launches()
+    try:
+        with tempfile.TemporaryDirectory() as log_dir, \
+                contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.time()
+            runner = build_and_train(key, log_dir=log_dir, config_overrides={
+                "runner": {"n_steps": n_itr * steps,
+                           "log_interval_steps": steps}})
+            torch.cuda.synchronize()
+            seconds = time.time() - t0
+            with open(Path(log_dir) / "run_0" / "progress.csv") as f:
+                rows = list(csv.DictReader(f))
+    finally:
+        Breakout.step_batch = step_batch
+    launches = {"lstm_input_proj": L.input_proj.launches,
+                "lstm_fwd": L.lstm_fwd.launches,
+                "lstm_fwd_t1": L.lstm_fwd.step_launches,
+                "lstm_bwd": L.lstm_bwd.launches}
+    algo, n_eval = runner.algo, eval_steps[0]
+    if not key.startswith("lstm"):
+        want = dict.fromkeys(launches, 0)
+    else:
+        windows = algo.updates_per_optimize    # 16 for PPO, 1 for A2C
+        t1 = n_itr * (cfg["sampler"]["batch_T"] + 1) + n_eval
+        want = {"lstm_input_proj": t1 + n_itr * windows,
+                "lstm_fwd": t1 + n_itr * windows, "lstm_fwd_t1": t1,
+                "lstm_bwd": n_itr * windows}
+    if launches != want:
+        fail(f"{key}: LSTM launches {launches}, expected {want} "
+             f"({n_eval} evaluation steps)")
+    if algo.update_counter != n_itr * algo.updates_per_optimize \
+            or len(rows) != n_itr:
+        fail(f"{key}: {algo.update_counter} updates in {len(rows)} rows")
+    for row in rows:
+        for field in ("loss", "grad_norm", "entropy", "perplexity",
+                      "StepsPerSecond", "EvalReturnAverage"):
+            if not math.isfinite(float(row[field])):
+                fail(f"{key}: {field} = {row[field]} in iteration "
+                     f"{row['Iteration']}")
+        if int(row["EvalTrajs"]) < 1:
+            fail(f"{key}: no evaluation episode completed")
+        print(f"{key} itr {row['Iteration']}: loss {float(row['loss']):.6g} "
+              f"grad_norm {float(row['grad_norm']):.6g} entropy "
+              f"{float(row['entropy']):.6g} StepsPerSecond "
+              f"{float(row['StepsPerSecond']):.1f} EvalTrajs "
+              f"{row['EvalTrajs']} EvalReturnAverage "
+              f"{float(row['EvalReturnAverage']):.4f} EvalLengthAverage "
+              f"{float(row['EvalLengthAverage']):.2f}")
+    pg_stats[key] = dict(seconds=seconds, eval_steps=n_eval,
+                         sps=[float(r["StepsPerSecond"]) for r in rows])
+    return launches
+
+
+def time_lstm_pg(L, g, dev):
+    """Phase 12d: K3a, K3 and K4 at minatar_pg.py's shapes (F=135, H=128)
+    beside their plain versions, bounds and library calls.  Entries: K3a
+    at the PPO minibatch's 512 rows, K3 and K4 at its window (T=16, B=32)
+    and K3 at a collection step (T=1, B=128).  Printed: K3a at 128, 32
+    and 2048 rows (collection, evaluation, the A2C window), K3 at an
+    evaluation step (T=1, B=32), K3 and K4 at the A2C window (T=16,
+    B=128)."""
+    F, H = PG_F, PG_H
+    mb = lstm_case(g, PG_T, PG_B // 4, F, H, dev)
+    win = lstm_case(g, PG_T, PG_B, F, H, dev)
+    wx, b = mb["wx"], mb["b"]
+    entries = add_bounds({
+        "lstm_input_proj_pg": proj_times(
+            L, mb["x"].view(-1, F), [wx], b, 50),
+        "lstm_fwd_pg": fwd_times(L, mb, dev, 50, 10),
+        "lstm_fwd_t1_pg": fwd_times(L, lstm_case(g, 1, PG_B, F, H, dev),
+                                    dev, 50, 20),
+        "lstm_bwd_pg": bwd_times(L, mb, g, dev, 50, 10),
+    })
+    printed = add_bounds({
+        f"lstm_input_proj M={M}": proj_times(
+            L, torch.randn((M, F), generator=g, device=dev), [wx], b, 50)
+        for M in (PG_B, PG_EVAL_B)})
+    printed.update(add_bounds({
+        f"lstm_input_proj M={PG_T * PG_B}": proj_times(
+            L, win["x"].view(-1, F), [wx], b, 50),
+        f"lstm_fwd T=1 B={PG_EVAL_B}": fwd_times(
+            L, lstm_case(g, 1, PG_EVAL_B, F, H, dev), dev, 50, 20),
+        f"lstm_fwd T={PG_T} B={PG_B}": fwd_times(L, win, dev, 50, 10),
+        f"lstm_bwd T={PG_T} B={PG_B}": bwd_times(L, win, g, dev, 50, 10),
+    }))
+    for name, t in list(entries.items()) + list(printed.items()):
+        print(f"phase 12d: {name} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; library call "
+              f"{t['library_ms']:.4f} ms"
+              + (f", device {t['library_device_ms']:.4f} ms"
+                 if t.get("library_device_ms") else "")
+              + f"; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
+              f"operations, {t['bytes']} bytes)")
+    return entries
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1048,7 +1317,10 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # widths, one entry for each; K3a has one entry at the update's shape
 # (M = 1440: all of the path's launches) and one at the collection's
 # (M = 64: those of them that took the few-row path, one per env step);
-# K3 likewise (T=45: all launches; T=1: the one-step launches).
+# K3 likewise (T=45: all launches; T=1: the one-step launches).  The
+# "_pg" entries are the same kernels at minatar_pg.py's shapes (H=128),
+# with the launches of phase 12b's lstm_ppo run: K3a all of them (timed
+# at the minibatch's 512 rows), K3 those at T=16 and at T=1, K4 all.
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
@@ -1057,6 +1329,10 @@ KERNELS = {
     "lstm_fwd": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_fwd_t1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_bwd": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "lstm_input_proj_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_t1_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_bwd_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
     "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
 }
@@ -1205,6 +1481,34 @@ def main():
     check_replay_against_cpu(runner, dev)
     check_flat_prioritized_against_cpu(runner, dev)
     print(f"phase 11: {time.time() - t0:.1f} s")
+    del runner
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_pg_against_cpu(L, dev)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    pg_stats = {}
+    pg_launches = run_minatar_pg(L, "lstm_ppo", PG_ITR, pg_stats)
+    print(f"phase 12b: lstm_ppo {PG_ITR} iterations at full width in "
+          f"{pg_stats['lstm_ppo']['seconds']:.1f} s, "
+          f"{pg_stats['lstm_ppo']['eval_steps']} evaluation steps, LSTM "
+          f"launches {pg_launches}")
+    launches.update({name + "_pg": n for name, n in pg_launches.items()})
+    launches["lstm_fwd_pg"] -= launches["lstm_fwd_t1_pg"]
+    for key in ("a2c", "ppo", "lstm_a2c"):
+        n = run_minatar_pg(L, key, 2, pg_stats)
+        print(f"phase 12c: {key} 2 iterations in "
+              f"{pg_stats[key]['seconds']:.1f} s, LSTM launches {n}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs.update(check_lstm(L, g, dev, PG_CASES, "_pg"))
+    times.update(time_lstm_pg(L, g, dev))
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 12: {time.time() - t0:.1f} s")
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

@@ -24,6 +24,8 @@ class AgentStep(NamedTuple):
 
 
 class BaseAgent:
+    recurrent = False   # True: the model takes and returns an rnn state
+
     def __init__(self, ModelCls=None, model_kwargs=None, device="cuda"):
         self.ModelCls = ModelCls
         self.model_kwargs = dict(model_kwargs or {})

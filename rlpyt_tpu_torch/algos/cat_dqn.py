@@ -25,12 +25,14 @@ class CategoricalDQN(DQN):
         self.v_max = v_max
         self.n_atoms = n_atoms
 
-    def initialize(self, agent, batch_spec, example_obs, generator):
+    def initialize(self, agent, batch_spec, example_obs, generator,
+                   n_itr: int = 1):
         # The agent's atom support is authoritative if it defines one.
         if hasattr(agent, "v_min"):
             self.v_min, self.v_max = agent.v_min, agent.v_max
             self.n_atoms = agent.n_atoms
-        super().initialize(agent, batch_spec, example_obs, generator)
+        super().initialize(agent, batch_spec, example_obs, generator,
+                           n_itr)
         self.z = torch.linspace(self.v_min, self.v_max, self.n_atoms,
                                 device=agent.device)
 

@@ -71,7 +71,8 @@ class DQN(RlAlgorithm):
         self.frame_buffer = frame_buffer
         self.frames_per_obs = frames_per_obs
 
-    def initialize(self, agent, batch_spec, example_obs, generator):
+    def initialize(self, agent, batch_spec, example_obs, generator,
+                   n_itr: int = 1):
         """Target network, optimizer and replay.  ``example_obs``: one
         [B, ...] batch of observations ([B, K, H, W] frame stacks under
         ``frame_buffer``)."""
@@ -159,12 +160,12 @@ class DQN(RlAlgorithm):
             self.replay.update_priorities(batch.indices, td_abs)
         return OptInfo(loss.detach(), grad_norm, td_abs.mean())
 
-    def optimize(self, samples, cum_steps: int) -> OptInfo:
+    def optimize(self, samples, rollout_state) -> OptInfo:
         """Append, then maybe ``updates_per_optimize`` updates.  Returns
         the mean OptInfo as device scalars (zeros before learning
         starts, as the JAX package reports)."""
         self.replay.append(self.samples_to_buffer(samples))
-        if cum_steps < self.min_steps_learn:
+        if rollout_state.cum_steps < self.min_steps_learn:
             zero = torch.zeros((), device=self.agent.device)
             return OptInfo(zero, zero, zero)
         infos = []

@@ -102,7 +102,8 @@ class R2D1(RlAlgorithm):
         return (value_rescale_inv(x, self.value_scale_eps)
                 if self.use_value_rescale else x)
 
-    def initialize(self, agent, batch_spec, example_obs, generator):
+    def initialize(self, agent, batch_spec, example_obs, generator,
+                   n_itr: int = 1):
         """Target network, optimizer and replay.  ``example_obs``: one
         [B, ...] batch of observations."""
         self.agent = agent
@@ -239,7 +240,7 @@ class R2D1(RlAlgorithm):
         self.replay.update_priorities(batch.slots, priorities)
         return OptInfo(loss.detach(), grad_norm, priorities.mean())
 
-    def optimize(self, samples, cum_steps: int) -> OptInfo:
+    def optimize(self, samples, rollout_state) -> OptInfo:
         """Append (with input priorities), then maybe
         ``updates_per_optimize`` updates.  Returns the mean OptInfo as
         device scalars (zeros before learning starts)."""
@@ -248,7 +249,7 @@ class R2D1(RlAlgorithm):
                   if self.input_priorities and self.prioritized_replay
                   else None)
         self.replay.append(to_buf, rnn, in_pri)
-        if cum_steps < self.min_steps_learn:
+        if rollout_state.cum_steps < self.min_steps_learn:
             zero = torch.zeros((), device=self.agent.device)
             return OptInfo(zero, zero, zero)
         infos = []

@@ -1,10 +1,14 @@
 """Weight bridge between the JAX package's flax parameter trees and the
 port's ``state_dict``s.  It takes and returns numpy arrays only.
 
-Tree paths read (AtariDqnModel, AtariCatDqnModel, AtariR2d1Model)::
+Tree paths read (AtariDqnModel, AtariCatDqnModel, AtariR2d1Model and
+the policy-gradient AtariFfModel, AtariLstmModel)::
 
     params/Conv2dModel_0/Conv_{i}/{kernel,bias}  <->  conv.convs.{i}.{weight,bias}
     params/MlpModel_0/Dense_{j}/{kernel,bias}    <->  head.layers.{j}.{weight,bias}
+                                     (a PG tree: fc.layers.{j}.{weight,bias})
+    params/Dense_0/{kernel,bias}  (PG, pi)       <->  pi.{weight,bias}
+    params/Dense_1/{kernel,bias}  (PG, V)        <->  value.{weight,bias}
     params/DuelingHead_0/MlpModel_0/Dense_{j}/.. <->  head.adv.layers.{j}.{..}
     params/DuelingHead_0/MlpModel_1/Dense_{j}/.. <->  head.val.layers.{j}.{..}
     params/DistributionalDuelingHead_0/MlpModel_{0,1}/..  <->  head.{adv,val}...
@@ -26,6 +30,8 @@ Layout rules:
       weight[o, c, hb*s + dy, wb*s + dx] = kernel[c, hb, wb, dy*s + dx, o]
 
   The rank of ``Conv_0/kernel`` (5 or 4) says which form a tree holds.
+- A tree with a top-level ``Dense_0`` is a policy-gradient tree: its
+  ``MlpModel_0`` is the fc trunk before the pi and V layers.
 - Both dueling heads map onto ``head.adv`` / ``head.val``.  Going back,
   the value stream's output width says which flax module a state_dict
   came from: 1 for ``DuelingHead_0``, ``n_atoms`` (> 1) for
@@ -44,6 +50,10 @@ _HEADS = ((("MlpModel_0",), "head"),
           (("DuelingHead_0", "MlpModel_1"), "head.val"),
           (("DistributionalDuelingHead_0", "MlpModel_0"), "head.adv"),
           (("DistributionalDuelingHead_0", "MlpModel_1"), "head.val"))
+
+
+# A policy-gradient model's top-level pi and V layers.
+_PG_DENSE = {"Dense_0": "pi", "Dense_1": "value"}
 
 
 def _s2d_to_plain(kernel: np.ndarray) -> np.ndarray:
@@ -68,13 +78,16 @@ def from_jax_params(tree) -> Dict[str, np.ndarray]:
     trees."""
     p = tree["params"] if "params" in tree else tree
     out = {}
-    for name, leaf in p["Conv2dModel_0"].items():
+    for name, leaf in p.get("Conv2dModel_0", {}).items():
         i = int(name.split("_")[1])
         k = np.asarray(leaf["kernel"])
         w = _s2d_to_plain(k) if k.ndim == 5 else k.transpose(3, 2, 0, 1)
         out[f"conv.convs.{i}.weight"] = np.ascontiguousarray(w)
         out[f"conv.convs.{i}.bias"] = np.asarray(leaf["bias"])
+    pg = "Dense_0" in p
     for path, prefix in _HEADS:
+        if pg and path == ("MlpModel_0",):
+            prefix = "fc"
         mlp = p
         for key in path:
             mlp = mlp.get(key, {})
@@ -85,6 +98,11 @@ def from_jax_params(tree) -> Dict[str, np.ndarray]:
             out[f"{prefix}.layers.{j}.bias"] = np.asarray(leaf["bias"])
     for name, leaf in p.get("LstmCore_0", {}).items():
         out[f"lstm.{name}"] = np.asarray(leaf)
+    for flax_name, prefix in _PG_DENSE.items():
+        if flax_name in p:
+            out[f"{prefix}.weight"] = np.ascontiguousarray(
+                np.asarray(p[flax_name]["kernel"]).T)
+            out[f"{prefix}.bias"] = np.asarray(p[flax_name]["bias"])
     return out
 
 
@@ -101,6 +119,8 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
                else "DuelingHead_0")
     paths = {prefix: path for path, prefix in _HEADS
              if path[0] in ("MlpModel_0", dueling)}
+    paths["fc"] = ("MlpModel_0",)
+    pg_dense = {prefix: name for name, prefix in _PG_DENSE.items()}
     tree = {}
 
     def node(path):
@@ -123,6 +143,13 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
                 leaf["bias"] = v
         elif key.startswith("lstm."):
             node(("LstmCore_0",))[key.split(".")[1]] = v
+        elif key.split(".")[0] in pg_dense:
+            prefix, kind = key.split(".")
+            leaf = node((pg_dense[prefix],))
+            if kind == "weight":
+                leaf["kernel"] = np.ascontiguousarray(v.T)
+            else:
+                leaf["bias"] = v
         else:
             j, kind = rest.split(".")
             leaf = node(paths[prefix] + (f"Dense_{j}",))

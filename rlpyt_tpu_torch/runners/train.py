@@ -1,5 +1,6 @@
-"""Training runner (port of rlpyt_tpu/runners/train.py:MinibatchRl:
-startup with start-state decorrelation, train, one log interval).
+"""Training runners (port of rlpyt_tpu/runners/train.py: MinibatchRl,
+with start-state decorrelation and evaluation at each log interval, and
+MinibatchRlEval).
 
 The JAX runner compiles a whole log interval into one device program.
 Here the loop runs on the host and launches work on the device; values
@@ -23,12 +24,18 @@ _TRAJ_KEYS = ("ReturnAverage", "ReturnStd", "ReturnMax", "ReturnMin",
 
 
 class MinibatchRl:
-    """Collect a [T, B] batch, optimize, repeat."""
+    """Collect a [T, B] batch, optimize, repeat.  With ``eval_env``, the
+    agent is evaluated after every log interval on ``eval_n_envs`` fresh
+    lanes for at most ``eval_max_steps`` env steps in all (and, if given,
+    ``eval_max_trajectories`` completed episodes), and the "Eval" stats
+    are logged with the interval's."""
 
     def __init__(self, algo, agent, env, batch_spec: BatchSpec,
                  n_steps: int, seed: int = 0,
                  log_interval_steps: int = int(1e5),
-                 max_decorrelation_steps: int = 100,
+                 max_decorrelation_steps: int = 100, eval_env=None,
+                 eval_n_envs: int = 8, eval_max_steps: int = 2500,
+                 eval_max_trajectories: Optional[int] = None,
                  logger: Optional[TabularLogger] = None, device="cuda"):
         self.algo = algo
         self.agent = agent
@@ -38,9 +45,13 @@ class MinibatchRl:
         self.seed = seed
         self.log_interval_steps = int(log_interval_steps)
         self.max_decorrelation_steps = int(max_decorrelation_steps)
+        self.eval_env = eval_env
+        self.eval_n_envs = eval_n_envs
+        self.eval_max_steps = eval_max_steps
+        self.eval_max_trajectories = eval_max_trajectories
         self.logger = logger or TabularLogger(None)
         self.device = torch.device(device)
-        self._last_traj_vals = None
+        self._last_traj_vals = {}   # stats prefix -> last values
 
     def startup(self):
         """Seed, build the model, collector and algorithm state, then
@@ -57,10 +68,19 @@ class MinibatchRl:
         self.itrs_per_interval = max(
             1, self.log_interval_steps // self.batch_spec.size)
         self.algo.initialize(self.agent, self.batch_spec,
-                             self.rollout_state.observation, algo_generator)
+                             self.rollout_state.observation, algo_generator,
+                             n_itr=self.n_itr)
         self.rollout_state = self.collector.decorrelate(
             self.rollout_state, self.max_decorrelation_steps,
             self.env_generator)
+        if self.eval_env is not None:
+            self.eval_T = max(1, self.eval_max_steps // self.eval_n_envs)
+            self.eval_collector = Collector(
+                self.eval_env, self.agent,
+                BatchSpec(self.eval_T, self.eval_n_envs),
+                discount=float(self.algo.discount))
+            self.eval_generator = torch.Generator(
+                device=self.device).manual_seed(self.seed + 1)
 
     def run_interval(self):
         """``itrs_per_interval`` iterations; returns (list of OptInfo,
@@ -69,8 +89,8 @@ class MinibatchRl:
         for _ in range(self.itrs_per_interval):
             self.rollout_state, samples = self.collector.collect(
                 self.rollout_state, self.env_generator)
-            opt_infos.append(self.algo.optimize(
-                samples, self.rollout_state.cum_steps))
+            opt_infos.append(self.algo.optimize(samples,
+                                                self.rollout_state))
         traj_stats = self.rollout_state.traj_stats
         self.rollout_state = self.collector.reset_traj_stats(
             self.rollout_state)
@@ -95,6 +115,11 @@ class MinibatchRl:
             itr = (interval + 1) * self.itrs_per_interval
             self._log_diagnostics(itr, cum_steps, opt_infos, traj_stats,
                                   t1 - t0, t1 - t_start)
+            if self.eval_env is not None:
+                self._log_traj_stats("Eval", self.eval_collector.evaluate(
+                    self.eval_generator, self.eval_T,
+                    self.eval_max_trajectories))
+            self.logger.dump_tabular()
 
     def _log_traj_stats(self, prefix: str, ts: TrajStats):
         n = int(ts.completed)
@@ -107,11 +132,12 @@ class MinibatchRl:
                     float(ts.min_return), float(ts.sum_length) / n,
                     float(ts.sum_nonzero_rewards) / n,
                     float(ts.sum_discounted_return) / n)
-            self._last_traj_vals = vals
+            self._last_traj_vals[prefix] = vals
         else:
             # No episode ended in this window: repeat the last window's
             # stats (Trajs=0 marks it) rather than writing NaN rows.
-            vals = self._last_traj_vals or (float("nan"),) * len(_TRAJ_KEYS)
+            vals = self._last_traj_vals.get(
+                prefix, (float("nan"),) * len(_TRAJ_KEYS))
         for k, v in zip(_TRAJ_KEYS, vals):
             rec(prefix + k, v)
 
@@ -131,4 +157,13 @@ class MinibatchRl:
         self._log_traj_stats("", traj_stats)
         for field, vals in zip(opt_infos[0]._fields, zip(*opt_infos)):
             rec(field, torch.stack(vals).mean().item())
-        self.logger.dump_tabular()
+
+
+class MinibatchRlEval(MinibatchRl):
+    """MinibatchRl with evaluation, under the reference's class name;
+    ``eval_env`` is required."""
+
+    def __init__(self, *args, eval_env=None, **kwargs):
+        if eval_env is None:
+            raise ValueError("MinibatchRlEval requires eval_env")
+        super().__init__(*args, eval_env=eval_env, **kwargs)

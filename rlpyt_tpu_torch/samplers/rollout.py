@@ -1,5 +1,6 @@
 """Lockstep collector (port of rlpyt_tpu/samplers/rollout.py: BatchSpec,
-Samples, TrajStats, RolloutState, Collector.collect and decorrelate).
+Samples, TrajStats, RolloutState, Collector.collect, decorrelate and
+evaluate, and the module-level evaluate).
 
 B envs step together on the device; the JAX ``lax.scan`` over T is a
 Python loop here, writing each step into preallocated [T, B] buffers.
@@ -16,6 +17,8 @@ import torch
 
 from rlpyt_tpu_torch.struct import buffer_from_example, tree_map, \
     tree_select
+
+EVAL_CHECK_STEPS = 16   # evaluate() reads its trajectory count this often
 
 
 class BatchSpec(NamedTuple):
@@ -158,8 +161,28 @@ class Collector:
             tree_map(lambda b, x: b[t].copy_(x), buf, out)
         return state, buf
 
+    def evaluate(self, generator: torch.Generator, max_T: int,
+                 max_trajectories: Optional[int] = None) -> TrajStats:
+        """Offline evaluation (rlpyt's SerialEvalCollector): fresh env
+        states from ``generator``, eval-mode actions, stats over
+        completed trajectories only.  Once ``max_trajectories`` have
+        completed, no later episode counts (lanes that finish on the step
+        that reaches the cap all count, as in the JAX package).  JAX stops
+        its ``while_loop`` on the step that reaches the cap; here the cap
+        is read on the host every ``EVAL_CHECK_STEPS`` steps, which costs
+        one sync per check instead of one per step.  The steps run past
+        the cap add nothing to the stats, so they come out the same."""
+        state = self.init_state(generator)
+        for t in range(max_T):
+            if (max_trajectories is not None and t % EVAL_CHECK_STEPS == 0
+                    and int(state.traj_stats.completed) >= max_trajectories):
+                break
+            state, _ = self._step(state, generator, True, max_trajectories)
+        return state.traj_stats
+
     def _step(self, carry: RolloutState, generator: torch.Generator,
-              is_eval: bool = False) -> Tuple[RolloutState, Samples]:
+              is_eval: bool = False, max_trajectories: Optional[int] = None
+              ) -> Tuple[RolloutState, Samples]:
         B = self.batch_spec.B
         agent_step, agent_carry = self.agent.step(
             carry.observation, carry.prev_action, carry.prev_reward,
@@ -179,11 +202,14 @@ class Collector:
         ep_nonzero = carry.ep_nonzero + (reward != 0.0).to(torch.float32)
         ep_discounted = carry.ep_discounted + reward * carry.ep_gamma
         ep_gamma = carry.ep_gamma * self.discount
-        df = done.to(torch.float32)
         ts = carry.traj_stats
+        d = done   # the episodes that count in the stats
+        if max_trajectories is not None:
+            d = done & (ts.completed < max_trajectories)
+        df = d.to(torch.float32)
         inf = float("inf")
         traj_stats = TrajStats(
-            completed=ts.completed + done.sum(),
+            completed=ts.completed + d.sum(),
             sum_return=ts.sum_return + (ep_return * df).sum(),
             sum_sq_return=ts.sum_sq_return + (ep_return ** 2 * df).sum(),
             sum_length=ts.sum_length + (ep_length * df).sum(),
@@ -192,10 +218,10 @@ class Collector:
             sum_discounted_return=ts.sum_discounted_return
             + (ep_discounted * df).sum(),
             max_return=torch.maximum(
-                ts.max_return, torch.where(done, ep_return, -inf).max()),
+                ts.max_return, torch.where(d, ep_return, -inf).max()),
             min_return=torch.minimum(
-                ts.min_return, torch.where(done, ep_return, inf).min()))
-        live = 1.0 - df
+                ts.min_return, torch.where(d, ep_return, inf).min()))
+        live = 1.0 - done.to(torch.float32)
         ep_gamma = torch.where(done, 1.0, ep_gamma)
 
         # Auto-reset (CpuResetCollector parity).
@@ -212,3 +238,9 @@ class Collector:
             ep_discounted=ep_discounted * live, ep_gamma=ep_gamma,
             traj_stats=traj_stats)
         return new_carry, out
+
+
+def evaluate(collector: Collector, generator: torch.Generator, max_T: int,
+             max_trajectories: Optional[int] = None) -> TrajStats:
+    """``collector.evaluate``, as a function."""
+    return collector.evaluate(generator, max_T, max_trajectories)

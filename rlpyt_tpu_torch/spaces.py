@@ -1,7 +1,10 @@
-"""Action/observation spaces (port of rlpyt_tpu/spaces.py: IntBox)."""
+"""Action/observation spaces (port of rlpyt_tpu/spaces.py: IntBox,
+FloatBox)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
+
+import numpy as np
 
 import torch
 
@@ -37,3 +40,36 @@ class IntBox:
 
     def __repr__(self):
         return f"IntBox({self.low}, {self.high}, shape={self.shape})"
+
+
+class FloatBox:
+    """Continuous box [low, high] of float32 (bounds broadcast to
+    ``shape``)."""
+
+    def __init__(self, low, high, shape: Optional[Tuple[int, ...]] = None,
+                 dtype=torch.float32):
+        low = np.asarray(low, dtype=np.float32)
+        high = np.asarray(high, dtype=np.float32)
+        if shape is None:
+            shape = np.broadcast_shapes(low.shape, high.shape)
+        self.low = np.broadcast_to(low, shape).astype(np.float32)
+        self.high = np.broadcast_to(high, shape).astype(np.float32)
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+    def sample(self, generator: torch.Generator,
+               batch_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Uniform draws of shape ``batch_shape + shape`` on the
+        generator's device."""
+        dev = generator.device
+        u = torch.rand(tuple(batch_shape) + self.shape, generator=generator,
+                       device=dev, dtype=self.dtype)
+        low = torch.as_tensor(self.low, dtype=self.dtype, device=dev)
+        high = torch.as_tensor(self.high, dtype=self.dtype, device=dev)
+        return low + u * (high - low)
+
+    def null_value(self, device="cuda") -> torch.Tensor:
+        return torch.zeros(self.shape, dtype=self.dtype, device=device)
+
+    def __repr__(self):
+        return f"FloatBox(shape={self.shape})"

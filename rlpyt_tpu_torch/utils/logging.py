@@ -1,12 +1,14 @@
 """Tabular logger (port of the part of rlpyt_tpu/utils/logging.py:
-TabularLogger that MinibatchRl uses): console table per dump, and
-``progress.csv`` plus ``debug.log`` under ``log_dir`` when one is given.
-Parameter snapshots are not ported yet."""
+TabularLogger that MinibatchRl uses, and logger_context): console table
+per dump, and ``progress.csv`` plus ``debug.log`` under ``log_dir`` when
+one is given.  Parameter snapshots are not ported yet."""
 from __future__ import annotations
 
 import csv
+import json
 import os
 import time
+from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
 
@@ -64,3 +66,21 @@ class TabularLogger:
             self._csv_file.close()
         if self._debug_file:
             self._debug_file.close()
+
+
+@contextmanager
+def logger_context(log_dir: str, run_id: int, name: str,
+                   config: Optional[dict] = None):
+    """A TabularLogger writing under ``log_dir/run_<run_id>``, with the
+    run's config saved there as ``params.json``; closed on exit."""
+    run_dir = os.path.join(log_dir, f"run_{run_id}")
+    os.makedirs(run_dir, exist_ok=True)
+    if config is not None:
+        with open(os.path.join(run_dir, "params.json"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
+    logger = TabularLogger(run_dir)
+    logger.log(f"Starting run {name} (run_{run_id})")
+    try:
+        yield logger
+    finally:
+        logger.close()

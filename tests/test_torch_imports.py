@@ -1,5 +1,5 @@
 """The PyTorch port, its chip smoke test, its bench_torch_* harnesses and
-its learning test (which runs where only PyTorch is installed) import
+its learning tests (which run where only PyTorch is installed) import
 nothing of JAX (jax, flax, optax) and nothing of the JAX package
 (rlpyt_tpu)."""
 import ast
@@ -12,7 +12,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "rlpyt_tpu")
 PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py"]
               + sorted(ROOT.glob("bench_torch_*.py"))
-              + [ROOT / "tests" / "test_torch_minatar_learning.py"])
+              + [ROOT / "tests" / "test_torch_minatar_learning.py",
+                 ROOT / "tests" / "test_torch_pg_learning.py"])
 
 
 def imported_modules(path: Path):
@@ -35,7 +36,14 @@ def test_scan_covers_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for name in ("ops/frame_gather.py", "ops/union_gather.py",
                  "replay/prioritized.py", "algos/cat_dqn.py",
-                 "envs/minatar.py"):
+                 "envs/minatar.py", "ops/returns.py",
+                 "distributions/categorical.py", "algos/base.py",
+                 "spaces.py", "envs/classic.py", "models/pg.py",
+                 "params.py", "agents/pg.py", "algos/pg.py",
+                 "samplers/rollout.py", "runners/train.py",
+                 "utils/logging.py", "utils/variant.py",
+                 "experiments/configs/minatar_pg.py",
+                 "experiments/scripts/minatar_pg.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
     assert "bench_torch_minatar.py" in names

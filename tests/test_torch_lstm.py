@@ -172,7 +172,8 @@ def test_wrappers_raise_on_other_devices():
     (64, 2048, 6919, 64), (1440, 2048, 6919, 192), (21, 400, 130, 64),
     (640, 2048, 6919, 128), (1, 8, 3, 64), (1, 2048, 6919, 64),
     (63, 2048, 6919, 64), (65, 2048, 6919, 64), (128, 2048, 6919, 64),
-    (1440, 2050, 6919, 0)])
+    (1440, 2050, 6919, 0), (32, 512, 135, 64), (128, 512, 135, 64),
+    (512, 512, 135, 64), (2048, 512, 135, 64)])
 def test_proj_splits_cover_k(M, N, K, tile_m):
     """The projection's plan on 132 SMs: every row of W_x in exactly one
     split, each split a multiple of the kernel's K step; the few-row path
@@ -267,7 +268,7 @@ def test_cuda_kernels_match_plain(cuda_device):
 
 @pytest.mark.parametrize("B,H", [(32, 512), (64, 512), (128, 512), (3, 100),
                                  (37, 102), (5, 102), (1, 8), (64, 528),
-                                 (1, 1), (128, 100)])
+                                 (1, 1), (128, 100), (32, 128), (128, 128)])
 def test_recurrence_plan_covers_units(B, H):
     """The recurrences' plan on 132 SMs: every hidden unit owned by
     exactly one CTA (CTA j owns [UNITS * j, UNITS * j + UNITS)), no

@@ -392,7 +392,8 @@ def test_dqn_default_replays_minatar_planes_unchanged():
     g = torch.Generator().manual_seed(1)
     state = coll.init_state(g)
     state, samples = coll.collect(state, g)
-    algo.optimize(samples, cum_steps=0)     # min_steps_learn: append only
+    # cum_steps 0 is below min_steps_learn: append only
+    algo.optimize(samples, state._replace(cum_steps=0))
     t_idx = torch.arange(1, 5).repeat_interleave(4)
     b_idx = torch.arange(4).repeat(4)
     batch = algo.replay.extract_batch(t_idx, b_idx)
@@ -540,7 +541,7 @@ def test_slice_matches_jax():
     algo.replay.sample_idxs = lambda n, g: (
         torch.tensor(np.asarray(t_idx)).long(),
         torch.tensor(np.asarray(b_idx)).long())
-    info = algo.optimize(samples, state.cum_steps)
+    info = algo.optimize(samples, state)
     assert algo.update_counter == 1
     np.testing.assert_allclose(float(info.loss), float(jloss), rtol=1e-5,
                                atol=1e-6)

@@ -174,7 +174,7 @@ def test_collect_and_optimize_match_jax(ernbw):
             np.testing.assert_array_equal(getattr(tb, name).numpy(),
                                           np.asarray(getattr(jb, name)),
                                           err_msg=name)
-        infos.append(algo.optimize(tb, state.cum_steps))
+        infos.append(algo.optimize(tb, state))
         replay_state = jalgo.replay.append(replay_state,
                                            jalgo.samples_to_buffer(jb))
     assert sum(int(np.asarray(jb.done).sum()) for jb in jbatches) == B
