@@ -11,6 +11,9 @@
     python3 bench_torch_profile.py --minatar-pg lstm_ppo
                      # a config of experiments/configs/minatar_pg.py
                      # (a2c, ppo, lstm_a2c, lstm_ppo) at its widths
+    python3 bench_torch_profile.py --sac-hopper
+                     # SAC on Hopper2D at full width (B=32, T=32, 256
+                     # updates an iteration)
 
 Builds the trainer of chip_smoke.py (full width; the Atari trainers in
 bf16, MinAtar in fp32), warms it up (DQN, ernbw and MinAtar: two
@@ -35,6 +38,11 @@ iterations) there is no replay: collect and optimize are timed as above,
 ``update_ms`` is the optimize time over its updates (16 for PPO), one
 evaluation (32 lanes, at most 100 episodes) is timed as ``eval_ms`` with
 the episodes it completed, and the table is profile_table_minatar_pg_CONFIG.txt.
+With --sac-hopper (after its 100 decorrelation steps and two iterations,
+the second the first with updates) the replay sample and the update are
+timed as for DQN, ``env_step_ms`` is one Hopper2D step of the 32 lanes
+(16 physics substeps) with a device sync, and the table is
+profile_table_sac_hopper.txt.
 """
 from __future__ import annotations
 
@@ -80,6 +88,9 @@ def main():
         runner, _ = build_runner(pg, device=dev, config_overrides={
             "runner": {"log_interval_steps": steps}})
         warmup, suffix = 2, f"_minatar_pg_{pg}"
+    elif "--sac-hopper" in sys.argv[1:]:
+        runner = cs.build_sac_hopper_runner(dev, n_itr=10)
+        steps, warmup, suffix = cs.SAC_T * cs.SAC_B, 2, "_sac_hopper"
     elif "--minatar" in sys.argv[1:]:
         runner = cs.build_minatar_runner(dev, n_itr=10)
         steps, warmup, suffix = cs.MINATAR_T * cs.MINATAR_B, 2, "_minatar"
@@ -117,6 +128,13 @@ def main():
         dt_update, _ = wall(lambda: [algo.update(b) for b in batches])
         extra.update(sample_ms_per_batch=1e3 * dt_sample / n,
                      update_ms=1e3 * dt_update / n)
+        if suffix == "_sac_hopper":
+            env = runner.env
+            state = runner.rollout_state.env_state
+            action = torch.zeros((cs.SAC_B, env.na), device=dev)
+            dt_env, _ = wall(lambda: [env.step_batch(state, action)
+                                      for _ in range(20)])
+            extra["env_step_ms"] = 1e3 * dt_env / 20
     else:
         extra["update_ms"] = (1e3 * statistics.median(optimize_s)
                               / algo.updates_per_optimize)

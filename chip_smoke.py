@@ -77,6 +77,22 @@ Phases, each fatal on failure:
      ppo and lstm_a2c for 2 iterations each, the feedforward two with no
      LSTM launch; (d) K3a, K3 and K4 against their plain versions and
      timed at the PG shapes (F=135, H=128).
+ 13. continuous control: (a) Pendulum, ContinuousMountainCar, Reacher,
+     Hopper2D and Cheetah2D each step 1024 lanes for 64 steps on the card
+     and on the CPU from the same draws and actions, the card from the
+     CPU's state each step, to float32 rounding (the locomotion envs to
+     a stated tolerance); (b) SAC trains Hopper2D at full width
+     (tests/test_locomotion.py:59-72: MLPs of 256, 256, B=32, T=32,
+     batch 256, 256 updates an iteration from 2000 steps on) for 4
+     iterations after 100 decorrelation steps through MinibatchRl:
+     finite losses and alpha, the update count of each iteration, alpha
+     moved; env-steps/s and host ms an env step and an update; (c) one
+     update of DDPG and SAC and two of TD3 on the card against the CPU;
+     (d) one recurrent Gaussian PPO optimize (MujocoLstmModel, LSTM 256,
+     a [256, 8] Hopper2D batch) on the card against the CPU, with its
+     exact K3a, K3 and K4 launches; (e) K3a, K3 and K4 against their
+     plain versions and timed at MujocoLstmModel's shapes (F=260,
+     H=256).
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -123,6 +139,13 @@ MINATAR_MODEL = dict(channels=(16,), kernel_sizes=(3,), strides=(1,),
 # (fc 128 + one-hot of 6 actions + the reward)
 PG_B, PG_T, PG_EVAL_B, PG_H, PG_F = 128, 16, 32, 128, 135
 PG_ITR = 4                   # lstm_ppo iterations in phase 12b
+CONT_B, CONT_STEPS = 1024, 64    # phase 13a: lanes and steps of each env
+SAC_ITR = 4                  # SAC Hopper2D iterations in phase 13b
+SAC_B, SAC_T = 32, 32        # its env lanes and steps per iteration
+# mujoco_pg.py's "ppo" sampler (T=256, B=8) and MujocoLstmModel's LSTM:
+# 256 units on [mlp 256, Hopper2D's 3 actions, the reward]
+MJ_T, MJ_B, MJ_H, MJ_F = 256, 8, 256, 260
+MJ_MINIBATCHES = 2           # recurrent PPO splits the 8 lanes in two
 
 
 def fail(msg: str):
@@ -273,6 +296,10 @@ R2D1_CASES = [(45, 32, LSTM_F, LSTM_H), (20, 32, LSTM_F, LSTM_H),
 # A2C window, a collection step, an evaluation step.
 PG_CASES = [(PG_T, PG_B // 4, PG_F, PG_H), (PG_T, PG_B, PG_F, PG_H),
             (1, PG_B, PG_F, PG_H), (1, PG_EVAL_B, PG_F, PG_H)]
+# MujocoLstmModel's shapes: a recurrent PPO minibatch window, the whole
+# batch, a collection step.
+MUJOCO_CASES = [(MJ_T, MJ_B // MJ_MINIBATCHES, MJ_F, MJ_H),
+                (MJ_T, MJ_B, MJ_F, MJ_H), (1, MJ_B, MJ_F, MJ_H)]
 
 
 def check_lstm(L, g, dev, cases=R2D1_CASES, suffix=""):
@@ -1285,6 +1312,467 @@ def time_lstm_pg(L, g, dev):
     return entries
 
 
+def near_health_bound(cls, state) -> torch.Tensor:
+    """Lanes of a locomotion state within 1e-3 of a health bound, where
+    rounding may decide termination: a speed in (100 - 1e-3, 100) (a
+    speed clipped to exactly 100 ends the episode on either side), and
+    for Hopper2D a torso height within 1e-3 of 0.8 or a pitch of 0.6."""
+    speed = state.qd.abs()
+    near = ((speed > 100.0 - 1e-3) & (speed < 100.0)).any(-1)
+    if cls.__name__ == "Hopper2D":
+        near |= ((state.q[:, 1] - 0.8).abs() < 1e-3) | (
+            (state.q[:, 2].abs() - 0.6).abs() < 1e-3)
+    return near
+
+
+def check_continuous_envs(dev):
+    """Phase 13a: the five continuous-control envs, card against CPU,
+    CONT_B lanes for CONT_STEPS steps from one set of reset draws and
+    actions (1.2 times the bounds, so the envs clip) made on a CPU
+    generator, lanes reset after every done, a time limit of 40.  Each
+    step starts the card from the CPU's state.  Pendulum,
+    ContinuousMountainCar and Reacher must agree to float32 rounding
+    (rtol 1e-5, atol 1e-5); Hopper2D and Cheetah2D (stiff contact
+    springs, 16 substeps, batched solves) to rtol 1e-4, atol 1e-3 in
+    state, observation and reward, with equal dones except on a lane
+    that either side puts within 1e-3 of a health bound
+    (``near_health_bound``; counted and printed)."""
+    from rlpyt_tpu_torch.envs.classic import ContinuousMountainCar, \
+        Pendulum
+    from rlpyt_tpu_torch.envs.locomotion import Cheetah2D, Hopper2D
+    from rlpyt_tpu_torch.envs.reacher import Reacher
+    from rlpyt_tpu_torch.struct import tree_map, tree_select
+
+    B, n_steps = CONT_B, CONT_STEPS
+    for cls in (Pendulum, ContinuousMountainCar, Reacher, Hopper2D,
+                Cheetah2D):
+        loco = cls in (Hopper2D, Cheetah2D)
+        rtol, atol = (1e-4, 1e-3) if loco else (1e-5, 1e-5)
+        cpu, card = (cls(max_steps=40, device=d) for d in ("cpu", dev))
+        g = torch.Generator().manual_seed(13)
+        resets = [cpu.draw_reset(B, g) for _ in range(n_steps + 1)]
+        actions = [1.2 * cpu.action_space.sample(g, (B,))
+                   for _ in range(n_steps)]
+        state = cpu.reset_batch(B, draws=resets[0])[0]
+        worst, flips, dones = 0.0, 0, 0
+        for i in range(n_steps):
+            s_c, st_c = cpu.step_batch(state, actions[i])
+            s_g, st_g = card.step_batch(
+                tree_map(lambda x: x.to(dev), state), actions[i].to(dev))
+            pairs = [("observation", st_c.observation, st_g.observation),
+                     ("reward", st_c.reward, st_g.reward)]
+            pairs += [(f, a, b) for f, a, b in zip(s_c._fields, s_c, s_g)
+                      if a.is_floating_point()]
+            for field, want, got in pairs:
+                err = (got.cpu() - want).abs()
+                if not bool((err <= atol + rtol * want.abs()).all()):
+                    fail(f"{cls.__name__}: {field} differs between card "
+                         f"and CPU at step {i} by {float(err.max()):.3g}")
+                worst = max(worst, float(err.max()))
+            differ = (st_g.done.cpu() != st_c.done) | (
+                st_g.info["timeout"].cpu() != st_c.info["timeout"])
+            if loco:
+                near = near_health_bound(cls, s_c) | near_health_bound(
+                    cls, tree_map(lambda x: x.cpu(), s_g))
+                differ &= ~near
+                flips += int(near.sum())
+            if bool(differ.any()) or not torch.equal(s_g.t.cpu(), s_c.t):
+                fail(f"{cls.__name__}: dones differ between card and CPU "
+                     f"at step {i}")
+            dones += int(st_c.done.sum())
+            state = tree_select(st_c.done,
+                                cpu.reset_batch(B, draws=resets[i + 1])[0],
+                                s_c)
+        print(f"phase 13a: {cls.__name__} B={B} {n_steps} steps, card "
+              f"against CPU: max abs err {worst:.3g} (tolerance rtol "
+              f"{rtol:g} atol {atol:g}), {dones} dones, {flips} lanes near "
+              f"a health bound")
+
+
+def build_sac_hopper_runner(dev, n_itr: int, logger=None):
+    """SAC on Hopper2D at full width (tests/test_locomotion.py:59-72):
+    pi and twin Q MLPs of (256, 256), B=32, T=32, batch 256, replay 200k,
+    replay ratio 64 (256 updates an iteration), lr 3e-4, tau 0.005,
+    learning from 2000 steps, 100 decorrelation steps.  One iteration
+    per log row."""
+    from rlpyt_tpu_torch.agents.qpg import SacAgent
+    from rlpyt_tpu_torch.algos.qpg import SAC
+    from rlpyt_tpu_torch.envs.locomotion import Hopper2D
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    agent = SacAgent(device=dev)
+    algo = SAC(batch_size=256, min_steps_learn=2_000, replay_size=200_000,
+               replay_ratio=64.0, learning_rate=3e-4,
+               target_update_tau=0.005)
+    steps = SAC_T * SAC_B
+    return MinibatchRl(algo, agent, Hopper2D(device=dev),
+                       BatchSpec(SAC_T, SAC_B), n_steps=n_itr * steps,
+                       seed=0, log_interval_steps=steps,
+                       max_decorrelation_steps=100, logger=logger,
+                       device=dev)
+
+
+def run_sac_hopper(dev):
+    """Phase 13b: SAC_ITR iterations of the SAC Hopper2D trainer through
+    MinibatchRl.  Checks finite losses and alpha, 256 updates in every
+    iteration from 2000 env steps on and none before, and that alpha
+    moved from 1.  Collect and optimize are timed with a device sync
+    after each; an env step alone is timed at B=32 (host issue time, then
+    wall time with the sync)."""
+    logger = row_logger()
+    runner = build_sac_hopper_runner(dev, SAC_ITR, logger)
+    runner.startup()
+    runner.startup = lambda: None    # train() below must not redo it
+    algo, coll = runner.algo, runner.collector
+    log = []
+    collect, optimize = coll.collect, algo.optimize
+
+    def timed_collect(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append({"collect_s": time.perf_counter() - t0})
+        return out
+
+    def timed_optimize(samples, rollout_state):
+        before = algo.update_counter
+        t0 = time.perf_counter()
+        out = optimize(samples, rollout_state)
+        torch.cuda.synchronize()
+        log[-1].update(optimize_s=time.perf_counter() - t0,
+                       updates=algo.update_counter - before,
+                       cum_steps=rollout_state.cum_steps)
+        return out
+
+    coll.collect, algo.optimize = timed_collect, timed_optimize
+    zero_launches()
+    runner.train()
+    torch.cuda.synchronize()
+    for entry, row in zip(log, logger.rows):
+        want = (algo.updates_per_optimize
+                if entry["cum_steps"] >= algo.min_steps_learn else 0)
+        if entry["updates"] != want or want not in (0, 256):
+            fail(f"SAC ran {entry['updates']} updates at "
+                 f"{entry['cum_steps']} steps, expected {want}")
+        for key in ("q_loss", "pi_loss", "q_grad_norm", "pi_grad_norm",
+                    "alpha", "StepsPerSecond"):
+            if not math.isfinite(row[key]):
+                fail(f"SAC: non-finite {key} in iteration "
+                     f"{row['Iteration']}")
+        per_update = (1e3 * entry["optimize_s"] / entry["updates"]
+                      if entry["updates"] else float("nan"))
+        print(f"sac hopper itr {row['Iteration']}: q_loss "
+              f"{row['q_loss']:.6g} pi_loss {row['pi_loss']:.6g} alpha "
+              f"{row['alpha']:.6g} env-steps/s {row['StepsPerSecond']:.1f};"
+              f" collect {1e3 * entry['collect_s']:.1f} ms "
+              f"({1e3 * entry['collect_s'] / SAC_T:.3f} ms an env step), "
+              f"optimize {1e3 * entry['optimize_s']:.1f} ms, "
+              f"{entry['updates']} updates ({per_update:.3f} ms each)")
+    if len(log) != SAC_ITR or sum(e["updates"] for e in log) != \
+            algo.update_counter or algo.update_counter == 0:
+        fail(f"SAC: {algo.update_counter} updates over {len(log)} "
+             "iterations")
+    if not logger.rows[-1]["alpha"] < 1.0:
+        fail(f"SAC: alpha {logger.rows[-1]['alpha']} did not move from 1")
+    env, state = runner.env, runner.rollout_state.env_state
+    action = torch.zeros((SAC_B, env.na), device=dev)
+    env.step_batch(state, action)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        env.step_batch(state, action)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    env_ms = dict(issue=1e3 * (t1 - t0) / 20, wall=1e3 * (t2 - t0) / 20)
+    return runner, log, env_ms
+
+
+def qpg_batch(dev, obs_size, action_size, batch, seed):
+    """A replay batch of ``batch`` transitions drawn on a CPU generator,
+    some done and some timed out, and moved to ``dev``."""
+    from rlpyt_tpu_torch.replay.base import AgentInputs, SamplesFromReplay
+    from rlpyt_tpu_torch.struct import tree_map
+
+    g = torch.Generator().manual_seed(seed)
+    obs, next_obs = (torch.randn((batch, obs_size), generator=g)
+                     for _ in range(2))
+    action = 2 * torch.rand((batch, action_size), generator=g) - 1
+    ret = torch.randn((batch,), generator=g)
+    done = torch.rand((batch,), generator=g) < 0.1
+    timeout = (torch.rand((batch,), generator=g) < 0.1) & ~done
+    zeros = torch.zeros((batch,))
+    b = SamplesFromReplay(
+        AgentInputs(obs, torch.zeros_like(action), zeros), action, ret,
+        done, done, timeout, AgentInputs(next_obs, action, ret),
+        torch.ones((batch,)), (zeros.long(), zeros.long()))
+    return tree_map(lambda x: x.to(dev), b)
+
+
+# An Adam step moves each element by lr m / (sqrt(v) + 1e-8), v the
+# bias-corrected running mean of g^2 (at the first step m / sqrt(v) is
+# g / |g|), so a relative error e in g moves the step by up to
+# lr e 1e-8 / sqrt(v).  Where sqrt(v) is below 1e-6, a gradient whose sum
+# cancels to 10 % rounding moves it by more than 1e-3 of lr, and that
+# error stays in the element (dead ReLU units give exact zeros).  Phases
+# 13c and 13d hold the parameters to 1e-3 of the largest change on the
+# other elements only; the excluded ones are counted and printed.
+ADAM_TINY_GRAD = 1e-6
+ADAM_B2 = 0.999
+
+
+def spy_grads(optimizers: dict, names: dict) -> dict:
+    """Record the gradients each Adam sees (after any clipping) at each of
+    its steps, on the CPU: {optimizer key: [{param name: grad}, ...]}.
+    ``names``: the optimizer key -> the state_dict names of its params, in
+    order."""
+    seen = {key: [] for key in optimizers}
+    for key, opt in optimizers.items():
+        real = opt.inner.step
+
+        def step(key=key, opt=opt, real=real):
+            seen[key].append({n: p.grad.detach().cpu().clone() for n, p in
+                              zip(names[key], opt.params)})
+            return real()
+
+        opt.inner.step = step
+    return seen
+
+
+def hold_update(tag: str, before, after_c, after_g, grads_c, grads_g):
+    """The card's update against the CPU's: each optimizer's first-step
+    gradients to 1e-4 of their largest magnitude; every parameter (and
+    each target, through its online network's mask) to 1e-3 of the
+    largest change any parameter made, except elements whose Adam RMS
+    sqrt(v), from the CPU's gradients, fell below ADAM_TINY_GRAD at some
+    step.  Returns (diff, change,
+    number of elements excluded, their largest diff)."""
+    tiny = {}
+    for key, steps in grads_c.items():
+        if not steps:
+            continue
+        for name in steps[0]:
+            v = torch.zeros_like(steps[0][name])
+            tiny[name] = torch.zeros_like(v, dtype=torch.bool)
+            for t, st in enumerate(steps, 1):
+                v = ADAM_B2 * v + (1 - ADAM_B2) * st[name] ** 2
+                tiny[name] |= (v / (1 - ADAM_B2 ** t)).sqrt() \
+                    < ADAM_TINY_GRAD
+            want, got = steps[0][name], grads_g[key][0][name]
+            err = float((got - want).abs().max())
+            scale = max(float(want.abs().max()) for want in
+                        steps[0].values())
+            if not err <= 1e-4 * scale:
+                fail(f"{tag}: gradient of {name} differs by {err:.3g}, the "
+                     f"largest gradient is {scale:.3g}")
+    change = max(float((after_c[k] - before[k]).abs().max())
+                 for k in before)
+    diff, n_tiny, tiny_diff = 0.0, 0, 0.0
+    for k in before:
+        d = (after_g[k] - after_c[k]).abs()
+        mask = tiny.get(k[len("target_"):] if k.startswith("target_") else k)
+        if mask is not None:
+            n_tiny += int(mask.sum())
+            if bool(mask.any()):
+                tiny_diff = max(tiny_diff, float(d[mask].max()))
+            d = d[~mask]
+        if d.numel():
+            diff = max(diff, float(d.max()))
+    if not (change > 0 and diff <= 1e-3 * change):
+        fail(f"{tag}: params differ by {diff:.3g}; the largest change is "
+             f"{change:.3g}")
+    return diff, change, n_tiny, tiny_diff
+
+
+def check_qpg_against_cpu(dev):
+    """Phase 13c: one update of DDPG and SAC and two of TD3 (the second
+    steps mu) at the main path's widths (Hopper2D's spaces, MLPs of
+    (256, 256), batch 256) on the card against the same calls on the CPU,
+    from the same weights, batch and noise; TF32 off.  Losses, grad norms
+    and alpha to 1e-4 (relative, or absolute below 1); the gradients and
+    parameters as ``hold_update`` says."""
+    from rlpyt_tpu_torch.agents.qpg import DdpgAgent, SacAgent, Td3Agent
+    from rlpyt_tpu_torch.algos.qpg import DDPG, SAC, TD3
+    from rlpyt_tpu_torch.envs.locomotion import Hopper2D
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    spaces = Hopper2D(device="cpu").spaces
+    n_obs, n_act = spaces.observation.shape[0], spaces.action.shape[0]
+    kinds = (("ddpg", DdpgAgent, DDPG, 1), ("td3", Td3Agent, TD3, 2),
+             ("sac", SacAgent, SAC, 1))
+    for key, Agent, Algo, n_updates in kinds:
+        out = {}
+        for d in ("cpu", dev):
+            agent = Agent(device=d)
+            torch.manual_seed(0)    # the same weights on both sides
+            agent.initialize(spaces)
+            before = {k: v.detach().clone().cpu()
+                      for k, v in agent.nets.state_dict().items()}
+            algo = Algo(batch_size=256, min_steps_learn=0, replay_size=4096)
+            algo.initialize(agent, BatchSpec(SAC_T, SAC_B),
+                            torch.zeros((SAC_B, n_obs), device=d),
+                            torch.Generator(device=d))
+            grads = spy_grads(algo.optimizers, {
+                name: [f"{name}.{n}" for n, _ in
+                       agent.nets[name].named_parameters()]
+                for name in algo.optimizers})
+            g = torch.Generator().manual_seed(21)
+            infos = []
+            for i in range(n_updates):
+                noise = tuple(torch.randn((256, n_act), generator=g)
+                              .to(d) for _ in range(2))
+                noise = {"ddpg": None, "td3": noise[0], "sac": noise}[key]
+                infos.append(algo.update(qpg_batch(d, n_obs, n_act, 256,
+                                                   30 + i), noise))
+            after = {k: v.detach().cpu()
+                     for k, v in agent.nets.state_dict().items()}
+            out[d] = (infos[-1], before, after, grads)
+        (info_c, before, after_c, grads_c), (info_g, _, after_g, grads_g) \
+            = out["cpu"], out[dev]
+        for field in info_c._fields:
+            want, got = (float(getattr(i, field)) for i in (info_c, info_g))
+            if not abs(got - want) <= 1e-4 * max(1.0, abs(want)):
+                fail(f"phase 13c {key}: {field} {got!r} on the card, "
+                     f"{want!r} on the CPU")
+        diff, change, n_tiny, tiny_diff = hold_update(
+            f"phase 13c {key}", before, after_c, after_g, grads_c, grads_g)
+        print(f"phase 13c: {key} {n_updates} update(s) card against CPU: "
+              f"q_loss {float(info_g.q_loss):.6g} / "
+              f"{float(info_c.q_loss):.6g}, pi_loss "
+              f"{float(info_g.pi_loss):.6g} / {float(info_c.pi_loss):.6g}, "
+              f"alpha {float(info_g.alpha):.6g}; first-step gradients "
+              f"within 1e-4; params differ by {diff:.3g} = "
+              f"{diff / change:.3g} of the largest change ({n_tiny} "
+              f"elements with an Adam RMS below {ADAM_TINY_GRAD:g} "
+              f"excluded, their largest diff {tiny_diff:.3g})")
+
+
+# mujoco_pg.py's "ppo" algo settings, with 2 minibatches of 4 lanes.
+MJ_PPO = dict(discount=0.99, learning_rate=3e-4, value_loss_coeff=1.0,
+              entropy_loss_coeff=0.0, clip_grad_norm=1.0, gae_lambda=0.95,
+              minibatches=MJ_MINIBATCHES, epochs=10, ratio_clip=0.2,
+              normalize_advantage=True, linear_lr_schedule=True)
+
+
+def check_gaussian_ppo_against_cpu(L, dev):
+    """Phase 13d: one recurrent Gaussian PPO optimize (MujocoLstmModel at
+    its defaults: mlp 256, LSTM 256) on a [256, 8] Hopper2D batch that
+    the CPU agent collected, on the card (K3a, K3, K4) against the same
+    call on the CPU (plain versions), from the same weights and
+    permutations; TF32 off.  Infos to 1e-4, the gradients and parameters
+    as ``hold_update`` says.  The card's launches must be exactly the
+    path's:
+    one K3a and one one-step K3 for the bootstrap value, then a K3a, a
+    K3 and a K4 for each of the 10 x 2 minibatch windows.  Returns the
+    launch counts."""
+    from rlpyt_tpu_torch.agents.pg import RecurrentGaussianPgAgent
+    from rlpyt_tpu_torch.algos.pg import PPO
+    from rlpyt_tpu_torch.envs.locomotion import Hopper2D
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector
+    from rlpyt_tpu_torch.struct import tree_map
+
+    env = Hopper2D(device="cpu")
+    spec = BatchSpec(MJ_T, MJ_B)
+    torch.manual_seed(0)
+    collector_agent = RecurrentGaussianPgAgent(device="cpu")
+    collector_agent.initialize(env.spaces)
+    collector = Collector(env, collector_agent, spec, discount=0.99)
+    g = torch.Generator().manual_seed(5)
+    last, samples = collector.collect(collector.init_state(g), g)
+    perms = torch.stack([torch.randperm(MJ_B, generator=g)
+                         for _ in range(MJ_PPO["epochs"])])
+    out = {}
+    for d in ("cpu", dev):
+        agent = RecurrentGaussianPgAgent(device=d)
+        torch.manual_seed(1)
+        agent.initialize(env.spaces)
+        before = {k: v.detach().clone().cpu()
+                  for k, v in agent.model.state_dict().items()}
+        algo = PPO(**MJ_PPO)
+        algo.initialize(agent, spec, None, torch.Generator(device=d),
+                        n_itr=10)
+        move = (lambda x: x.to(d)) if d != "cpu" else (lambda x: x)
+        state = last._replace(**{
+            f: tree_map(move, getattr(last, f)) for f in
+            ("observation", "prev_action", "prev_reward", "agent_carry")})
+        grads = spy_grads({"model": algo.optimizer}, {"model": [
+            n for n, _ in agent.model.named_parameters()]})
+        zero_launches()
+        info = algo.optimize(tree_map(move, samples), state,
+                             permutations=perms)
+        after = {k: v.detach().cpu()
+                 for k, v in agent.model.state_dict().items()}
+        out[d] = (info, before, after, grads, {
+            "lstm_input_proj": L.input_proj.launches,
+            "lstm_fwd": L.lstm_fwd.launches,
+            "lstm_fwd_t1": L.lstm_fwd.step_launches,
+            "lstm_bwd": L.lstm_bwd.launches})
+    (info_c, before, after_c, grads_c, _), \
+        (info_g, _, after_g, grads_g, launches) = out["cpu"], out[dev]
+    windows = MJ_PPO["epochs"] * MJ_MINIBATCHES
+    want = {"lstm_input_proj": windows + 1, "lstm_fwd": windows + 1,
+            "lstm_fwd_t1": 1, "lstm_bwd": windows}
+    if launches != want:
+        fail(f"phase 13d: LSTM launches {launches}, expected {want}")
+    for field in info_c._fields:
+        w, got = (float(getattr(i, field)) for i in (info_c, info_g))
+        if not abs(got - w) <= 1e-4 * max(1.0, abs(w)):
+            fail(f"phase 13d: {field} {got!r} on the card, {w!r} on the CPU")
+    diff, change, n_tiny, tiny_diff = hold_update(
+        "phase 13d", before, after_c, after_g, grads_c, grads_g)
+    print(f"phase 13d: recurrent Gaussian PPO optimize card against CPU: "
+          f"loss {float(info_g.loss):.6g} / {float(info_c.loss):.6g}, "
+          f"grad_norm {float(info_g.grad_norm):.6g} / "
+          f"{float(info_c.grad_norm):.6g}; first-step gradients within "
+          f"1e-4; params differ by {diff:.3g} = {diff / change:.3g} of the "
+          f"largest change ({n_tiny} elements with an Adam RMS below "
+          f"{ADAM_TINY_GRAD:g} excluded, their largest diff "
+          f"{tiny_diff:.3g}); LSTM launches {launches}")
+    return launches
+
+
+def time_lstm_mujoco(L, g, dev):
+    """Phase 13e: K3a, K3 and K4 at MujocoLstmModel's shapes (F=260,
+    H=256) beside their plain versions, bounds and library calls.
+    Entries: K3a at a PPO minibatch window's 1024 rows, K3 and K4 at
+    that window (T=256, B=4), K3 at a collection step (T=1, B=8).
+    Printed: K3a at 8 rows (a collection step) and 2048 (the whole
+    batch), K3 and K4 at the whole batch (T=256, B=8)."""
+    F, H = MJ_F, MJ_H
+    mb = lstm_case(g, MJ_T, MJ_B // MJ_MINIBATCHES, F, H, dev)
+    win = lstm_case(g, MJ_T, MJ_B, F, H, dev)
+    wx, b = mb["wx"], mb["b"]
+    entries = add_bounds({
+        "lstm_input_proj_mujoco": proj_times(L, mb["x"].view(-1, F), [wx],
+                                             b, 50),
+        "lstm_fwd_mujoco": fwd_times(L, mb, dev, 10, 3),
+        "lstm_fwd_t1_mujoco": fwd_times(
+            L, lstm_case(g, 1, MJ_B, F, H, dev), dev, 50, 20),
+        "lstm_bwd_mujoco": bwd_times(L, mb, g, dev, 10, 3),
+    })
+    printed = add_bounds({
+        f"lstm_input_proj M={MJ_B}": proj_times(
+            L, torch.randn((MJ_B, F), generator=g, device=dev), [wx], b,
+            50),
+        f"lstm_input_proj M={MJ_T * MJ_B}": proj_times(
+            L, win["x"].view(-1, F), [wx], b, 50),
+        f"lstm_fwd T={MJ_T} B={MJ_B}": fwd_times(L, win, dev, 10, 3),
+        f"lstm_bwd T={MJ_T} B={MJ_B}": bwd_times(L, win, g, dev, 10, 3),
+    })
+    for name, t in list(entries.items()) + list(printed.items()):
+        print(f"phase 13e: {name} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; library call "
+              f"{t['library_ms']:.4f} ms"
+              + (f", device {t['library_device_ms']:.4f} ms"
+                 if t.get("library_device_ms") else "")
+              + f"; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
+              f"operations, {t['bytes']} bytes)")
+    return entries
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1321,6 +1809,8 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # "_pg" entries are the same kernels at minatar_pg.py's shapes (H=128),
 # with the launches of phase 12b's lstm_ppo run: K3a all of them (timed
 # at the minibatch's 512 rows), K3 those at T=16 and at T=1, K4 all.
+# The "_mujoco" entries: MujocoLstmModel's shapes (F=260, H=256), with
+# the launches of phase 13d's recurrent Gaussian PPO optimize.
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
@@ -1333,6 +1823,10 @@ KERNELS = {
     "lstm_fwd_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_fwd_t1_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_bwd_pg": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "lstm_input_proj_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_t1_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_bwd_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
     "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
 }
@@ -1509,6 +2003,32 @@ def main():
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     print(f"phase 12: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    check_continuous_envs(dev)
+    runner, sac_log, env_ms = run_sac_hopper(dev)
+    steady = [e for e in sac_log if e["updates"]]
+    print(f"phase 13b: SAC Hopper2D {SAC_ITR} iterations at full width "
+          f"after 100 decorrelation steps, {runner.algo.update_counter} "
+          f"updates; host ms an update "
+          f"{[round(1e3 * e['optimize_s'] / e['updates'], 3) for e in steady]}"
+          f", an env step in collection "
+          f"{[round(1e3 * e['collect_s'] / SAC_T, 3) for e in sac_log]}; "
+          f"Hopper2D step_batch alone at B={SAC_B}: host issue "
+          f"{env_ms['issue']:.3f} ms, wall {env_ms['wall']:.3f} ms")
+    del runner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_qpg_against_cpu(dev)
+    mj_launches = check_gaussian_ppo_against_cpu(L, dev)
+    launches.update({name + "_mujoco": n for name, n in mj_launches.items()})
+    launches["lstm_fwd_mujoco"] -= launches["lstm_fwd_t1_mujoco"]
+    errs.update(check_lstm(L, g, dev, MUJOCO_CASES, "_mujoco"))
+    times.update(time_lstm_mujoco(L, g, dev))
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 13: {time.time() - t0:.1f} s")
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

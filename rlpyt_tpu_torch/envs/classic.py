@@ -1,14 +1,14 @@
 """Classic-control environments on batched tensors (port of
-rlpyt_tpu/envs/classic.py: CartPoleState, CartPole).
+rlpyt_tpu/envs/classic.py: CartPole, Pendulum, ContinuousMountainCar).
 
-CartPole-v1 dynamics with gym's constants, Euler integration and an
-internal time limit, for B lanes at once on [B] tensors.  The only
-randomness is the reset's four uniform values in [-0.05, 0.05);
+Gym's dynamics and constants, with an internal time limit, for B lanes at
+once on [B] tensors.  The only randomness is the reset's uniform values;
 ``draw_reset`` draws them and ``reset_batch(draws=...)`` accepts them, so
-a test can inject the values JAX's per-lane keys give.  The step is
+a test can inject the values JAX's per-lane keys give.  A step is
 deterministic and follows the JAX package's float32 arithmetic operation
 for operation; the sine and cosine are torch's, which may round the last
-bit otherwise than XLA's.
+bit otherwise than XLA's.  ``done`` includes the time limit, and
+``info["timeout"]`` flags a truncation that is not also a termination.
 """
 from __future__ import annotations
 
@@ -104,5 +104,157 @@ class CartPole(Env):
                       | (new.theta.abs() > self.theta_threshold))
         truncated = new.t >= self.max_steps
         reward = torch.ones_like(new.x)
+        return new, EnvStep(self._obs(new), reward, terminated | truncated,
+                            {"timeout": truncated & ~terminated})
+
+
+class PendulumState(NamedTuple):
+    theta: torch.Tensor
+    theta_dot: torch.Tensor
+    t: torch.Tensor
+
+
+class PendulumResetDraws(NamedTuple):
+    theta: torch.Tensor       # [B] uniform in [-pi, pi)
+    theta_dot: torch.Tensor   # [B] uniform in [-1, 1)
+
+
+class Pendulum(Env):
+    """Pendulum-v1: a torque-limited swing-up, reward -(angle^2 + 0.1
+    speed^2 + 0.001 torque^2), truncation only."""
+
+    max_speed = 8.0
+    max_torque = 2.0
+    dt = 0.05
+    g = 10.0
+    m = 1.0
+    length = 1.0
+
+    def __init__(self, max_steps: int = 200, device="cuda"):
+        self.max_steps = max_steps
+        self.device = torch.device(device)
+
+    @property
+    def observation_space(self):
+        return FloatBox(low=[-1.0, -1.0, -self.max_speed],
+                        high=[1.0, 1.0, self.max_speed], shape=(3,))
+
+    @property
+    def action_space(self):
+        return FloatBox(low=-self.max_torque, high=self.max_torque,
+                        shape=(1,))
+
+    @property
+    def horizon(self):
+        return self.max_steps
+
+    @staticmethod
+    def _obs(s: PendulumState) -> torch.Tensor:
+        return torch.stack([torch.cos(s.theta), torch.sin(s.theta),
+                            s.theta_dot], dim=-1)
+
+    def draw_reset(self, n: int, generator: torch.Generator
+                   ) -> PendulumResetDraws:
+        u = torch.rand((2, n), generator=generator, device=generator.device)
+        return PendulumResetDraws(u[0] * (2 * math.pi) - math.pi,
+                                  u[1] * 2.0 - 1.0)
+
+    def reset_batch(self, n: int, generator: Optional[torch.Generator] = None,
+                    draws: Optional[PendulumResetDraws] = None):
+        if draws is None:
+            draws = self.draw_reset(n, generator)
+        s = PendulumState(
+            draws.theta.to(self.device, torch.float32),
+            draws.theta_dot.to(self.device, torch.float32),
+            torch.zeros((n,), dtype=torch.int32, device=self.device))
+        return s, self._obs(s)
+
+    def step_batch(self, state: PendulumState, action: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """``action`` [B, 1]; ``generator`` is not used."""
+        u = torch.clamp(action[..., 0], -self.max_torque, self.max_torque)
+        th, thdot = state.theta, state.theta_dot
+        norm_th = torch.remainder(th + math.pi, 2 * math.pi) - math.pi
+        cost = norm_th ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        newthdot = thdot + (
+            3 * self.g / (2 * self.length) * torch.sin(th)
+            + 3.0 / (self.m * self.length ** 2) * u) * self.dt
+        newthdot = torch.clamp(newthdot, -self.max_speed, self.max_speed)
+        new = PendulumState(th + newthdot * self.dt, newthdot, state.t + 1)
+        truncated = new.t >= self.max_steps
+        return new, EnvStep(self._obs(new), -cost, truncated,
+                            {"timeout": truncated})
+
+
+class MountainCarState(NamedTuple):
+    position: torch.Tensor
+    velocity: torch.Tensor
+    t: torch.Tensor
+
+
+class MountainCarResetDraws(NamedTuple):
+    position: torch.Tensor   # [B] uniform in [-0.6, -0.4)
+
+
+class ContinuousMountainCar(Env):
+    """MountainCarContinuous-v0: +100 at the goal, -0.1 force^2 a step."""
+
+    min_position = -1.2
+    max_position = 0.6
+    max_speed = 0.07
+    goal_position = 0.45
+    power = 0.0015
+
+    def __init__(self, max_steps: int = 999, device="cuda"):
+        self.max_steps = max_steps
+        self.device = torch.device(device)
+
+    @property
+    def observation_space(self):
+        return FloatBox(low=[self.min_position, -self.max_speed],
+                        high=[self.max_position, self.max_speed], shape=(2,))
+
+    @property
+    def action_space(self):
+        return FloatBox(low=-1.0, high=1.0, shape=(1,))
+
+    @property
+    def horizon(self):
+        return self.max_steps
+
+    @staticmethod
+    def _obs(s: MountainCarState) -> torch.Tensor:
+        return torch.stack([s.position, s.velocity], dim=-1)
+
+    def draw_reset(self, n: int, generator: torch.Generator
+                   ) -> MountainCarResetDraws:
+        u = torch.rand((n,), generator=generator, device=generator.device)
+        return MountainCarResetDraws(u * 0.2 - 0.6)
+
+    def reset_batch(self, n: int, generator: Optional[torch.Generator] = None,
+                    draws: Optional[MountainCarResetDraws] = None):
+        if draws is None:
+            draws = self.draw_reset(n, generator)
+        position = draws.position.to(self.device, torch.float32)
+        s = MountainCarState(position, torch.zeros_like(position),
+                             torch.zeros((n,), dtype=torch.int32,
+                                         device=self.device))
+        return s, self._obs(s)
+
+    def step_batch(self, state: MountainCarState, action: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """``action`` [B, 1]; ``generator`` is not used."""
+        force = torch.clamp(action[..., 0], -1.0, 1.0)
+        velocity = state.velocity + force * self.power - 0.0025 * torch.cos(
+            3 * state.position)
+        velocity = torch.clamp(velocity, -self.max_speed, self.max_speed)
+        position = torch.clamp(state.position + velocity,
+                               self.min_position, self.max_position)
+        velocity = torch.where(
+            (position <= self.min_position) & (velocity < 0), 0.0, velocity)
+        new = MountainCarState(position, velocity, state.t + 1)
+        terminated = position >= self.goal_position
+        truncated = new.t >= self.max_steps
+        reward = torch.where(terminated, 100.0, 0.0) - 0.1 * force ** 2
         return new, EnvStep(self._obs(new), reward, terminated | truncated,
                             {"timeout": truncated & ~terminated})

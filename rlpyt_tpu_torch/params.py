@@ -13,6 +13,17 @@ the policy-gradient AtariFfModel, AtariLstmModel)::
     params/DuelingHead_0/MlpModel_1/Dense_{j}/.. <->  head.val.layers.{j}.{..}
     params/DistributionalDuelingHead_0/MlpModel_{0,1}/..  <->  head.{adv,val}...
     params/LstmCore_0/{wx,wh,b}                  <->  lstm.{wx,wh,b}
+    params/MlpModel_1/Dense_{j}/.. (Gaussian V)  <->  value_mlp.layers.{j}...
+    params/log_std  (Gaussian PG)                <->  log_std
+    norm_stats/RunningMeanStd_0/{mean,var,count} <->  obs_norm.{mean,var,count}
+
+The Q-value policy-gradient agents keep a dict of networks ("mu" or
+"pi", "q" or "q1"/"q2", "target_*"), each a flax MlpModel_0:
+``from_jax_qpg_params`` and ``to_jax_qpg_params`` map that dict onto the
+agent's ``nets`` state_dict::
+
+    {name}/params/MlpModel_0/Dense_{j}/{kernel,bias}
+        <->  {name}.mlp.layers.{j}.{weight,bias}
 
 Layout rules:
 
@@ -31,7 +42,9 @@ Layout rules:
 
   The rank of ``Conv_0/kernel`` (5 or 4) says which form a tree holds.
 - A tree with a top-level ``Dense_0`` is a policy-gradient tree: its
-  ``MlpModel_0`` is the fc trunk before the pi and V layers.
+  ``MlpModel_0`` is the fc trunk before the pi and V layers, and a
+  top-level ``MlpModel_1`` (the Gaussian feedforward model's) is the V
+  MLP.
 - Both dueling heads map onto ``head.adv`` / ``head.val``.  Going back,
   the value stream's output width says which flax module a state_dict
   came from: 1 for ``DuelingHead_0``, ``n_atoms`` (> 1) for
@@ -54,6 +67,9 @@ _HEADS = ((("MlpModel_0",), "head"),
 
 # A policy-gradient model's top-level pi and V layers.
 _PG_DENSE = {"Dense_0": "pi", "Dense_1": "value"}
+# The Gaussian feedforward model's V MLP, and its observation statistics.
+_PG_VALUE_MLP = ("MlpModel_1", "value_mlp")
+_NORM = ("RunningMeanStd_0", "obs_norm")
 
 
 def _s2d_to_plain(kernel: np.ndarray) -> np.ndarray:
@@ -103,6 +119,18 @@ def from_jax_params(tree) -> Dict[str, np.ndarray]:
             out[f"{prefix}.weight"] = np.ascontiguousarray(
                 np.asarray(p[flax_name]["kernel"]).T)
             out[f"{prefix}.bias"] = np.asarray(p[flax_name]["bias"])
+    if pg:
+        for name, leaf in p.get(_PG_VALUE_MLP[0], {}).items():
+            j = int(name.split("_")[1])
+            out[f"{_PG_VALUE_MLP[1]}.layers.{j}.weight"] = \
+                np.ascontiguousarray(np.asarray(leaf["kernel"]).T)
+            out[f"{_PG_VALUE_MLP[1]}.layers.{j}.bias"] = np.asarray(
+                leaf["bias"])
+    if "log_std" in p:
+        out["log_std"] = np.asarray(p["log_std"])
+    stats = tree.get("norm_stats", {}).get(_NORM[0], {})
+    for name, leaf in stats.items():
+        out[f"{_NORM[1]}.{name}"] = np.asarray(leaf)
     return out
 
 
@@ -120,8 +148,9 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
     paths = {prefix: path for path, prefix in _HEADS
              if path[0] in ("MlpModel_0", dueling)}
     paths["fc"] = ("MlpModel_0",)
+    paths[_PG_VALUE_MLP[1]] = (_PG_VALUE_MLP[0],)
     pg_dense = {prefix: name for name, prefix in _PG_DENSE.items()}
-    tree = {}
+    tree, stats = {}, {}
 
     def node(path):
         d = tree
@@ -131,7 +160,11 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
 
     for key, v in sd.items():
         prefix, _, rest = key.rpartition(".layers.")
-        if key.startswith("conv."):
+        if key == "log_std":
+            tree["log_std"] = v
+        elif key.startswith(_NORM[1] + "."):
+            stats[key.split(".")[1]] = v
+        elif key.startswith("conv."):
             i, kind = key.split(".")[2:]
             leaf = node(("Conv2dModel_0", f"Conv_{i}"))
             if kind == "weight":
@@ -157,4 +190,35 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
                 leaf["kernel"] = np.ascontiguousarray(v.T)
             else:
                 leaf["bias"] = v
+    if stats:
+        return {"params": tree, "norm_stats": {_NORM[0]: stats}}
     return {"params": tree}
+
+
+def from_jax_qpg_params(tree) -> Dict[str, np.ndarray]:
+    """A QPG agent's dict of flax trees (or of their gradients) -> the
+    state_dict of its ``nets``."""
+    out = {}
+    for group, sub in tree.items():
+        mlp = (sub["params"] if "params" in sub else sub)["MlpModel_0"]
+        for name, leaf in mlp.items():
+            j = int(name.split("_")[1])
+            out[f"{group}.mlp.layers.{j}.weight"] = np.ascontiguousarray(
+                np.asarray(leaf["kernel"]).T)
+            out[f"{group}.mlp.layers.{j}.bias"] = np.asarray(leaf["bias"])
+    return out
+
+
+def to_jax_qpg_params(state_dict) -> dict:
+    """A QPG agent's ``nets`` state_dict -> its dict of flax trees."""
+    tree = {}
+    for key, v in state_dict.items():
+        group, _, _, j, kind = key.split(".")
+        v = np.asarray(v.detach().cpu() if hasattr(v, "detach") else v)
+        leaf = tree.setdefault(group, {"params": {"MlpModel_0": {}}})[
+            "params"]["MlpModel_0"].setdefault(f"Dense_{j}", {})
+        if kind == "weight":
+            leaf["kernel"] = np.ascontiguousarray(v.T)
+        else:
+            leaf["bias"] = v
+    return tree

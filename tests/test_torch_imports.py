@@ -13,7 +13,8 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
               + [ROOT / "chip_smoke.py"]
               + sorted(ROOT.glob("bench_torch_*.py"))
               + [ROOT / "tests" / "test_torch_minatar_learning.py",
-                 ROOT / "tests" / "test_torch_pg_learning.py"])
+                 ROOT / "tests" / "test_torch_pg_learning.py",
+                 ROOT / "tests" / "test_torch_qpg_learning.py"])
 
 
 def imported_modules(path: Path):
@@ -43,8 +44,12 @@ def test_scan_covers_the_port():
                  "samplers/rollout.py", "runners/train.py",
                  "utils/logging.py", "utils/variant.py",
                  "experiments/configs/minatar_pg.py",
-                 "experiments/scripts/minatar_pg.py"):
+                 "experiments/scripts/minatar_pg.py",
+                 "distributions/gaussian.py", "envs/reacher.py",
+                 "envs/locomotion.py", "models/qpg.py", "agents/qpg.py",
+                 "algos/qpg.py", "models/running_norm.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
     assert "bench_torch_minatar.py" in names
+    assert "tests/test_torch_qpg_learning.py" in names
     assert "chip_smoke.py" in names and len(names) > 20

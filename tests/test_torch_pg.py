@@ -2,10 +2,13 @@
 CPU: returns and GAE, the categorical distribution, the optimizers, both
 PG models through the weight bridge, one step of each agent, A2C and PPO
 (feedforward and recurrent), evaluation, and the four MinAtar PG configs
-through ``build_and_train``.
+through ``build_and_train``; then the Gaussian half: MujocoFfModel (with
+the never-updated observation statistics), MujocoLstmModel, one step of
+each Gaussian agent, and Gaussian A2C and PPO updates.
 
-The RNG streams differ, so the JAX draws are injected: Gumbel noise for
-sampling, permutations for PPO's minibatches, reset values for CartPole.
+The RNG streams differ, so the JAX draws are injected: Gumbel noise and
+standard normals for sampling, permutations for PPO's minibatches, reset
+values for CartPole.
 Tolerances, float32 throughout:
 - returns and GAE: rtol 1e-6, atol 1e-7 (JAX sums by an associative
   scan, the port by a reverse loop);
@@ -34,12 +37,16 @@ from torch import nn
 
 from rlpyt_tpu.agents.base import StepCtx
 from rlpyt_tpu.agents.pg import CategoricalPgAgent as JaxPgAgent
+from rlpyt_tpu.agents.pg import GaussianPgAgent as JaxGaussianPgAgent
 from rlpyt_tpu.agents.pg import RecurrentCategoricalPgAgent as JaxRecPgAgent
+from rlpyt_tpu.agents.pg import \
+    RecurrentGaussianPgAgent as JaxRecGaussianPgAgent
 from rlpyt_tpu.algos.base import make_optimizer as jax_make_optimizer
 from rlpyt_tpu.algos.pg import A2C as JaxA2C
 from rlpyt_tpu.algos.pg import PPO as JaxPPO
 from rlpyt_tpu.distributions.categorical import Categorical as JaxCategorical
 from rlpyt_tpu.distributions.categorical import DistInfo as JaxDistInfo
+from rlpyt_tpu.distributions.gaussian import DistInfoStd as JaxDistInfoStd
 from rlpyt_tpu.envs.base import EnvSpaces as JaxEnvSpaces
 from rlpyt_tpu.envs.classic import CartPole as JaxCartPole
 from rlpyt_tpu.models.mlp import MlpModel as JaxMlpModel
@@ -49,16 +56,20 @@ from rlpyt_tpu.ops import returns as jax_returns
 from rlpyt_tpu.samplers.rollout import BatchSpec as JaxBatchSpec
 from rlpyt_tpu.samplers.rollout import Collector as JaxCollector
 from rlpyt_tpu.samplers.rollout import Samples as JaxSamples
+from rlpyt_tpu.spaces import FloatBox as JaxFloatBox
 from rlpyt_tpu.spaces import IntBox as JaxIntBox
 from rlpyt_tpu.struct import infer_leading_dims as jax_lead_dims
 from rlpyt_tpu.struct import restore_leading_dims as jax_restore_dims
 from rlpyt_tpu_torch.agents.pg import (
     CategoricalPgAgent,
+    GaussianPgAgent,
     RecurrentCategoricalPgAgent,
+    RecurrentGaussianPgAgent,
 )
 from rlpyt_tpu_torch.algos.base import make_optimizer
 from rlpyt_tpu_torch.algos.pg import A2C, PPO
 from rlpyt_tpu_torch.distributions.categorical import Categorical, DistInfo
+from rlpyt_tpu_torch.distributions.gaussian import DistInfoStd
 from rlpyt_tpu_torch.envs.base import EnvSpaces
 from rlpyt_tpu_torch.envs.classic import CartPole, CartPoleResetDraws
 from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
@@ -68,7 +79,7 @@ from rlpyt_tpu_torch.models.pg import AtariFfModel, AtariLstmModel, dense
 from rlpyt_tpu_torch.ops import returns
 from rlpyt_tpu_torch.params import from_jax_params, to_jax_params
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector, Samples
-from rlpyt_tpu_torch.spaces import IntBox
+from rlpyt_tpu_torch.spaces import FloatBox, IntBox
 from rlpyt_tpu_torch.struct import infer_leading_dims, restore_leading_dims
 from rlpyt_tpu_torch.utils.variant import load_variant, save_variant, \
     update_config
@@ -658,3 +669,313 @@ def test_update_config_merges_deep():
     out = update_config(base, {"a": {"c": 5, "e": 6}})
     assert out == {"a": {"b": 1, "c": 5, "e": 6}, "d": 3}
     assert base == {"a": {"b": 1, "c": 2}, "d": 3}
+
+
+# ---------------------------------------------------------------------------
+# The Gaussian half: MuJoCo-style models, agents, A2C and PPO
+# ---------------------------------------------------------------------------
+
+OBS_G, A_G = 6, 2
+GAUSS_FF = dict(hidden_sizes=(16, 16), normalize_observation=True,
+                init_log_std=-0.5)
+GAUSS_LSTM = dict(hidden_sizes=(16,), lstm_size=H)
+
+
+def make_gaussian_agents(recurrent, jax_lstm_impl="scan", seed=0):
+    """A JAX Gaussian agent and its port twin on the same weights, bound
+    to 6 observations and 2 actions in [-1, 1]."""
+    obs = dict(low=[-1e3] * OBS_G, high=[1e3] * OBS_G, shape=(OBS_G,))
+    act = dict(low=[-1.0] * A_G, high=[1.0] * A_G, shape=(A_G,))
+    jspaces = JaxEnvSpaces(JaxFloatBox(**obs), JaxFloatBox(**act))
+    spaces = EnvSpaces(FloatBox(**obs), FloatBox(**act))
+    if recurrent:
+        jagent = JaxRecGaussianPgAgent(model_kwargs=dict(
+            GAUSS_LSTM, lstm_impl=jax_lstm_impl))
+        agent = RecurrentGaussianPgAgent(model_kwargs=GAUSS_LSTM,
+                                         device="cpu")
+    else:
+        jagent = JaxGaussianPgAgent(model_kwargs=GAUSS_FF)
+        agent = GaussianPgAgent(model_kwargs=GAUSS_FF, device="cpu")
+    jagent.initialize(jspaces)
+    agent.initialize(spaces)
+    params = jagent.init(jax.random.key(seed), jnp.zeros((B, OBS_G)))
+    load(agent.model, params)
+    return jagent, agent, params
+
+
+def gaussian_obs(rng, *lead):
+    """Observations up to +-20, so that the normalizer's clip at +-10
+    binds."""
+    return (8.0 * rng.standard_normal(lead + (OBS_G,))).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["ff", "scan", "pallas_interpret"])
+def test_gaussian_model_matches_jax(impl):
+    """MujocoFfModel (normalized observations: the statistics stay at
+    mean 0, var 1, count 1e-4, so the model only clips at +-10) and
+    MujocoLstmModel over a [T, B] window with dones, against the JAX scan
+    and the Pallas kernel (interpret); the bridge round-trips the tree,
+    the norm_stats collection included."""
+    recurrent = impl != "ff"
+    jagent, agent, params = make_gaussian_agents(
+        recurrent, impl if recurrent else "scan")
+    rng = np.random.default_rng(5)
+    obs = gaussian_obs(rng, T, B)
+    pa = rng.uniform(-1, 1, (T, B, A_G)).astype(np.float32)
+    pr = rng.standard_normal((T, B)).astype(np.float32)
+    if recurrent:
+        done = rng.random((T, B)) < 0.3
+        state = rnn_state(rng, B)
+        want = jagent.model.apply(params, obs, pa, pr,
+                                  tuple(map(jnp.asarray, state)),
+                                  jnp.asarray(done))
+        with torch.no_grad():
+            got = agent.model(t(obs), t(pa), t(pr), tuple(map(t, state)),
+                              t(done))
+    else:
+        norm = params["norm_stats"]["RunningMeanStd_0"]
+        np.testing.assert_array_equal(np.asarray(norm["mean"]), 0.0)
+        np.testing.assert_array_equal(np.asarray(norm["var"]), 1.0)
+        assert float(norm["count"]) == np.float32(1e-4)
+        assert np.abs(obs).max() > 10.0
+        want = jagent.model.apply(params, obs, pa, pr)
+        with torch.no_grad():
+            got = agent.model(t(obs), t(pa), t(pr))
+        assert torch.equal(agent.model.obs_norm.count,
+                           torch.tensor(np.float32(1e-4)))
+    assert got[0].shape == (T, B, A_G) and got[2].shape == (T, B)
+    for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **CLOSE)
+    back = to_jax_params(agent.model.state_dict(), None)
+    jax.tree.map(np.testing.assert_array_equal, back, np_tree(params))
+
+
+def test_running_mean_std_update_matches_jax():
+    """RunningMeanStd with update=True (which no model of either package
+    calls): Chan's update of the statistics, then the clip."""
+    from rlpyt_tpu.models.running_norm import RunningMeanStd as JaxRms
+    from rlpyt_tpu_torch.models.running_norm import RunningMeanStd
+
+    rng = np.random.default_rng(8)
+    xs = [(3.0 * rng.standard_normal((20, OBS_G)) + 2.0).astype(np.float32)
+          for _ in range(3)]
+    jrms, rms = JaxRms(), RunningMeanStd(OBS_G)
+    variables = jrms.init(jax.random.key(0), xs[0])
+    for x in xs:
+        want, mutated = jrms.apply(variables, x, update=True,
+                                   mutable=["norm_stats"])
+        variables = mutated
+        got = rms(t(x), update=True)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **CLOSE)
+    for name in ("mean", "var", "count"):
+        np.testing.assert_allclose(
+            getattr(rms, name).detach().numpy(),
+            np.asarray(variables["norm_stats"][name]), **CLOSE)
+
+
+@pytest.mark.parametrize("is_eval", [False, True])
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_gaussian_agent_step_matches_jax(recurrent, is_eval):
+    """One collection step: JAX's normals give JAX's actions; evaluation
+    acts with the mean; the recurrent agent stores the carry before the
+    step."""
+    jagent, agent, params = make_gaussian_agents(recurrent, seed=1)
+    rng = np.random.default_rng(6)
+    obs = gaussian_obs(rng, B)
+    pa = rng.uniform(-1, 1, (B, A_G)).astype(np.float32)
+    pr = rng.standard_normal(B).astype(np.float32)
+    carry = rnn_state(rng, B) if recurrent else None
+    key = jax.random.key(2)
+    jstep, jcarry = jagent.step(
+        params, key, obs, pa, pr,
+        None if carry is None else tuple(map(jnp.asarray, carry)),
+        StepCtx(jnp.zeros((), jnp.int32), is_eval))
+    step, next_carry = agent.step(
+        t(obs), t(pa), t(pr), None if carry is None else tuple(map(t, carry)),
+        0, None, is_eval=is_eval, noise=t(jax.random.normal(key, (B, A_G))))
+    np.testing.assert_allclose(step.action.numpy(), np.asarray(jstep.action),
+                               **CLOSE)
+    info, jinfo = step.agent_info, jstep.agent_info
+    for got, want in zip(info["dist_info"], jinfo["dist_info"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **CLOSE)
+    np.testing.assert_allclose(info["value"].numpy(),
+                               np.asarray(jinfo["value"]), **CLOSE)
+    if recurrent:
+        for got, want in zip(next_carry, jcarry):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **CLOSE)
+        for got, before in zip(info["prev_rnn_state"], carry):
+            np.testing.assert_array_equal(got.numpy(), before)
+    else:
+        assert next_carry is None
+
+
+def make_gaussian_batch(recurrent, seed=7):
+    """A [T, B] Gaussian batch as the collector gives it, and the
+    collector's state after it, for both packages."""
+    rng = np.random.default_rng(seed)
+    obs = gaussian_obs(rng, T + 1, B)
+    pa = rng.uniform(-1, 1, (T + 1, B, A_G)).astype(np.float32)
+    pr = rng.standard_normal((T + 1, B)).astype(np.float32)
+    mean = (0.5 * rng.standard_normal((T, B, A_G))).astype(np.float32)
+    log_std = rng.uniform(-1.0, 0.0, (T, B, A_G)).astype(np.float32)
+    info = dict(value=rng.standard_normal((T, B)).astype(np.float32))
+    last = dict(observation=obs[T], prev_action=pa[T], prev_reward=pr[T],
+                agent_carry=rnn_state(rng, B) if recurrent else None)
+    if recurrent:
+        info["prev_rnn_state"] = rnn_state(rng, T, B)
+    fields = dict(observation=obs[:T],
+                  action=rng.uniform(-1, 1, (T, B, A_G)).astype(np.float32),
+                  reward=pr[1:], done=rng.random((T, B)) < 0.2,
+                  prev_action=pa[:T], prev_reward=pr[:T], env_info={})
+    jax_s = JaxSamples(agent_info=dict(
+        jax.tree.map(jnp.asarray, info),
+        dist_info=JaxDistInfoStd(jnp.asarray(mean), jnp.asarray(log_std))),
+        **jax.tree.map(jnp.asarray, fields))
+    torch_s = Samples(agent_info=dict(
+        jax.tree.map(t, info), dist_info=DistInfoStd(t(mean), t(log_std))),
+        **{k: (t(v) if k != "env_info" else {}) for k, v in fields.items()})
+    jax_rs = SimpleNamespace(**jax.tree.map(jnp.asarray, last))
+    torch_rs = SimpleNamespace(**jax.tree.map(t, last), cum_steps=T * B)
+    return jax_s, torch_s, jax_rs, torch_rs
+
+
+def without_count(jax_grads):
+    """A JAX gradient tree without norm_stats' count, which the forward
+    pass never reads (its gradient is 0, so the optimizer leaves it); the
+    port keeps it as a buffer, not a parameter."""
+    stats = jax_grads.get("norm_stats")
+    if stats is None:
+        return jax_grads
+    stats = dict(stats["RunningMeanStd_0"])
+    assert float(stats.pop("count")) == 0.0
+    return {**jax_grads, "norm_stats": {"RunningMeanStd_0": stats}}
+
+
+def make_gaussian_algos(JaxCls, Cls, recurrent, n_itr=1, **algo_kw):
+    jagent, agent, _ = make_gaussian_agents(recurrent)
+    jalgo, algo = JaxCls(**algo_kw), Cls(**algo_kw)
+    obs = jnp.zeros((B, OBS_G), jnp.float32)
+    train_state, _ = jalgo.initialize(jagent, JaxBatchSpec(T, B), obs,
+                                      jax.random.key(3), n_itr=n_itr)
+    load(agent.model, train_state.params)
+    algo.initialize(agent, BatchSpec(T, B), torch.zeros((B, OBS_G)),
+                    torch.Generator().manual_seed(0), n_itr=n_itr)
+    return jalgo, algo, train_state
+
+
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_gaussian_a2c_matches_jax(recurrent):
+    """Gaussian A2C (GAE 0.95, RMSprop, clip): loss, entropy and grads,
+    then one optimize: infos and params."""
+    kw = dict(discount=0.99, learning_rate=3e-3, gae_lambda=0.95,
+              entropy_loss_coeff=0.01, clip_grad_norm=0.5)
+    jalgo, algo, train_state = make_gaussian_algos(JaxA2C, A2C, recurrent,
+                                                   **kw)
+    jax_s, torch_s, jax_rs, torch_rs = make_gaussian_batch(recurrent)
+    params = train_state.params
+    boot = jalgo.bootstrap(params, jax_rs)
+    init = (jax.tree.map(lambda x: x[0], jax_s.agent_info["prev_rnn_state"])
+            if recurrent else None)
+    (jloss, (jent, _)), jgrads = jax.value_and_grad(
+        jalgo.loss, has_aux=True)(params, jax_s, boot, init)
+    tinit = (tuple(x[0] for x in torch_s.agent_info["prev_rnn_state"])
+             if recurrent else None)
+    loss, entropy, _ = algo.loss(torch_s, algo.bootstrap(torch_rs), tinit)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **CLOSE)
+    np.testing.assert_allclose(float(entropy.detach()), float(jent), **CLOSE)
+    assert_grads_close(grads_of(algo.agent.model), without_count(jgrads))
+
+    new_state, _, jinfo = jalgo.optimize(train_state, None, jax_s,
+                                         jax.random.key(0), jax_rs)
+    info = algo.optimize(torch_s, torch_rs)
+    assert_info_close(info, jinfo)
+    assert_state_close(algo.agent.model, new_state.params, **CLOSE)
+
+
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_gaussian_ppo_matches_jax(recurrent):
+    """Gaussian PPO with JAX's permutations (2 epochs x 2 minibatches,
+    GAE, normalized advantages, clip, Adam, the linear schedule): the
+    first minibatch's grads, the infos and the params (to atol 1e-5,
+    see below)."""
+    kw = dict(discount=0.99, learning_rate=3e-3, epochs=2, minibatches=2,
+              ratio_clip=0.2, gae_lambda=0.95, normalize_advantage=True,
+              clip_grad_norm=1.0)
+    jalgo, algo, train_state = make_gaussian_algos(JaxPPO, PPO, recurrent,
+                                                   n_itr=3, **kw)
+    jax_s, torch_s, jax_rs, torch_rs = make_gaussian_batch(recurrent, 8)
+    key = jax.random.key(9)
+    n_items = B if recurrent else T * B
+    perms = np.stack([np.asarray(jax.random.permutation(k, n_items))
+                      for k in jax.random.split(key, 2)])
+    jgrads = jax_first_minibatch_grads(jalgo, train_state.params, jax_s,
+                                       jax_rs, perms[0][:n_items // 2],
+                                       recurrent)
+    first = []
+    step = algo.optimizer.step
+
+    def spy():
+        if not first:
+            first.append(grads_of(algo.agent.model))
+        return step()
+
+    algo.optimizer.step = spy
+    new_state, _, jinfo = jalgo.optimize(train_state, None, jax_s, key,
+                                         jax_rs)
+    info = algo.optimize(torch_s, torch_rs, permutations=t(perms))
+    assert_grads_close(first[0], without_count(jgrads))
+    assert_info_close(info, jinfo)
+    assert algo.update_counter == int(new_state.update_counter) == 4
+    # atol 1e-5 on the params: an Adam step divides the gradient by its own
+    # running magnitude, so an element whose gradient cancels to ~3e-7 on
+    # one minibatch (its rounding ~1e-2 relative) moves ~4e-6 otherwise
+    # after the next step, at this learning rate of 3e-3.
+    assert_state_close(algo.agent.model, new_state.params, rtol=1e-5,
+                       atol=1e-5)
+
+
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_gaussian_trainers_run_on_pendulum(recurrent):
+    """The collector with continuous actions: float [B, 1] actions and
+    prev_action, DistInfoStd in the sample buffers (with no graph), and
+    the Gaussian A2C (feedforward) or PPO (recurrent) through MinibatchRl
+    for 3 iterations with finite infos."""
+    from rlpyt_tpu_torch.envs.classic import Pendulum
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+
+    if recurrent:
+        agent = RecurrentGaussianPgAgent(model_kwargs=GAUSS_LSTM,
+                                         device="cpu")
+        algo = PPO(epochs=2, minibatches=2, learning_rate=1e-3)
+    else:
+        agent = GaussianPgAgent(model_kwargs=GAUSS_FF, device="cpu")
+        algo = A2C(learning_rate=1e-3)
+    runner = MinibatchRl(algo, agent, Pendulum(device="cpu"),
+                         BatchSpec(8, 4), n_steps=96, log_interval_steps=32,
+                         max_decorrelation_steps=5, device="cpu")
+    seen = []
+    optimize = algo.optimize
+
+    def spy(samples, rollout_state, **kwargs):
+        seen.append(samples)
+        return optimize(samples, rollout_state, **kwargs)
+
+    algo.optimize = spy
+    rows = []
+    record = runner.logger.record_tabular
+    runner.logger.record_tabular = lambda k, v: (rows.append((k, v)),
+                                                 record(k, v))
+    runner.train()
+    assert len(seen) == 3
+    for samples in seen:
+        assert samples.action.shape == (8, 4, 1)
+        assert samples.prev_action.dtype == torch.float32
+        for leaf in samples.agent_info["dist_info"]:
+            assert leaf.shape == (8, 4, 1) and not leaf.requires_grad
+    assert algo.update_counter == 3 * algo.updates_per_optimize
+    for key in ("loss", "grad_norm", "entropy", "perplexity"):
+        vals = [v for k, v in rows if k == key]
+        assert len(vals) == 3 and all(math.isfinite(v) for v in vals)
