@@ -14,6 +14,9 @@
     python3 bench_torch_profile.py --sac-hopper
                      # SAC on Hopper2D at full width (B=32, T=32, 256
                      # updates an iteration)
+    python3 bench_torch_profile.py --minatar-dqn r2d1
+                     # a config of experiments/configs/minatar_dqn.py
+                     # (dqn, dqn_pub, ernbw, ernbw_vec, r2d1) at its widths
 
 Builds the trainer of chip_smoke.py (full width; the Atari trainers in
 bf16, MinAtar in fp32), warms it up (DQN, ernbw and MinAtar: two
@@ -43,10 +46,16 @@ the second the first with updates) the replay sample and the update are
 timed as for DQN, ``env_step_ms`` is one Hopper2D step of the 32 lanes
 (16 physics substeps) with a device sync, and the table is
 profile_table_sac_hopper.txt.
+With --minatar-dqn CONFIG (after its 100 decorrelation steps and the
+iterations up to the first with updates, at the config's min_steps_learn
+of 5000) the replay sample and the update are timed as for DQN (R2D1:
+as for --r2d1), one evaluation as for --minatar-pg, and the table is
+profile_table_minatar_dqn_CONFIG.txt.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -78,7 +87,20 @@ def main():
     ernbw = "--ernbw" in sys.argv[1:]
     pg = sys.argv[sys.argv.index("--minatar-pg") + 1] \
         if "--minatar-pg" in sys.argv[1:] else None
-    if pg is not None:
+    dqn_cfg = sys.argv[sys.argv.index("--minatar-dqn") + 1] \
+        if "--minatar-dqn" in sys.argv[1:] else None
+    if dqn_cfg is not None:
+        from rlpyt_tpu_torch.experiments.configs.minatar_dqn import configs
+        from rlpyt_tpu_torch.experiments.scripts.minatar_dqn import \
+            build_runner
+
+        cfg = configs[dqn_cfg]
+        steps = cfg["sampler"]["batch_T"] * cfg["sampler"]["batch_B"]
+        runner, _ = build_runner(dqn_cfg, device=dev, config_overrides={
+            "runner": {"log_interval_steps": steps}})
+        warmup = math.ceil(cfg["algo"]["min_steps_learn"] / steps)
+        suffix = f"_minatar_dqn_{dqn_cfg}"
+    elif pg is not None:
         from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
         from rlpyt_tpu_torch.experiments.scripts.minatar_pg import \
             build_runner
@@ -121,7 +143,7 @@ def main():
     extra = {}
     if pg is None:
         n = 64
-        batch_size = algo.batch_b if r2d1 else algo.batch_size
+        batch_size = getattr(algo, "batch_b", None) or algo.batch_size
         dt_sample, batches = wall(lambda: [
             algo.replay.sample(batch_size, algo.generator)
             for _ in range(n)])
@@ -138,6 +160,7 @@ def main():
     else:
         extra["update_ms"] = (1e3 * statistics.median(optimize_s)
                               / algo.updates_per_optimize)
+    if runner.eval_env is not None:
         dt_eval, stats = wall(lambda: runner.eval_collector.evaluate(
             runner.eval_generator, runner.eval_T,
             runner.eval_max_trajectories))

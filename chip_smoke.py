@@ -93,6 +93,22 @@ Phases, each fatal on failure:
      exact K3a, K3 and K4 launches; (e) K3a, K3 and K4 against their
      plain versions and timed at MujocoLstmModel's shapes (F=260,
      H=256).
+ 14. the DQN family as users launch it, through
+     rlpyt_tpu_torch/experiments/scripts/minatar_dqn.py:build_and_train:
+     (a) each of its five configs (dqn, dqn_pub, ernbw, ernbw_vec, r2d1)
+     at the config's widths, batch, replay ratio, optimizer and epsilon
+     schedule on MinAtar Breakout (conv 16, fc 128 or LSTM 128; B=64,
+     T=32 or 40) for a few iterations past min_steps_learn, evaluating
+     after each: finite losses, the update count, the Eval keys, and for
+     ernbw and ernbw_vec priorities finite and above 0; env-steps/s for
+     each iteration; (b) for r2d1 the K3a, K3 (with its one-step launches)
+     and K4 launches of every iteration, and its sequence windows on the
+     card against the CPU path's; (c) one dqn_pub update (centered
+     RMSprop) and one dqn update (Adam), through make_optimizer, on the
+     card against the CPU; (d) K3a, K3 and K4 against their plain versions
+     and timed at the r2d1 config's shapes (F=1031, H=128); (e) the r2d1
+     run's params.pkl snapshot loaded back into a model on the card gives
+     the live model's Q values.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -114,6 +130,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1773,6 +1790,306 @@ def time_lstm_mujoco(L, g, dev):
     return entries
 
 
+# Phase 14: the DQN family as users launch it,
+# rlpyt_tpu_torch/experiments/scripts/minatar_dqn.py with its five
+# configs.  r2d1's LSTM: 128 units on [conv 16 x 8 x 8, Breakout's 6
+# actions, the reward]; its sampler (T=40, B=64), window (burn-in 20,
+# training 40, n-step 5) and batch of 32 windows; evaluation on 32 lanes.
+MD_T, MD_B, MD_EVAL_B, MD_H, MD_F = 40, 64, 32, 128, 16 * 8 * 8 + 6 + 1
+MD_BATCH_B, MD_WARMUP, MD_WINDOW = 32, 20, 20 + 40 + 5
+MD_CONFIGS = ("dqn", "dqn_pub", "ernbw", "ernbw_vec", "r2d1")
+# Iterations of each config in 14a, and its cut of min_steps_learn (None:
+# the config's 5000 steps, learning from the third iteration of 2048
+# steps, the second of r2d1's 2560).  dqn_pub's 2048 updates an iteration
+# take seconds, so it learns in one iteration only.
+MD_ITR = {"dqn": 4, "dqn_pub": 2, "ernbw": 4, "ernbw_vec": 4, "r2d1": 4}
+MD_LEARN = {"dqn_pub": 4096}
+# Evaluation caps of 14a: 500 steps a lane, 32 episodes (the configs'
+# 3000 and 100).
+MD_EVAL_CUT = {"eval_max_steps": MD_EVAL_B * 500,
+               "eval_max_trajectories": 32}
+# r2d1's LSTM shapes: the training window (45, 32), the burn-in (20, 32),
+# a collection step (1, 64) and an evaluation step (1, 32).
+MD_CASES = [(MD_WINDOW - MD_WARMUP, MD_BATCH_B, MD_F, MD_H),
+            (MD_WARMUP, MD_BATCH_B, MD_F, MD_H), (1, MD_B, MD_F, MD_H),
+            (1, MD_EVAL_B, MD_F, MD_H)]
+
+
+def md_launches(L) -> dict:
+    return {"lstm_input_proj": L.input_proj.launches,
+            "lstm_input_proj_split": L.input_proj.split_launches,
+            "lstm_fwd": L.lstm_fwd.launches,
+            "lstm_fwd_t1": L.lstm_fwd.step_launches,
+            "lstm_bwd": L.lstm_bwd.launches}
+
+
+def run_minatar_dqn(L, key: str, log_root: Path):
+    """Phase 14a (and 14b for r2d1): ``build_and_train(key)`` at the
+    config's widths, batch, replay ratio, optimizer and epsilon schedule
+    for MD_ITR[key] iterations, evaluating after each; only n_steps,
+    log_interval_steps, min_steps_learn (MD_LEARN) and the evaluation caps
+    are cut.  Checks finite losses once learning has started, the update
+    count, the Eval keys and a completed evaluation episode; for ernbw and
+    ernbw_vec finite priorities above 0 on every written row; for r2d1 the
+    LSTM launches of every iteration: T collection steps (one K3a and one
+    one-step K3 each), per update four forward windows (K3a, K3) and one
+    backward (K4), and one K3a and one-step K3 per evaluation step
+    (counted at the env: 32 lanes); for the others no LSTM launch.
+    Returns (runner, rows, per-iteration launch counts)."""
+    import contextlib
+    import csv
+    import io
+
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.experiments.configs.minatar_dqn import configs
+    from rlpyt_tpu_torch.experiments.scripts.minatar_dqn import \
+        build_and_train
+    from rlpyt_tpu_torch.utils.logging import TabularLogger
+
+    cfg = configs[key]
+    steps = cfg["sampler"]["batch_T"] * cfg["sampler"]["batch_B"]
+    n_itr = MD_ITR[key]
+    overrides = {"runner": {"n_steps": n_itr * steps,
+                            "log_interval_steps": steps},
+                 "sampler": dict(MD_EVAL_CUT)}
+    if key in MD_LEARN:
+        overrides["algo"] = {"min_steps_learn": MD_LEARN[key]}
+    min_learn = MD_LEARN.get(key, cfg["algo"]["min_steps_learn"])
+    eval_steps = [0]
+    marks = []      # (launch counts, evaluation steps) at each dump
+    step_batch, dump = Breakout.step_batch, TabularLogger.dump_tabular
+
+    def counted(env, state, action, *args, **kwargs):
+        eval_steps[0] += action.shape[0] == MD_EVAL_B
+        return step_batch(env, state, action, *args, **kwargs)
+
+    def marked(logger, *args, **kwargs):
+        marks.append((md_launches(L), eval_steps[0]))
+        return dump(logger, *args, **kwargs)
+
+    Breakout.step_batch, TabularLogger.dump_tabular = counted, marked
+    zero_launches()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            runner = build_and_train(key, log_dir=str(log_root / key),
+                                     config_overrides=overrides)
+            torch.cuda.synchronize()
+    finally:
+        Breakout.step_batch, TabularLogger.dump_tabular = step_batch, dump
+    with open(log_root / key / "run_0" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    algo = runner.algo
+    learning = [(i + 1) * steps >= min_learn for i in range(n_itr)]
+    if len(rows) != n_itr or algo.update_counter != \
+            sum(learning) * algo.updates_per_optimize:
+        fail(f"14a {key}: {algo.update_counter} updates in {len(rows)} "
+             f"rows, expected {sum(learning)} x "
+             f"{algo.updates_per_optimize}")
+    per_itr, prev = [], (dict.fromkeys(md_launches(L), 0), 0)
+    for i, (row, mark) in enumerate(zip(rows, marks)):
+        got = {k: mark[0][k] - prev[0][k] for k in mark[0]}
+        n_eval = mark[1] - prev[1]
+        prev = mark
+        per_itr.append(dict(got, eval_steps=n_eval))
+        if key == "r2d1":
+            win = 4 * algo.updates_per_optimize * learning[i]
+            t1 = MD_T + n_eval
+            want = {"lstm_input_proj": t1 + win, "lstm_fwd": t1 + win,
+                    "lstm_fwd_t1": t1,
+                    "lstm_bwd": algo.updates_per_optimize * learning[i]}
+            got = {k: got[k] for k in want}
+        else:
+            want = dict.fromkeys(got, 0)
+        if got != want:
+            fail(f"14b {key} iteration {i + 1}: LSTM launches {got}, "
+                 f"expected {want} ({n_eval} evaluation steps)")
+        fields = ["StepsPerSecond", "EvalReturnAverage"] + (
+            ["loss", "grad_norm", "td_abs_err"] if learning[i] else [])
+        for field in fields:
+            if not math.isfinite(float(row[field])):
+                fail(f"14a {key}: {field} = {row[field]} in iteration "
+                     f"{row['Iteration']}")
+        if learning[i] and not float(row["loss"]) > 0:
+            fail(f"14a {key}: loss {row['loss']} in iteration "
+                 f"{row['Iteration']}")
+        if int(row["EvalTrajs"]) < 1:
+            fail(f"14a {key}: no evaluation episode completed")
+        print(f"{key} itr {row['Iteration']}: loss {float(row['loss']):.6g}"
+              f" grad_norm {float(row['grad_norm']):.6g} td_abs_err "
+              f"{float(row['td_abs_err']):.6g} StepsPerSecond "
+              f"{float(row['StepsPerSecond']):.1f} UpdatesPerSecond "
+              f"{float(row['UpdatesPerSecond']):.1f} EvalTrajs "
+              f"{row['EvalTrajs']} EvalReturnAverage "
+              f"{float(row['EvalReturnAverage']):.4f}"
+              + (f"; LSTM launches {per_itr[-1]}" if key == "r2d1" else ""))
+    if key.startswith("ernbw"):
+        replay = algo.replay
+        written = replay.priorities[:replay.filled_t]
+        if not (torch.isfinite(written).all() and (written > 0).all()
+                and torch.isfinite(replay.max_priority)):
+            fail(f"14a {key}: a written row's priority is not finite "
+                 "and above 0")
+    return runner, rows, per_itr
+
+
+def md_dqn_batch(key: str, dev):
+    """A replay batch at the config's batch size on [4, 10, 10] planes,
+    drawn on a CPU generator and moved to ``dev``."""
+    from rlpyt_tpu_torch.experiments.configs.minatar_dqn import configs
+    from rlpyt_tpu_torch.replay.base import AgentInputs, SamplesFromReplay
+    from rlpyt_tpu_torch.struct import tree_map
+
+    n = configs[key]["algo"]["batch_size"]
+    g = torch.Generator().manual_seed(40)
+
+    def planes():
+        return (torch.rand((n, 4, 10, 10), generator=g) < 0.1).to(
+            torch.uint8)
+
+    def actions():
+        return torch.randint(0, 6, (n,), generator=g)
+
+    zeros = torch.zeros((n,))
+    done = torch.rand((n,), generator=g) < 0.1
+    b = SamplesFromReplay(
+        AgentInputs(planes(), actions(), zeros), actions(),
+        torch.randn((n,), generator=g), done, done,
+        (torch.rand((n,), generator=g) < 0.1) & ~done,
+        AgentInputs(planes(), actions(), zeros), torch.ones((n,)),
+        (zeros.long(), zeros.long()))
+    return tree_map(lambda x: x.to(dev), b)
+
+
+def check_minatar_dqn_against_cpu(dev):
+    """Phase 14c: one update of dqn_pub (centered RMSprop, decay 0.95,
+    eps 0.01) and one of dqn (Adam at eps 0.01 / 128), each through
+    ``make_optimizer`` with clip 10, at the config's model (conv 16, fc
+    128) and batch size, on the card against the CPU from the same
+    weights and batch; TF32 off.  Infos to 1e-4, the gradients and
+    parameters as ``hold_update`` says."""
+    from rlpyt_tpu_torch.agents.dqn import DqnAgent
+    from rlpyt_tpu_torch.algos.dqn import DQN
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.experiments.configs.minatar_dqn import configs
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    spaces = Breakout(device="cpu").spaces
+    for key in ("dqn_pub", "dqn"):
+        cfg = configs[key]
+        out = {}
+        for d in ("cpu", dev):
+            agent = DqnAgent(model_kwargs=cfg["model"], device=d)
+            torch.manual_seed(0)
+            agent.initialize(spaces)
+            before = {k: v.detach().clone().cpu()
+                      for k, v in agent.model.state_dict().items()}
+            algo = DQN(**dict(cfg["algo"], replay_size=4096))
+            algo.initialize(agent, BatchSpec(MD_T, MD_B),
+                            torch.zeros((MD_B, 4, 10, 10), dtype=torch.uint8,
+                                        device=d), torch.Generator(device=d))
+            grads = spy_grads({"model": algo.optimizer}, {"model": [
+                n for n, _ in agent.model.named_parameters()]})
+            info = algo.update(md_dqn_batch(key, d))
+            after = {k: v.detach().cpu()
+                     for k, v in agent.model.state_dict().items()}
+            out[d] = (info, before, after, grads, algo.optimizer)
+        (info_c, before, after_c, grads_c, opt), \
+            (info_g, _, after_g, grads_g, _) = out["cpu"], out[dev]
+        for field in info_c._fields:
+            w, got = (float(getattr(i, field)) for i in (info_c, info_g))
+            if not abs(got - w) <= 1e-4 * max(1.0, abs(w)):
+                fail(f"phase 14c {key}: {field} {got!r} on the card, {w!r} "
+                     "on the CPU")
+        diff, change, n_tiny, tiny_diff = hold_update(
+            f"phase 14c {key}", before, after_c, after_g, grads_c, grads_g)
+        group = opt.inner.param_groups[0]
+        print(f"phase 14c: {key} update ({type(opt.inner).__name__}, "
+              f"eps {group['eps']:g}, lr {group['lr']:g}) card against "
+              f"CPU: loss {float(info_g.loss):.6g} / "
+              f"{float(info_c.loss):.6g}, grad_norm "
+              f"{float(info_g.grad_norm):.6g} / {float(info_c.grad_norm):.6g}"
+              f"; first-step gradients within 1e-4; params differ by "
+              f"{diff:.3g} = {diff / change:.3g} of the largest change "
+              f"({n_tiny} elements with a gradient RMS below "
+              f"{ADAM_TINY_GRAD:g} excluded, their largest diff "
+              f"{tiny_diff:.3g})")
+
+
+def time_lstm_minatar_r2d1(L, g, dev):
+    """Phase 14d: K3a, K3 and K4 at the r2d1 config's shapes (F=1031,
+    H=128) beside their plain versions, bounds and library calls.
+    Entries: K3a at the training window's 1440 rows, K3 and K4 at that
+    window (T=45, B=32), K3 at a collection step (T=1, B=64).  Printed:
+    K3a at 640 (burn-in), 64 (collection) and 32 rows (evaluation), K3 at
+    the burn-in (T=20, B=32) and an evaluation step (T=1, B=32)."""
+    F, H = MD_F, MD_H
+    win = lstm_case(g, MD_WINDOW - MD_WARMUP, MD_BATCH_B, F, H, dev)
+    burn = lstm_case(g, MD_WARMUP, MD_BATCH_B, F, H, dev)
+    wx, b = win["wx"], win["b"]
+    entries = add_bounds({
+        "lstm_input_proj_minatar_r2d1": proj_times(
+            L, win["x"].view(-1, F), [wx], b, 50),
+        "lstm_fwd_minatar_r2d1": fwd_times(L, win, dev, 50, 10),
+        "lstm_fwd_t1_minatar_r2d1": fwd_times(
+            L, lstm_case(g, 1, MD_B, F, H, dev), dev, 50, 20),
+        "lstm_bwd_minatar_r2d1": bwd_times(L, win, g, dev, 50, 10),
+    })
+    printed = add_bounds({
+        f"lstm_input_proj M={MD_WARMUP * MD_BATCH_B}": proj_times(
+            L, burn["x"].view(-1, F), [wx], b, 50),
+        **{f"lstm_input_proj M={M}": proj_times(
+            L, torch.randn((M, F), generator=g, device=dev), [wx], b, 50)
+           for M in (MD_B, MD_EVAL_B)},
+        f"lstm_fwd T={MD_WARMUP} B={MD_BATCH_B}": fwd_times(
+            L, burn, dev, 50, 10),
+        f"lstm_fwd T=1 B={MD_EVAL_B}": fwd_times(
+            L, lstm_case(g, 1, MD_EVAL_B, F, H, dev), dev, 50, 20),
+    })
+    for name, t in list(entries.items()) + list(printed.items()):
+        print(f"phase 14d: {name} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; library call "
+              f"{t['library_ms']:.4f} ms"
+              + (f", device {t['library_device_ms']:.4f} ms"
+                 if t.get("library_device_ms") else "")
+              + f"; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
+              f"operations, {t['bytes']} bytes)")
+    return entries
+
+
+def check_snapshot(runner, log_dir: Path, dev):
+    """Phase 14e: the params.pkl that build_and_train wrote (the flax
+    tree of the last iteration's weights, numpy) loads through params.py
+    into a fresh model on the card, which gives the live model's Q values
+    and next state on a batch of the run's observations to 1e-6."""
+    import pickle
+
+    from rlpyt_tpu_torch.params import from_jax_params
+
+    snap = pickle.loads((log_dir / "run_0" / "params.pkl").read_bytes())
+    live = runner.agent.model
+    fresh = copy.deepcopy(live)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.zero_()
+    fresh.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           from_jax_params(snap["params"]).items()})
+    st = runner.rollout_state
+    with torch.no_grad():
+        q, (h, _) = live(st.observation, st.prev_action, st.prev_reward,
+                         st.agent_carry)
+        q2, (h2, _) = fresh(st.observation, st.prev_action, st.prev_reward,
+                            st.agent_carry)
+    err = max(float((q2 - q).abs().max()), float((h2 - h).abs().max()))
+    if not err <= 1e-6 * max(1.0, float(q.abs().max())):
+        fail(f"phase 14e: the snapshot's model differs from the live one "
+             f"by {err:.3g}")
+    print(f"phase 14e: params.pkl (itr {int(snap['itr'])}, cum_steps "
+          f"{int(snap['cum_steps'])}, {len(from_jax_params(snap['params']))}"
+          f" tensors) gives the live model's Q and h on the card: max diff "
+          f"{err:.3g}")
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1810,7 +2127,10 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # with the launches of phase 12b's lstm_ppo run: K3a all of them (timed
 # at the minibatch's 512 rows), K3 those at T=16 and at T=1, K4 all.
 # The "_mujoco" entries: MujocoLstmModel's shapes (F=260, H=256), with
-# the launches of phase 13d's recurrent Gaussian PPO optimize.
+# the launches of phase 13d's recurrent Gaussian PPO optimize.  The
+# "_minatar_r2d1" entries: the r2d1 config of minatar_dqn.py (F=1031,
+# H=128), with the launches of phase 14b's run: K3a all of them (timed at
+# the training window's 1440 rows), K3 those at T>1 and at T=1, K4 all.
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
@@ -1827,6 +2147,10 @@ KERNELS = {
     "lstm_fwd_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_fwd_t1_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_bwd_mujoco": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "lstm_input_proj_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_t1_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_bwd_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
     "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
 }
@@ -2029,6 +2353,46 @@ def main():
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     print(f"phase 13: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as log_root:
+        for key in MD_CONFIGS:
+            t1 = time.time()
+            runner, rows, per_itr = run_minatar_dqn(L, key, Path(log_root))
+            cuts = dict(MD_EVAL_CUT, n_steps=runner.n_steps,
+                        log_interval_steps=runner.log_interval_steps)
+            if key in MD_LEARN:
+                cuts["min_steps_learn"] = MD_LEARN[key]
+            print(f"phase 14a: {key} {MD_ITR[key]} iterations at the "
+                  f"config's widths in {time.time() - t1:.1f} s (cuts "
+                  f"{cuts}), {runner.algo.update_counter} updates "
+                  f"({runner.algo.updates_per_optimize} an iteration once "
+                  f"learning), {type(runner.algo.optimizer.inner).__name__}"
+                  f", env-steps/s per iteration "
+                  f"{[round(float(r['StepsPerSecond']), 1) for r in rows]}")
+            if key == "r2d1":
+                md = {k: sum(it[k] for it in per_itr) for k in per_itr[0]}
+                print(f"phase 14b: r2d1 LSTM launches per iteration "
+                      f"{per_itr}; in all {md}")
+                check_windows_against_cpu(runner, dev)
+                check_snapshot(runner, Path(log_root) / key, dev)
+                launches.update({
+                    "lstm_input_proj_minatar_r2d1": md["lstm_input_proj"],
+                    "lstm_fwd_minatar_r2d1":
+                        md["lstm_fwd"] - md["lstm_fwd_t1"],
+                    "lstm_fwd_t1_minatar_r2d1": md["lstm_fwd_t1"],
+                    "lstm_bwd_minatar_r2d1": md["lstm_bwd"]})
+            del runner
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_minatar_dqn_against_cpu(dev)
+    errs.update(check_lstm(L, g, dev, MD_CASES, "_minatar_r2d1"))
+    times.update(time_lstm_minatar_r2d1(L, g, dev))
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 14: {time.time() - t0:.1f} s")
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

@@ -6,6 +6,8 @@ gives lane b of B the final epsilon
 exp(log eps_final + b/(B-1) (log eps_final_min - log eps_final))."""
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -21,6 +23,7 @@ from rlpyt_tpu_torch.models.dqn import (
     AtariR2d1Model,
 )
 from rlpyt_tpu_torch.models.rnn import zero_rnn_state
+from rlpyt_tpu_torch.spaces import Composite
 
 
 class EpsilonGreedyMixin:
@@ -66,8 +69,19 @@ class DqnAgent(EpsilonGreedyMixin, BaseAgent):
         self.distribution = None
 
     def make_env_to_model_kwargs(self, env_spaces: EnvSpaces) -> dict:
-        return {"image_shape": env_spaces.observation.shape,
-                "n_actions": env_spaces.action.n}
+        """``n_actions``, and ``image_shape`` for an image observation or
+        ``input_size`` for a vector one (for a Composite, the sum of its
+        leaves' sizes)."""
+        space = env_spaces.observation
+        kwargs = {"n_actions": env_spaces.action.n}
+        if isinstance(space, Composite):
+            kwargs["input_size"] = sum(math.prod(s.shape)
+                                       for s in space.spaces.values())
+        elif len(space.shape) == 1:
+            kwargs["input_size"] = space.shape[0]
+        else:
+            kwargs["image_shape"] = space.shape
+        return kwargs
 
     def initialize(self, env_spaces: EnvSpaces):
         super().initialize(env_spaces)

@@ -92,8 +92,9 @@ class Optimizer:
         self.schedule_steps = schedule_steps
         self.count = 0
         if optim == "adam":
-            self.inner = torch.optim.Adam(self.params, lr=learning_rate,
-                                          eps=1e-8, **optim_kwargs)
+            self.inner = torch.optim.Adam(
+                self.params, lr=learning_rate,
+                **{"eps": 1e-8, **optim_kwargs})
         elif optim == "rmsprop":
             self.inner = RMSprop(self.params, lr=learning_rate,
                                  **optim_kwargs)

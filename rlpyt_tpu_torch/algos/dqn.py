@@ -4,17 +4,20 @@ frame-compressed stacks.
 
 Per iteration: append the [T, B] batch to replay, then, once
 ``min_steps_learn`` env steps have been taken, ``updates_per_optimize``
-updates of sample -> TD loss -> grad -> clip -> Adam -> target rule ->
-priority write-back (prioritized replay only).
+updates of sample -> TD loss -> grad -> clip -> optimizer step -> target
+rule -> priority write-back (prioritized replay only).  The optimizer is
+``algos/base.py:make_optimizer``'s: Adam (eps 0.01 / batch_size unless
+``optim_kwargs`` names one) or RMSprop (decay, eps and ``centered`` from
+``optim_kwargs``), after clip-by-global-norm.
 """
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from rlpyt_tpu_torch.algos.base import RlAlgorithm, clip_by_global_norm_
+from rlpyt_tpu_torch.algos.base import RlAlgorithm, make_optimizer
 from rlpyt_tpu_torch.ops.value import huber_loss, polyak_update
 from rlpyt_tpu_torch.replay.base import SamplesFromReplay, SamplesToBuffer
 from rlpyt_tpu_torch.replay.frame import (
@@ -23,7 +26,7 @@ from rlpyt_tpu_torch.replay.frame import (
 )
 from rlpyt_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
-from rlpyt_tpu_torch.struct import select_at_indexes, valid_mean
+from rlpyt_tpu_torch.struct import select_at_indexes, tree_map, valid_mean
 
 
 class OptInfo(NamedTuple):
@@ -52,6 +55,8 @@ class DQN(RlAlgorithm):
         pri_beta: float = 0.4,
         frame_buffer: bool = False,
         frames_per_obs: int = 4,
+        optim: str = "adam",
+        optim_kwargs: Optional[dict] = None,
     ):
         self.discount = discount
         self.batch_size = batch_size
@@ -70,6 +75,8 @@ class DQN(RlAlgorithm):
         self.pri_beta = pri_beta
         self.frame_buffer = frame_buffer
         self.frames_per_obs = frames_per_obs
+        self.optim = optim
+        self.optim_kwargs = dict(optim_kwargs or {})
 
     def initialize(self, agent, batch_spec, example_obs, generator,
                    n_itr: int = 1):
@@ -83,10 +90,12 @@ class DQN(RlAlgorithm):
         self.generator = generator
         self.updates_per_optimize = max(
             1, int(self.replay_ratio * batch_spec.size / self.batch_size))
-        # rlpyt's Adam epsilon, 0.01 / batch_size.
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.learning_rate,
-            eps=0.01 / self.batch_size)
+        okw = dict(self.optim_kwargs)
+        if self.optim == "adam":   # rlpyt's Adam epsilon, 0.01 / batch_size
+            okw.setdefault("eps", 0.01 / self.batch_size)
+        self.optimizer = make_optimizer(
+            self.model.parameters(), self.learning_rate,
+            self.clip_grad_norm, self.optim, **okw)
         self.update_counter = 0
         # The reference's table: (uniform | prioritized) x (flat | frame).
         kwargs = dict(size=self.replay_size, B=batch_spec.B,
@@ -106,7 +115,7 @@ class DQN(RlAlgorithm):
         space = agent.env_spaces.action
         dev = agent.device
         self.replay.init(SamplesToBuffer(
-            observation=example_obs[0],
+            observation=tree_map(lambda x: x[0], example_obs),
             action=space.null_value(dev),
             reward=torch.zeros((), device=dev),
             done=torch.zeros((), dtype=torch.bool, device=dev),
@@ -145,11 +154,9 @@ class DQN(RlAlgorithm):
         """One gradient step on ``batch``, the target rule and, under
         prioritized replay, the priority write-back."""
         loss, td_abs = self.loss(batch)
-        self.optimizer.zero_grad(set_to_none=False)
+        self.optimizer.zero_grad()
         loss.backward()
-        grads = [p.grad for p in self.model.parameters()]
-        grad_norm = clip_by_global_norm_(grads, self.clip_grad_norm)
-        self.optimizer.step()
+        grad_norm = self.optimizer.step()
         self.update_counter += 1
         if self.target_update_tau < 1.0:
             polyak_update(self.target_model, self.model,

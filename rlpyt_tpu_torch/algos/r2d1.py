@@ -8,8 +8,9 @@
 - value rescaling h / h^-1 around the n-step targets;
 - sequence priorities eta * max|delta| + (1 - eta) * mean|delta|;
 - optional input priorities at insert from collection-time TD errors;
-- double DQN; Adam (eps 1e-3) after clip-by-global-norm; hard target
-  copy every ``target_update_interval`` updates.
+- double DQN; Adam (eps 1e-3) after clip-by-global-norm, through
+  ``algos/base.py:make_optimizer``; hard target copy every
+  ``target_update_interval`` updates.
 
 Per iteration: append the [T, B] batch, then, once ``min_steps_learn``
 env steps have been taken, ``updates_per_optimize`` updates.
@@ -20,7 +21,7 @@ import copy
 
 import torch
 
-from rlpyt_tpu_torch.algos.base import RlAlgorithm, clip_by_global_norm_
+from rlpyt_tpu_torch.algos.base import RlAlgorithm, make_optimizer
 from rlpyt_tpu_torch.algos.dqn import OptInfo
 from rlpyt_tpu_torch.ops.returns import discount_return_n_step, \
     valid_from_done
@@ -114,8 +115,9 @@ class R2D1(RlAlgorithm):
         self.updates_per_optimize = max(1, int(
             self.replay_ratio * batch_spec.size
             / (self.batch_b * self.batch_T)))
-        self.optimizer = torch.optim.Adam(
-            self.model.parameters(), lr=self.learning_rate, eps=1e-3)
+        self.optimizer = make_optimizer(
+            self.model.parameters(), self.learning_rate,
+            self.clip_grad_norm, "adam", eps=1e-3)
         self.update_counter = 0
         if self.frame_compress:
             Cls = (PrioritizedSequenceFrameReplayBuffer
@@ -137,7 +139,7 @@ class R2D1(RlAlgorithm):
         dev = agent.device
         h = torch.zeros((agent.lstm_size,), device=dev)
         self.replay.init(SamplesToBuffer(
-            observation=example_obs[0],
+            observation=tree_map(lambda x: x[0], example_obs),
             action=agent.env_spaces.action.null_value(dev),
             reward=torch.zeros((), device=dev),
             done=torch.zeros((), dtype=torch.bool, device=dev),
@@ -229,11 +231,9 @@ class R2D1(RlAlgorithm):
     def update(self, batch: SequenceSamples) -> OptInfo:
         """One gradient step, the target rule and the priority write-back."""
         loss, priorities = self.loss(batch)
-        self.optimizer.zero_grad(set_to_none=False)
+        self.optimizer.zero_grad()
         loss.backward()
-        grads = [p.grad for p in self.model.parameters()]
-        grad_norm = clip_by_global_norm_(grads, self.clip_grad_norm)
-        self.optimizer.step()
+        grad_norm = self.optimizer.step()
         self.update_counter += 1
         if self.update_counter % self.target_update_interval == 0:
             polyak_update(self.target_model, self.model, 1.0)

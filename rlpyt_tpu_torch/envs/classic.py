@@ -1,5 +1,6 @@
 """Classic-control environments on batched tensors (port of
-rlpyt_tpu/envs/classic.py: CartPole, Pendulum, ContinuousMountainCar).
+rlpyt_tpu/envs/classic.py: CartPole, DictObsCartPole, Pendulum, Acrobot,
+MountainCar, ContinuousMountainCar).
 
 Gym's dynamics and constants, with an internal time limit, for B lanes at
 once on [B] tensors.  The only randomness is the reset's uniform values;
@@ -18,7 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from rlpyt_tpu_torch.envs.base import Env, EnvStep
-from rlpyt_tpu_torch.spaces import FloatBox, IntBox
+from rlpyt_tpu_torch.spaces import Composite, FloatBox, IntBox
 
 
 class CartPoleState(NamedTuple):
@@ -108,6 +109,28 @@ class CartPole(Env):
                             {"timeout": truncated & ~terminated})
 
 
+class DictObsCartPole(CartPole):
+    """CartPole with a Composite observation: {"position": [x, theta],
+    "velocity": [x_dot, theta_dot]}, the exerciser of dict observations
+    through collection, replay and the model."""
+
+    @property
+    def observation_space(self):
+        hi_pos = [self.x_threshold * 2, self.theta_threshold * 2]
+        hi_vel = [3.0e2, 3.0e2]
+        return Composite({
+            "position": FloatBox(low=[-h for h in hi_pos], high=hi_pos,
+                                 shape=(2,)),
+            "velocity": FloatBox(low=[-h for h in hi_vel], high=hi_vel,
+                                 shape=(2,)),
+        })
+
+    @staticmethod
+    def _obs(s: CartPoleState) -> dict:
+        return {"position": torch.stack([s.x, s.theta], dim=-1),
+                "velocity": torch.stack([s.x_dot, s.theta_dot], dim=-1)}
+
+
 class PendulumState(NamedTuple):
     theta: torch.Tensor
     theta_dot: torch.Tensor
@@ -186,6 +209,126 @@ class Pendulum(Env):
                             {"timeout": truncated})
 
 
+class AcrobotState(NamedTuple):
+    theta1: torch.Tensor
+    theta2: torch.Tensor
+    dtheta1: torch.Tensor
+    dtheta2: torch.Tensor
+    t: torch.Tensor
+
+
+class AcrobotResetDraws(NamedTuple):
+    vals: torch.Tensor   # [B, 4] float32 in [-0.1, 0.1)
+
+
+class Acrobot(Env):
+    """Acrobot-v1 ("book" dynamics, one RK4 step of dt 0.2): a two-link
+    swing-up with torque -1, 0 or +1 on the elbow; reward -1 a step until
+    the tip rises one link length above the pivot."""
+
+    link_length_1 = 1.0
+    link_length_2 = 1.0
+    link_mass_1 = 1.0
+    link_mass_2 = 1.0
+    link_com_1 = 0.5
+    link_com_2 = 0.5
+    link_moi = 1.0
+    max_vel_1 = 4 * math.pi
+    max_vel_2 = 9 * math.pi
+    dt = 0.2
+    gravity = 9.8
+
+    def __init__(self, max_steps: int = 500, device="cuda"):
+        self.max_steps = max_steps
+        self.device = torch.device(device)
+
+    @property
+    def observation_space(self):
+        high = [1.0, 1.0, 1.0, 1.0, float(self.max_vel_1),
+                float(self.max_vel_2)]
+        return FloatBox(low=[-h for h in high], high=high, shape=(6,))
+
+    @property
+    def action_space(self):
+        return IntBox(0, 3)
+
+    @property
+    def horizon(self):
+        return self.max_steps
+
+    @staticmethod
+    def _obs(s: AcrobotState) -> torch.Tensor:
+        return torch.stack([torch.cos(s.theta1), torch.sin(s.theta1),
+                            torch.cos(s.theta2), torch.sin(s.theta2),
+                            s.dtheta1, s.dtheta2], dim=-1)
+
+    def _dsdt(self, y: torch.Tensor, torque: torch.Tensor) -> torch.Tensor:
+        """d/dt of y = [theta1, theta2, dtheta1, dtheta2] ([4, B])."""
+        m1, m2 = self.link_mass_1, self.link_mass_2
+        l1 = self.link_length_1
+        lc1, lc2 = self.link_com_1, self.link_com_2
+        i1 = i2 = self.link_moi
+        g = self.gravity
+        theta1, theta2, dtheta1, dtheta2 = y
+        d1 = (m1 * lc1 ** 2 + m2 * (l1 ** 2 + lc2 ** 2
+                                    + 2 * l1 * lc2 * torch.cos(theta2))
+              + i1 + i2)
+        d2 = m2 * (lc2 ** 2 + l1 * lc2 * torch.cos(theta2)) + i2
+        phi2 = m2 * lc2 * g * torch.cos(theta1 + theta2 - math.pi / 2.0)
+        phi1 = (-m2 * l1 * lc2 * dtheta2 ** 2 * torch.sin(theta2)
+                - 2 * m2 * l1 * lc2 * dtheta2 * dtheta1 * torch.sin(theta2)
+                + (m1 * lc1 + m2 * l1) * g * torch.cos(theta1 - math.pi / 2.0)
+                + phi2)
+        ddtheta2 = ((torque + d2 / d1 * phi1
+                     - m2 * l1 * lc2 * dtheta1 ** 2 * torch.sin(theta2)
+                     - phi2)
+                    / (m2 * lc2 ** 2 + i2 - d2 ** 2 / d1))
+        ddtheta1 = -(d2 * ddtheta2 + phi1) / d1
+        return torch.stack([dtheta1, dtheta2, ddtheta1, ddtheta2])
+
+    def draw_reset(self, n: int, generator: torch.Generator
+                   ) -> AcrobotResetDraws:
+        u = torch.rand((n, 4), generator=generator, device=generator.device)
+        return AcrobotResetDraws(u * 0.2 - 0.1)
+
+    def reset_batch(self, n: int, generator: Optional[torch.Generator] = None,
+                    draws: Optional[AcrobotResetDraws] = None):
+        if draws is None:
+            draws = self.draw_reset(n, generator)
+        v = draws.vals.to(self.device, torch.float32)
+        s = AcrobotState(v[:, 0], v[:, 1], v[:, 2], v[:, 3],
+                         torch.zeros((n,), dtype=torch.int32,
+                                     device=self.device))
+        return s, self._obs(s)
+
+    def step_batch(self, state: AcrobotState, action: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """``action`` [B] in {0, 1, 2}; ``generator`` is not used."""
+        torque = (action - 1).to(torch.float32)
+        y0 = torch.stack([state.theta1, state.theta2, state.dtheta1,
+                          state.dtheta2])
+        h = self.dt
+        k1 = self._dsdt(y0, torque)
+        k2 = self._dsdt(y0 + h / 2.0 * k1, torque)
+        k3 = self._dsdt(y0 + h / 2.0 * k2, torque)
+        k4 = self._dsdt(y0 + h * k3, torque)
+        y = y0 + h / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+        def wrap(x):
+            return torch.remainder(x + math.pi, 2 * math.pi) - math.pi
+
+        theta1, theta2 = wrap(y[0]), wrap(y[1])
+        new = AcrobotState(
+            theta1, theta2,
+            torch.clamp(y[2], -self.max_vel_1, self.max_vel_1),
+            torch.clamp(y[3], -self.max_vel_2, self.max_vel_2), state.t + 1)
+        terminated = -torch.cos(theta1) - torch.cos(theta2 + theta1) > 1.0
+        truncated = new.t >= self.max_steps
+        reward = torch.where(terminated, 0.0, -1.0)
+        return new, EnvStep(self._obs(new), reward, terminated | truncated,
+                            {"timeout": truncated & ~terminated})
+
+
 class MountainCarState(NamedTuple):
     position: torch.Tensor
     velocity: torch.Tensor
@@ -196,16 +339,18 @@ class MountainCarResetDraws(NamedTuple):
     position: torch.Tensor   # [B] uniform in [-0.6, -0.4)
 
 
-class ContinuousMountainCar(Env):
-    """MountainCarContinuous-v0: +100 at the goal, -0.1 force^2 a step."""
+class MountainCar(Env):
+    """MountainCar-v0: push left, none or right (actions 0, 1, 2); reward
+    -1 a step until the car reaches the goal."""
 
     min_position = -1.2
     max_position = 0.6
     max_speed = 0.07
-    goal_position = 0.45
-    power = 0.0015
+    goal_position = 0.5
+    force = 0.001
+    gravity = 0.0025
 
-    def __init__(self, max_steps: int = 999, device="cuda"):
+    def __init__(self, max_steps: int = 200, device="cuda"):
         self.max_steps = max_steps
         self.device = torch.device(device)
 
@@ -216,7 +361,7 @@ class ContinuousMountainCar(Env):
 
     @property
     def action_space(self):
-        return FloatBox(low=-1.0, high=1.0, shape=(1,))
+        return IntBox(0, 3)
 
     @property
     def horizon(self):
@@ -240,6 +385,39 @@ class ContinuousMountainCar(Env):
                              torch.zeros((n,), dtype=torch.int32,
                                          device=self.device))
         return s, self._obs(s)
+
+    def step_batch(self, state: MountainCarState, action: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """``action`` [B] in {0, 1, 2}; ``generator`` is not used."""
+        velocity = state.velocity + (action - 1) * self.force + torch.cos(
+            3 * state.position) * (-self.gravity)
+        velocity = torch.clamp(velocity, -self.max_speed, self.max_speed)
+        position = torch.clamp(state.position + velocity,
+                               self.min_position, self.max_position)
+        velocity = torch.where(
+            (position <= self.min_position) & (velocity < 0), 0.0, velocity)
+        new = MountainCarState(position, velocity, state.t + 1)
+        terminated = position >= self.goal_position
+        truncated = new.t >= self.max_steps
+        return new, EnvStep(self._obs(new), torch.full_like(position, -1.0),
+                            terminated | truncated,
+                            {"timeout": truncated & ~terminated})
+
+
+class ContinuousMountainCar(MountainCar):
+    """MountainCarContinuous-v0: a force in [-1, 1]; +100 at the goal,
+    -0.1 force^2 a step.  Positions, resets and observations are
+    MountainCar's."""
+
+    goal_position = 0.45
+    power = 0.0015
+
+    def __init__(self, max_steps: int = 999, device="cuda"):
+        super().__init__(max_steps, device)
+
+    @property
+    def action_space(self):
+        return FloatBox(low=-1.0, high=1.0, shape=(1,))
 
     def step_batch(self, state: MountainCarState, action: torch.Tensor,
                    generator: Optional[torch.Generator] = None):

@@ -1,9 +1,11 @@
 """DQN-family models (port of rlpyt_tpu/models/dqn.py: DuelingHead,
 DistributionalDuelingHead, AtariDqnModel, AtariCatDqnModel,
-AtariR2d1Model).
+AtariR2d1Model, DqnMlpModel, R2d1MlpModel).
 
-Accept observations with [], [B] or [T,B] leading dims and uint8
-images in [C, H, W] layout, scaled by 1/``obs_divisor`` inside the model.
+Accept observations with [], [B] or [T,B] leading dims.  The Atari
+models take uint8 images in [C, H, W] layout, scaled by 1/``obs_divisor``
+inside the model; the MLP models take vectors of ``input_size`` (or, for
+``DqnMlpModel``, a dict of vectors whose sizes sum to it).
 """
 from __future__ import annotations
 
@@ -16,7 +18,11 @@ from torch import nn
 from rlpyt_tpu_torch.models.conv import Conv2dModel
 from rlpyt_tpu_torch.models.mlp import MlpModel
 from rlpyt_tpu_torch.models.rnn import LstmCore, RnnState
-from rlpyt_tpu_torch.struct import infer_leading_dims, restore_leading_dims
+from rlpyt_tpu_torch.struct import (
+    infer_leading_dims,
+    infer_leading_dims_tree,
+    restore_leading_dims,
+)
 
 # Nature-CNN geometry as rlpyt adapts it to 104x80 frames.
 ATARI_CHANNELS = (32, 64, 64)
@@ -186,5 +192,67 @@ class AtariR2d1Model(nn.Module):
         done_tb = (torch.zeros((T, B), dtype=torch.bool, device=x.device)
                    if done is None else done.reshape(T, B))
         y, next_state = self.lstm(lstm_in, done_tb, rnn_state)
+        q = self.head(y.reshape(T * B, -1))
+        return restore_leading_dims(q, lead_dim, T, B), next_state
+
+
+class DqnMlpModel(nn.Module):
+    """MLP (or dueling) Q-network for vector observations.  A dict
+    observation is flattened leaf by leaf and concatenated in sorted-key
+    order (``infer_leading_dims_tree``), as the JAX model does.  ``head``
+    is the JAX model's ``MlpModel_0`` or ``DuelingHead_0``."""
+
+    def __init__(self, input_size: int, n_actions: int,
+                 hidden_sizes: Sequence[int] = (256, 256),
+                 dueling: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dueling:
+            self.head = DuelingHead(input_size, hidden_sizes, n_actions,
+                                    compute_dtype)
+        else:
+            self.head = MlpModel(input_size, hidden_sizes, n_actions,
+                                 compute_dtype=compute_dtype)
+
+    def forward(self, observation, prev_action=None, prev_reward=None):
+        lead_dim, T, B, x = infer_leading_dims_tree(observation, 1)
+        return restore_leading_dims(self.head(x), lead_dim, T, B)
+
+
+class R2d1MlpModel(nn.Module):
+    """MLP -> LSTM (with one-hot prev action and prev reward) ->
+    (dueling) Q for vector observations, the small analogue of
+    AtariR2d1Model.  ``mlp``, ``lstm`` and ``head`` are the JAX model's
+    ``MlpModel_0``, ``LstmCore_0`` and ``MlpModel_1`` (or
+    ``DuelingHead_0``)."""
+
+    def __init__(self, input_size: int, n_actions: int,
+                 hidden_sizes: Sequence[int] = (64,), lstm_size: int = 64,
+                 dueling: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_actions = n_actions
+        self.mlp = MlpModel(input_size, hidden_sizes,
+                            compute_dtype=compute_dtype)
+        self.lstm = LstmCore(hidden_sizes[-1] + n_actions + 1, lstm_size)
+        if dueling:
+            self.head = DuelingHead(lstm_size, hidden_sizes, n_actions,
+                                    compute_dtype)
+        else:
+            self.head = MlpModel(lstm_size, hidden_sizes, n_actions,
+                                 compute_dtype=compute_dtype)
+
+    def forward(self, observation, prev_action, prev_reward,
+                rnn_state: RnnState, done=None):
+        lead_dim, T, B, obs_shape = infer_leading_dims(observation, 1)
+        x = self.mlp(observation.reshape(T, B, obs_shape[0])
+                     .to(torch.float32))
+        pa = F.one_hot(prev_action.reshape(T, B).long(),
+                       self.n_actions).to(x.dtype)
+        pr = prev_reward.reshape(T, B, 1).to(x.dtype)
+        done_tb = (torch.zeros((T, B), dtype=torch.bool, device=x.device)
+                   if done is None else done.reshape(T, B))
+        y, next_state = self.lstm(torch.cat([x, pa, pr], dim=-1), done_tb,
+                                  rnn_state)
         q = self.head(y.reshape(T * B, -1))
         return restore_leading_dims(q, lead_dim, T, B), next_state

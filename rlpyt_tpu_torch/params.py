@@ -1,8 +1,8 @@
 """Weight bridge between the JAX package's flax parameter trees and the
 port's ``state_dict``s.  It takes and returns numpy arrays only.
 
-Tree paths read (AtariDqnModel, AtariCatDqnModel, AtariR2d1Model and
-the policy-gradient AtariFfModel, AtariLstmModel)::
+Tree paths read (AtariDqnModel, AtariCatDqnModel, AtariR2d1Model,
+DqnMlpModel, R2d1MlpModel and the policy-gradient models)::
 
     params/Conv2dModel_0/Conv_{i}/{kernel,bias}  <->  conv.convs.{i}.{weight,bias}
     params/MlpModel_0/Dense_{j}/{kernel,bias}    <->  head.layers.{j}.{weight,bias}
@@ -13,6 +13,7 @@ the policy-gradient AtariFfModel, AtariLstmModel)::
     params/DuelingHead_0/MlpModel_1/Dense_{j}/.. <->  head.val.layers.{j}.{..}
     params/DistributionalDuelingHead_0/MlpModel_{0,1}/..  <->  head.{adv,val}...
     params/LstmCore_0/{wx,wh,b}                  <->  lstm.{wx,wh,b}
+    params/MlpModel_{0,1}/..  (R2d1MlpModel)     <->  mlp... / head...
     params/MlpModel_1/Dense_{j}/.. (Gaussian V)  <->  value_mlp.layers.{j}...
     params/log_std  (Gaussian PG)                <->  log_std
     norm_stats/RunningMeanStd_0/{mean,var,count} <->  obs_norm.{mean,var,count}
@@ -45,6 +46,9 @@ Layout rules:
   ``MlpModel_0`` is the fc trunk before the pi and V layers, and a
   top-level ``MlpModel_1`` (the Gaussian feedforward model's) is the V
   MLP.
+- A Q tree with an ``LstmCore_0`` and no conv is R2d1MlpModel's: its
+  ``MlpModel_0`` is the trunk before the LSTM (``mlp``) and
+  ``MlpModel_1`` the head.  Going back, ``mlp.*`` keys say so.
 - Both dueling heads map onto ``head.adv`` / ``head.val``.  Going back,
   the value stream's output width says which flax module a state_dict
   came from: 1 for ``DuelingHead_0``, ``n_atoms`` (> 1) for
@@ -101,9 +105,14 @@ def from_jax_params(tree) -> Dict[str, np.ndarray]:
         out[f"conv.convs.{i}.weight"] = np.ascontiguousarray(w)
         out[f"conv.convs.{i}.bias"] = np.asarray(leaf["bias"])
     pg = "Dense_0" in p
-    for path, prefix in _HEADS:
+    mlp_r2d1 = (not pg and "LstmCore_0" in p
+                and "Conv2dModel_0" not in p)
+    heads = _HEADS + ((("MlpModel_1",), "head"),) if mlp_r2d1 else _HEADS
+    for path, prefix in heads:
         if pg and path == ("MlpModel_0",):
             prefix = "fc"
+        elif mlp_r2d1 and path == ("MlpModel_0",):
+            prefix = "mlp"
         mlp = p
         for key in path:
             mlp = mlp.get(key, {})
@@ -149,6 +158,8 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
              if path[0] in ("MlpModel_0", dueling)}
     paths["fc"] = ("MlpModel_0",)
     paths[_PG_VALUE_MLP[1]] = (_PG_VALUE_MLP[0],)
+    if any(k.startswith("mlp.layers.") for k in sd):    # R2d1MlpModel
+        paths["mlp"], paths["head"] = ("MlpModel_0",), ("MlpModel_1",)
     pg_dense = {prefix: name for name, prefix in _PG_DENSE.items()}
     tree, stats = {}, {}
 
@@ -193,6 +204,28 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
     if stats:
         return {"params": tree, "norm_stats": {_NORM[0]: stats}}
     return {"params": tree}
+
+
+def s2d_stride_of(model) -> Optional[int]:
+    """The first conv's stride where the JAX model (``space_to_depth``
+    at its default, True) stores ``Conv_0`` blocked: stride above 1,
+    kernel a multiple of it, no padding.  None for any other model."""
+    conv = getattr(model, "conv", None)
+    if conv is None:
+        return None
+    c0 = conv.convs[0]
+    k, s, p = c0.kernel_size[0], c0.stride[0], c0.padding[0]
+    return s if s > 1 and k % s == 0 and p == 0 else None
+
+
+def agent_params_to_jax(agent) -> dict:
+    """The agent's weights as the JAX agent's parameter tree, numpy
+    leaves: a model's flax variables, or a Q-value policy-gradient
+    agent's dict of them.  What a snapshot stores."""
+    if hasattr(agent, "nets"):
+        return to_jax_qpg_params(agent.nets.state_dict())
+    return to_jax_params(agent.model.state_dict(),
+                         s2d_stride_of(agent.model))
 
 
 def from_jax_qpg_params(tree) -> Dict[str, np.ndarray]:

@@ -1,6 +1,6 @@
 """Training runners (port of rlpyt_tpu/runners/train.py: MinibatchRl,
-with start-state decorrelation and evaluation at each log interval, and
-MinibatchRlEval).
+with start-state decorrelation, a parameter snapshot and evaluation at
+each log interval, and MinibatchRlEval).
 
 The JAX runner compiles a whole log interval into one device program.
 Here the loop runs on the host and launches work on the device; values
@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from rlpyt_tpu_torch.params import agent_params_to_jax
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector, TrajStats
 from rlpyt_tpu_torch.utils.logging import TabularLogger
 
@@ -115,6 +116,10 @@ class MinibatchRl:
             itr = (interval + 1) * self.itrs_per_interval
             self._log_diagnostics(itr, cum_steps, opt_infos, traj_stats,
                                   t1 - t0, t1 - t_start)
+            if self.logger.snapshot_path(itr) is not None:
+                self.logger.save_itr_params(itr, {
+                    "params": agent_params_to_jax(self.agent), "itr": itr,
+                    "cum_steps": cum_steps})
             if self.eval_env is not None:
                 self._log_traj_stats("Eval", self.eval_collector.evaluate(
                     self.eval_generator, self.eval_T,

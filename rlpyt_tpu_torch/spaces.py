@@ -1,8 +1,8 @@
 """Action/observation spaces (port of rlpyt_tpu/spaces.py: IntBox,
-FloatBox)."""
+FloatBox, Composite)."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -73,3 +73,25 @@ class FloatBox:
 
     def __repr__(self):
         return f"FloatBox(shape={self.shape})"
+
+
+class Composite:
+    """A dict of spaces, mapped onto a dict observation.  ``sample``
+    draws each subspace in the dict's order from the one generator."""
+
+    def __init__(self, spaces: Dict[str, object]):
+        self.spaces = dict(spaces)
+        self.shape = None
+        self.dtype = None
+
+    def sample(self, generator: torch.Generator,
+               batch_shape: Tuple[int, ...] = ()) -> dict:
+        return {name: space.sample(generator, batch_shape)
+                for name, space in self.spaces.items()}
+
+    def null_value(self, device="cuda") -> dict:
+        return {name: space.null_value(device)
+                for name, space in self.spaces.items()}
+
+    def __repr__(self):
+        return f"Composite({self.spaces})"

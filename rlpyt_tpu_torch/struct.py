@@ -58,6 +58,30 @@ def infer_leading_dims(x: torch.Tensor, dim: int):
     return lead_dim, T, B, tuple(x.shape[lead_dim:])
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a tree in ``jax.tree_util``'s leaf order: dict keys
+    sorted, sequences in order, None dropped."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def infer_leading_dims_tree(observation, dim: int = 1):
+    """``infer_leading_dims`` over a tree observation (a dict from a
+    Composite space): each leaf, with ``dim`` feature dims, is flattened
+    to [T*B, F_leaf] in float32, and the leaves are concatenated on the
+    feature axis in ``tree_leaves`` order, as the JAX package does.
+    Returns (lead_dim, T, B, x [T*B, F_total])."""
+    leaves = tree_leaves(observation)
+    lead_dim, T, B, _ = infer_leading_dims(leaves[0], dim)
+    flat = [leaf.reshape(T * B, -1).to(torch.float32) for leaf in leaves]
+    return lead_dim, T, B, torch.cat(flat, dim=-1)
+
+
 def restore_leading_dims(x, lead_dim: int, T: int = 1, B: int = 1):
     """Undo the [T*B] flattening of ``infer_leading_dims``."""
 

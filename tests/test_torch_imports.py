@@ -14,7 +14,8 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
               + sorted(ROOT.glob("bench_torch_*.py"))
               + [ROOT / "tests" / "test_torch_minatar_learning.py",
                  ROOT / "tests" / "test_torch_pg_learning.py",
-                 ROOT / "tests" / "test_torch_qpg_learning.py"])
+                 ROOT / "tests" / "test_torch_qpg_learning.py",
+                 ROOT / "tests" / "test_torch_dqn_learning.py"])
 
 
 def imported_modules(path: Path):
@@ -47,9 +48,14 @@ def test_scan_covers_the_port():
                  "experiments/scripts/minatar_pg.py",
                  "distributions/gaussian.py", "envs/reacher.py",
                  "envs/locomotion.py", "models/qpg.py", "agents/qpg.py",
-                 "algos/qpg.py", "models/running_norm.py"):
+                 "algos/qpg.py", "models/running_norm.py",
+                 "struct.py", "models/dqn.py", "agents/dqn.py",
+                 "algos/dqn.py", "utils/launching.py", "utils/seed.py",
+                 "experiments/configs/minatar_dqn.py",
+                 "experiments/scripts/minatar_dqn.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
     assert "bench_torch_minatar.py" in names
     assert "tests/test_torch_qpg_learning.py" in names
+    assert "tests/test_torch_dqn_learning.py" in names
     assert "chip_smoke.py" in names and len(names) > 20
