@@ -17,6 +17,9 @@
     python3 bench_torch_profile.py --minatar-dqn r2d1
                      # a config of experiments/configs/minatar_dqn.py
                      # (dqn, dqn_pub, ernbw, ernbw_vec, r2d1) at its widths
+    python3 bench_torch_profile.py --atari-host dqn
+                     # a config of experiments/configs/atari_dqn.py
+                     # (dqn, ernbw, r2d1) on the host path at its widths
 
 Builds the trainer of chip_smoke.py (full width; the Atari trainers in
 bf16, MinAtar in fp32), warms it up (DQN, ernbw and MinAtar: two
@@ -51,6 +54,17 @@ iterations up to the first with updates, at the config's min_steps_learn
 of 5000) the replay sample and the update are timed as for DQN (R2D1:
 as for --r2d1), one evaluation as for --minatar-pg, and the table is
 profile_table_minatar_dqn_CONFIG.txt.
+With --atari-host CONFIG the trainer is experiments/scripts/atari_dqn.py's
+on FakeALE, its 32 envs in a spawned farm with the C barrier, with
+chip_smoke.py phase 15's cuts of min_steps_learn and the evaluation caps;
+after the iterations up to the first with updates, three iterations are
+timed as above, with each farm step timed inside the collection
+(``farm_step_ms``; ``collect_step_rest_ms`` is the rest of a collection
+step: inputs to the card, the agent step, the actions back), one step's
+observations copied from pinned memory to the card alone (``h2d_obs_ms``,
+median of 20, synced), ``update_ms`` the optimize time over its updates,
+one evaluation as ``eval_ms``, and the table is
+profile_table_atari_host_CONFIG.txt.
 """
 from __future__ import annotations
 
@@ -73,16 +87,130 @@ def wall(fn, sync=True):
     return time.perf_counter() - t0, out
 
 
+def profile_iteration(run, suffix: str) -> dict:
+    """One call of ``run`` under torch.profiler: its wall time, the device
+    busy time, idle share and operations, the top operations; the table
+    goes to chiprun_out/profile_table{suffix}.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dt_itr, _ = wall(run)
+    # Device operations only: kernels, copies and sets.  User
+    # annotations (e.g. Optimizer.step) also carry device time and
+    # would count it twice.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"profile_table{suffix}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total",
+                                  row_limit=60))
+    return {
+        "profiled_iteration_ms": 1e3 * dt_itr,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / dt_itr,
+        "device_ops": sum(e.count for e in events),
+        "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
+                              for e in top},
+    }
+
+
+def smi_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return smi.splitlines()[0]
+
+
+def profile_atari_host(key: str, dev) -> dict:
+    """--atari-host CONFIG: the host-path trainer of atari_dqn.py."""
+    import chip_smoke as cs
+    from rlpyt_tpu_torch.experiments.configs.atari_dqn import configs
+    from rlpyt_tpu_torch.experiments.scripts.atari_dqn import build_runner
+
+    T = configs[key]["sampler"]["batch_T"]
+    steps = T * cs.AT_B
+    runner, _ = build_runner(key, config_overrides={
+        "env": {"fake": True}, "eval_env": {"fake": True},
+        "runner": {"log_interval_steps": steps},
+        "algo": {"min_steps_learn": cs.AT_LEARN[key]},
+        "sampler": dict(cs.AT_EVAL_CUT)})
+    try:
+        runner.startup()
+        algo = runner.algo
+
+        def iteration():
+            samples, rollout_state = runner._collect_batch()
+            return algo.optimize(samples, rollout_state)
+
+        for _ in range(math.ceil(cs.AT_LEARN[key] / steps)):
+            iteration()
+        torch.cuda.synchronize()
+        farm_step = runner.vec.step
+        farm_s = [0.0]
+
+        def timed_step(actions):
+            t0 = time.perf_counter()
+            out = farm_step(actions)
+            farm_s[0] += time.perf_counter() - t0
+            return out
+
+        runner.vec.step = timed_step
+        collect_s, optimize_s = [], []
+        for _ in range(3):
+            dt, (samples, state) = wall(runner._collect_batch)
+            collect_s.append(dt)
+            dt, _ = wall(lambda: algo.optimize(samples, state))
+            optimize_s.append(dt)
+        farm_ms = 1e3 * farm_s[0] / (3 * T)
+        obs = torch.from_numpy(runner.vec.obs.copy()).pin_memory()
+        h2d = [wall(lambda: obs.to(dev, non_blocking=True))[0]
+               for _ in range(20)]
+        dt_eval, eps = wall(runner._evaluate)
+        out = {
+            "trainer": f"atari_host_{key}",
+            "farm": f"{runner.vec.start_method}, {runner.vec.sync_impl}",
+            "env_steps_per_iteration": steps,
+            "updates_per_iteration": algo.updates_per_optimize,
+            "collect_ms": 1e3 * statistics.median(collect_s),
+            "optimize_ms": 1e3 * statistics.median(optimize_s),
+            "farm_step_ms": farm_ms,
+            "collect_step_rest_ms": (1e3 * statistics.median(collect_s) / T
+                                     - farm_ms),
+            "h2d_obs_ms": 1e3 * statistics.median(h2d),
+            "h2d_obs_bytes": obs.numel(),
+            "update_ms": (1e3 * statistics.median(optimize_s)
+                          / algo.updates_per_optimize),
+            "eval_ms": 1e3 * dt_eval, "eval_trajectories": len(eps),
+        }
+        out.update(profile_iteration(iteration, f"_atari_host_{key}"))
+        return out
+    finally:
+        runner.vec.close()
+        runner.eval_vec.close()
+
+
 def main():
     if not torch.cuda.is_available():
         print("bench_torch_profile: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import chip_smoke as cs
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
+    if "--atari-host" in sys.argv[1:]:
+        out = profile_atari_host(
+            sys.argv[sys.argv.index("--atari-host") + 1], dev)
+        print(smi_line())
+        print(json.dumps({"device": torch.cuda.get_device_name(0), **out}))
+        return 0
     r2d1 = "--r2d1" in sys.argv[1:]
     ernbw = "--ernbw" in sys.argv[1:]
     pg = sys.argv[sys.argv.index("--minatar-pg") + 1] \
@@ -167,29 +295,8 @@ def main():
         extra.update(eval_ms=1e3 * dt_eval,
                      eval_trajectories=int(stats.completed))
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dt_itr, _ = wall(runner.run_interval)
-    # Device operations only: kernels, copies and sets.  User
-    # annotations (e.g. Optimizer.step) also carry device time and
-    # would count it twice.
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation]
-    busy_us = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / f"profile_table{suffix}.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total",
-                                  row_limit=60))
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    prof = profile_iteration(runner.run_interval, suffix)
+    print(smi_line())
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "trainer": suffix[1:] or "dqn",
@@ -197,13 +304,7 @@ def main():
         "updates_per_iteration": algo.updates_per_optimize,
         "collect_ms": 1e3 * statistics.median(collect_s),
         "optimize_ms": 1e3 * statistics.median(optimize_s),
-        **extra,
-        "profiled_iteration_ms": 1e3 * dt_itr,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": 1.0 - busy_us / 1e6 / dt_itr,
-        "device_ops": sum(e.count for e in events),
-        "top_device_ops_ms": {e.key[:80]: e.self_device_time_total / 1e3
-                              for e in top},
+        **extra, **prof,
     }))
     return 0
 

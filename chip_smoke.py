@@ -109,6 +109,31 @@ Phases, each fatal on failure:
      and timed at the r2d1 config's shapes (F=1031, H=128); (e) the r2d1
      run's params.pkl snapshot loaded back into a model on the card gives
      the live model's Q values.
+ 15. the host-env path, through
+     rlpyt_tpu_torch/experiments/scripts/atari_dqn.py's build_runner (what
+     build_and_train trains) on FakeALE (env.fake=True), its farms
+     required to have spawned with the C barrier: (a) a 32-env
+     SharedMemVecEnv of AtariEnv(FakeALE), sync="c", steps
+     200 times beside a SerialVecEnv from the same seeds and actions,
+     bit for bit (observations, rewards, dones, timeouts, game_score,
+     traj_done); host ms a farm step; (b) dqn, (c) ernbw, (d) r2d1 at the
+     configs' widths (Nature CNN, 32 lanes; dqn/ernbw T=4, batch 32, 32
+     updates an iteration, 1M-frame replay; r2d1 LSTM 512, T=40, one
+     update of 32 windows of 125 rows) for three learning iterations,
+     evaluating on 4 lanes after each (cuts: n_steps, the log interval,
+     min_steps_learn, the evaluation caps): finite losses, the update
+     count, the Eval and GameScore columns, one frame gather an update
+     (dqn, ernbw), the K3a, K3 (with its one-step launches) and K4
+     launches of every r2d1 iteration, ernbw's priorities and importance
+     weights, r2d1's priorities; env-steps/s of each iteration, host ms
+     a farm step, the rest of a collection step and an update; (e) dqn
+     under AsyncHostRl (learner thread and stream) for 12 iterations:
+     finite losses, one gather an update, the actor's parameters at most
+     2 batches behind, env-steps/s up to the learner's last optimize;
+     (f) the frame gather at batch 32 on the filled 1M-frame ring (U=5,
+     U=7) bit for bit against its plain version at offsets past 2^32, and
+     K3a, K3, K4 at the r2d1 config's shapes (F=6917, H=512), checked and
+     timed as in phases 5 and 6.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -183,26 +208,29 @@ def random_case(g, size_T, B, F, batch, K, n, dev, mask_dtype=torch.uint8):
     return ring, start, b_idx, masks[0].contiguous(), masks[1].contiguous()
 
 
-def check_gather(fg, g, dev):
-    """Phase 2: kernel vs plain, bit-exact, every case with int64 indices
-    (the trainers' type) and with int32 ones (the kernel has an
-    instantiation for each).  Returns the flagship case's max abs error."""
-    def hold(name, ring, start, b_idx, ma, mt, k, nn):
-        ref = fg.gather_frame_stacks_plain(ring, start, b_idx, ma, mt, k, nn)
-        worst = 0
-        for cast in (torch.Tensor.long, torch.Tensor.int):
-            out = fg.gather_frame_stacks(ring, cast(start), cast(b_idx), ma,
-                                         mt, k, nn)
-            torch.cuda.synchronize()
-            err = max(int((o.int() - r.int()).abs().max()) for o, r in
-                      zip(out, ref))
-            if err != 0 or any(o.shape != r.shape for o, r in zip(out, ref)):
-                fail(f"frame gather differs from plain ({name}, "
-                     f"{cast(start).dtype} indices): max err {err}")
-            worst = max(worst, err)
-        print(f"gather check {name}: bit-exact (int64 and int32 indices)")
-        return worst
+def hold_gather(fg, name, ring, start, b_idx, ma, mt, k, nn):
+    """The gather against its plain version, bit-exact, with int64
+    indices (the trainers' type) and with int32 ones (the kernel has an
+    instantiation for each).  Returns the max abs error."""
+    ref = fg.gather_frame_stacks_plain(ring, start, b_idx, ma, mt, k, nn)
+    worst = 0
+    for cast in (torch.Tensor.long, torch.Tensor.int):
+        out = fg.gather_frame_stacks(ring, cast(start), cast(b_idx), ma,
+                                     mt, k, nn)
+        torch.cuda.synchronize()
+        err = max(int((o.int() - r.int()).abs().max()) for o, r in
+                  zip(out, ref))
+        if err != 0 or any(o.shape != r.shape for o, r in zip(out, ref)):
+            fail(f"frame gather differs from plain ({name}, "
+                 f"{cast(start).dtype} indices): max err {err}")
+        worst = max(worst, err)
+    print(f"gather check {name}: bit-exact (int64 and int32 indices)")
+    return worst
 
+
+def check_gather(fg, g, dev):
+    """Phase 2: kernel vs plain, bit-exact, every case with int64 and
+    int32 indices.  Returns the flagship case's max abs error."""
     K, n = 4, 1
     cases = [
         ("flagship", (1568, 128, 8320, 256, K, n), torch.uint8),
@@ -214,7 +242,7 @@ def check_gather(fg, g, dev):
     for name, (size_T, B, F, batch, k, nn), mdt in cases:
         ring, start, b_idx, ma, mt = random_case(g, size_T, B, F, batch, k,
                                                  nn, dev, mdt)
-        err = hold(name, ring, start, b_idx, ma, mt, k, nn)
+        err = hold_gather(fg, name, ring, start, b_idx, ma, mt, k, nn)
         if worst is None:
             worst = err
     # Rows that are not 16-byte aligned take the byte path.
@@ -223,19 +251,25 @@ def check_gather(fg, g, dev):
                          device=dev, dtype=torch.uint8)
     ring = flat[1:].view(size_T, B, F)
     _, start, b_idx, ma, mt = random_case(g, size_T, B, 16, batch, K, n, dev)
-    hold("unaligned ring", ring, start, b_idx, ma, mt, K, n)
+    hold_gather(fg, "unaligned ring", ring, start, b_idx, ma, mt, K, n)
     return worst
 
 
-def time_gather(fg, g, dev, n: int):
-    """Phase 3 at the flagship replay's shapes with n-step ``n``, on int64
-    indices as the trainers pass them (the int32 instantiation's device
-    time beside it).  Index sets rotate so the union rows are not left in
-    L2 from the previous call."""
-    size_T, B, F, batch, K = 1568, 128, 8320, 256, 4
+def time_gather(fg, g, dev, n: int, size_T=1568, B=128, batch=256,
+                ring=None):
+    """Phase 3 at the flagship replay's shapes (by default) with n-step
+    ``n``, on int64 indices as the trainers pass them (the int32
+    instantiation's device time beside it).  Index sets rotate so the
+    union rows are not left in L2 from the previous call.  ``ring``: the
+    caller's [size_T, B, 8320] ring; else one is made, and one of more
+    than 2 GB is left unfilled: the times do not depend on its bytes."""
+    F, K = 8320, 4
     U = K + n
-    ring = torch.randint(0, 256, (size_T, B, F), generator=g, device=dev,
-                         dtype=torch.uint8)
+    if ring is None:
+        ring = (torch.randint(0, 256, (size_T, B, F), generator=g,
+                              device=dev, dtype=torch.uint8)
+                if size_T * B * F <= 2 << 30 else
+                torch.empty((size_T, B, F), dtype=torch.uint8, device=dev))
     sets = []
     for _ in range(16):
         _, start, b_idx, ma, mt = random_case(g, size_T, B, 16, batch, K, n,
@@ -2090,6 +2124,474 @@ def check_snapshot(runner, log_dir: Path, dev):
           f"{err:.3g}")
 
 
+# Phase 15: the host-env path, rlpyt_tpu_torch/experiments/scripts/
+# atari_dqn.py with its dqn, ernbw and r2d1 configs on FakeALE, the farms
+# spawned with the C barrier.  The configs' widths: Nature CNN on 32 env
+# lanes; dqn and ernbw T=4, batch 32, 32 updates an iteration, frame
+# replay of 1M frames; r2d1 LSTM 512 (F = conv 6912 + FakeALE's 4 actions
+# + the reward) on T=40, one update an iteration of 32 windows of 40 + 80
+# + 5 rows, sequence replay of 1M; evaluation on 4 lanes.
+AT_B, AT_EVAL_B, AT_FARM_STEPS = 32, 4, 200
+AT_F, AT_H = 64 * 12 * 9 + 4 + 1, 512
+AT_WARMUP, AT_BATCH_T, AT_NSTEP, AT_R2D1_T = 40, 80, 5, 40
+# Iterations of each run and its cut of min_steps_learn (the configs'
+# 50,000 and 20,000 steps): three learning iterations each.  r2d1's
+# first window start with 125 rows after it (slot 1, row 40) is written
+# after five iterations of 40 rows.
+AT_ITR = {"dqn": 4, "ernbw": 4, "r2d1": 7}
+# The AsyncHostRl run (dqn): long enough past the actor's head start of
+# two batches for a steady rate, logged and evaluated once at its end.
+AT_ASYNC_ITR = 12
+AT_LEARN = {"dqn": 2 * 4 * AT_B, "ernbw": 2 * 4 * AT_B,
+            "r2d1": 5 * AT_R2D1_T * AT_B}
+# Evaluation caps: 100 steps a lane and 8 episodes (the configs' 125,000
+# steps and 100 episodes).
+AT_EVAL_CUT = {"eval_max_steps": AT_EVAL_B * 100, "eval_max_trajectories": 8}
+# r2d1's LSTM shapes: the training window (85, 32), the burn-in (40, 32),
+# a collection step (1, 32) and an evaluation step (1, 4).
+AT_WINDOW = AT_BATCH_T + AT_NSTEP
+AT_CASES = [(AT_WINDOW, AT_B, AT_F, AT_H), (AT_WARMUP, AT_B, AT_F, AT_H),
+            (1, AT_B, AT_F, AT_H), (1, AT_EVAL_B, AT_F, AT_H)]
+
+
+def at_launches(fg, L) -> dict:
+    return {"frame_gather": fg.gather_frame_stacks.launches,
+            **md_launches(L)}
+
+
+def check_atari_farm():
+    """Phase 15a: a 32-env SharedMemVecEnv of AtariEnv(FakeALE) (the dqn
+    config's env: sticky actions 0.25, up to 30 no-ops, episodic lives),
+    spawned, with the C barrier, steps AT_FARM_STEPS times beside a
+    SerialVecEnv of the same factories and seeds under the same actions;
+    observations, rewards, dones, timeouts, game_score and traj_done must
+    be equal bit for bit.  Returns (sync_impl, host ms of a farm step)."""
+    import numpy as np
+
+    from rlpyt_tpu_torch.envs.host import SerialVecEnv, SharedMemVecEnv
+    from rlpyt_tpu_torch.experiments.configs.atari_dqn import configs
+    from rlpyt_tpu_torch.experiments.scripts.atari_dqn import make_env_fn
+
+    fns = [make_env_fn(dict(configs["dqn"]["env"], fake=True), b)
+           for b in range(AT_B)]
+    serial = SerialVecEnv(fns, seed=0)
+    farm = SharedMemVecEnv(fns, seed=0, sync="c")
+    try:
+        if farm.start_method != "spawn" or farm.sync_impl != "c":
+            fail(f"15a: farm started by {farm.start_method} with "
+                 f"{farm.sync_impl}, not spawn with c")
+        rng = np.random.RandomState(0)
+        if not np.array_equal(farm.reset(), serial.reset()):
+            fail("15a: reset observations differ")
+        farm_s, n_done, n_traj = 0.0, 0, 0
+        for i in range(AT_FARM_STEPS):
+            acts = rng.randint(0, 4, size=AT_B)
+            t0 = time.perf_counter()
+            out = farm.step(acts)
+            farm_s += time.perf_counter() - t0
+            ref = serial.step(acts)
+            for what, x, y in zip(("obs", "reward", "done", "timeout"),
+                                  out, ref):
+                if not np.array_equal(x, y):
+                    fail(f"15a: {what} differs at step {i}")
+            for k in ("game_score", "traj_done"):
+                if not np.array_equal(farm.info[k], serial.info[k]):
+                    fail(f"15a: {k} differs at step {i}")
+            n_done += int(ref[2].sum())
+            n_traj += int(serial.info["traj_done"].sum())
+    finally:
+        farm.close()
+        serial.close()
+    ms = 1e3 * farm_s / AT_FARM_STEPS
+    print(f"phase 15a: {AT_B}-env farm ({len(farm._procs)} spawned workers,"
+          f" sync {farm.sync_impl}) equals the serial farm bit for bit over "
+          f"{AT_FARM_STEPS} steps ({n_done} dones, {n_traj} ended games); "
+          f"host ms a farm step {ms:.4f}")
+    return farm.sync_impl, ms
+
+
+def run_atari(fg, L, key: str, log_root: Path, asynchronous=False):
+    """Phases 15b-e: the script's ``build_runner(key)`` (what
+    ``build_and_train`` trains) with ``env.fake=True`` at the config's
+    widths, batch, replay size, replay ratio and schedules for
+    AT_ITR[key] iterations, evaluating after each; only n_steps,
+    log_interval_steps, min_steps_learn (AT_LEARN) and the evaluation caps
+    are cut.  The farms must have spawned with the C barrier.  Checks the
+    update count, finite losses once learning, the Eval keys with
+    GameScore and a completed evaluation episode, and the launches of
+    every iteration: dqn and ernbw one frame gather an update and no LSTM
+    launch; r2d1 no gather, T collection steps and every evaluation step
+    one K3a and one one-step K3 each, per update four forward windows
+    (K3a, K3) and one backward (K4).  Synchronous runs also time each
+    collection (host ms a farm step and the rest of a step) and each
+    optimize (device synced).  ``asynchronous``: an AsyncHostRl on the
+    same farms, agent and algorithm, AT_ASYNC_ITR iterations in one
+    logged interval; its rate is timed from the first collection to the
+    evaluation, which starts after the learner's last optimize.  Returns
+    (runner, rows, per-iteration counts, timings)."""
+    import contextlib
+    import csv
+    import io
+
+    from rlpyt_tpu_torch.envs.host import SharedMemVecEnv
+    from rlpyt_tpu_torch.experiments.configs.atari_dqn import configs
+    from rlpyt_tpu_torch.experiments.scripts.atari_dqn import build_runner
+    from rlpyt_tpu_torch.runners.host import AsyncHostRl, HostMinibatchRl
+    from rlpyt_tpu_torch.utils.logging import logger_context
+
+    cfg = configs[key]
+    T = cfg["sampler"]["batch_T"]
+    steps = T * AT_B
+    n_itr = AT_ASYNC_ITR if asynchronous else AT_ITR[key]
+    overrides = {"env": {"fake": True}, "eval_env": {"fake": True},
+                 "runner": {"n_steps": n_itr * steps,
+                            "log_interval_steps": (n_itr if asynchronous
+                                                   else 1) * steps},
+                 "algo": {"min_steps_learn": AT_LEARN[key]},
+                 "sampler": dict(AT_EVAL_CUT)}
+    runner, config = build_runner(key, config_overrides=overrides)
+    farms = (runner.vec, runner.eval_vec)
+    if any(f.start_method != "spawn" or f.sync_impl != "c" for f in farms):
+        for f in farms:
+            f.close()
+        fail(f"15 {key}: farms started by "
+             f"{[(f.start_method, f.sync_impl) for f in farms]}, not "
+             "spawn with c")
+    if asynchronous:
+        r = runner
+        runner = AsyncHostRl(
+            algo=r.algo, agent=r.agent, vec_env=r.vec,
+            batch_T=r.batch_spec.T, n_steps=r.n_steps, seed=r.seed,
+            log_interval_steps=r.log_interval_steps, eval_vec_env=r.eval_vec,
+            eval_max_steps=r.eval_max_steps,
+            eval_max_trajectories=r.eval_max_trajectories, device=r.device)
+    tm = {"eval_steps": 0, "farm_s": 0.0, "collect_s": [], "optimize_s": [],
+          "first_collect": None, "eval_start": []}
+    marks = []      # (launch counts, evaluation steps) at each dump
+    agent_step = HostMinibatchRl._agent_step
+    evaluate = HostMinibatchRl._evaluate
+    farm_step = SharedMemVecEnv.step
+
+    def counted(self, *args, is_eval=False, **kwargs):
+        tm["eval_steps"] += is_eval
+        return agent_step(self, *args, is_eval=is_eval, **kwargs)
+
+    def timed_step(self, actions):
+        t0 = time.perf_counter()
+        out = farm_step(self, actions)
+        if self.B == AT_B:
+            tm["farm_s"] += time.perf_counter() - t0
+        return out
+
+    def marked_evaluate(self):
+        tm["eval_start"].append(time.perf_counter())
+        return evaluate(self)
+
+    HostMinibatchRl._agent_step = counted
+    HostMinibatchRl._evaluate = marked_evaluate
+    SharedMemVecEnv.step = timed_step
+    if asynchronous:
+        collect = runner._collect_batch
+
+        def first_timed_collect():
+            if tm["first_collect"] is None:
+                tm["first_collect"] = time.perf_counter()
+            return collect()
+
+        runner._collect_batch = first_timed_collect
+    else:
+        collect, optimize = runner._collect_batch, runner.algo.optimize
+
+        def timed_collect():
+            t0 = time.perf_counter()
+            out = collect()
+            torch.cuda.synchronize()
+            tm["collect_s"].append(time.perf_counter() - t0)
+            return out
+
+        def timed_optimize(samples, rollout_state):
+            t0 = time.perf_counter()
+            out = optimize(samples, rollout_state)
+            torch.cuda.synchronize()
+            tm["optimize_s"].append(time.perf_counter() - t0)
+            return out
+
+        runner._collect_batch = timed_collect
+        runner.algo.optimize = timed_optimize
+    zero_launches()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()), \
+                logger_context(str(log_root / key), 0, key,
+                               config=config) as logger:
+            dump = logger.dump_tabular
+
+            def marked(*args, **kwargs):
+                marks.append((at_launches(fg, L), tm["eval_steps"]))
+                return dump(*args, **kwargs)
+
+            logger.dump_tabular = marked
+            runner.logger = logger
+            runner.train()
+            torch.cuda.synchronize()
+    finally:
+        HostMinibatchRl._agent_step = agent_step
+        HostMinibatchRl._evaluate = evaluate
+        SharedMemVecEnv.step = farm_step
+        runner.vec.close()
+        runner.eval_vec.close()
+    with open(log_root / key / "run_0" / "progress.csv") as f:
+        rows = list(csv.DictReader(f))
+    algo = runner.algo
+    name = key + (" (AsyncHostRl)" if asynchronous else "")
+    learning = [(i + 1) * steps >= AT_LEARN[key] for i in range(n_itr)]
+    upd = algo.updates_per_optimize
+    # AsyncHostRl writes no row before the learner's first optimize ends
+    # (as the JAX package's): its rows are its dumps.
+    n_rows = len(marks) if asynchronous else n_itr
+    if len(rows) != n_rows or len(marks) != len(rows) \
+            or algo.update_counter != sum(learning) * upd:
+        fail(f"15 {name}: {algo.update_counter} updates in {len(rows)} "
+             f"rows, expected {sum(learning)} x {upd} in {n_rows}")
+    per_itr, prev = [], (dict.fromkeys(at_launches(fg, L), 0), 0)
+    for i, (row, mark) in enumerate(zip(rows, marks)):
+        got = {k: mark[0][k] - prev[0][k] for k in mark[0]}
+        n_eval = mark[1] - prev[1]
+        prev = mark
+        per_itr.append(dict(got, eval_steps=n_eval))
+        n_upd = upd * learning[i]
+        if key == "r2d1":
+            t1 = T + n_eval
+            want = {"frame_gather": 0, "lstm_input_proj": t1 + 4 * n_upd,
+                    "lstm_fwd": t1 + 4 * n_upd, "lstm_fwd_t1": t1,
+                    "lstm_bwd": n_upd}
+            got = {k: got[k] for k in want}
+        else:
+            want = dict.fromkeys(got, 0)
+            want.pop("lstm_input_proj_split")
+            got = {k: got[k] for k in want}
+            want["frame_gather"] = n_upd
+        # The learner thread may finish an optimize after the actor's
+        # dump: an async run is held to its total below.
+        if got != want and not asynchronous:
+            fail(f"15 {name} iteration {i + 1}: launches {got}, expected "
+                 f"{want} ({n_eval} evaluation steps)")
+        fields = ["StepsPerSecond", "EvalReturnAverage",
+                  "EvalGameScoreAverage", "GameScoreAverage"] + (
+            ["loss", "grad_norm", "td_abs_err"] if learning[i]
+            or asynchronous else [])
+        for field in fields:
+            if not math.isfinite(float(row[field])):
+                fail(f"15 {name}: {field} = {row[field]} in iteration "
+                     f"{row['Iteration']}")
+        if learning[i] and not asynchronous and not float(row["loss"]) > 0:
+            fail(f"15 {name}: loss {row['loss']} in iteration "
+                 f"{row['Iteration']}")
+        if int(row["EvalTrajs"]) < 1:
+            fail(f"15 {name}: no evaluation episode completed")
+        print(f"atari {name} itr {row['Iteration']}: loss "
+              f"{float(row['loss']):.6g} td_abs_err "
+              f"{float(row['td_abs_err']):.6g} StepsPerSecond "
+              f"{float(row['StepsPerSecond']):.1f} EvalTrajs "
+              f"{row['EvalTrajs']} EvalGameScoreAverage "
+              f"{float(row['EvalGameScoreAverage']):.4f}; launches "
+              f"{per_itr[-1]}")
+    total = {k: sum(it[k] for it in per_itr) for k in per_itr[0]}
+    if asynchronous:
+        if total["frame_gather"] != algo.update_counter or any(
+                total[k] for k in ("lstm_input_proj", "lstm_fwd",
+                                   "lstm_bwd")):
+            fail(f"15e: launches {total} for {algo.update_counter} updates")
+        if not float(rows[-1]["loss"]) > 0:
+            fail(f"15e: loss {rows[-1]['loss']} in the last iteration")
+        lags = runner.actor_lags
+        if not all(0 <= lag <= 2 for lag in lags):
+            fail(f"15e: actor parameter lags {lags}, not within 2 batches")
+    return runner, rows, per_itr, tm
+
+
+def check_atari_replay(runner, key: str, dev):
+    """Phase 15c (ernbw): priorities finite and above 0 on every written
+    row; a prioritized batch's importance weights in (0, 1]."""
+    replay = runner.algo.replay
+    written = replay.priorities[:replay.filled_t]
+    if not (torch.isfinite(written).all() and (written > 0).all()
+            and torch.isfinite(replay.max_priority)):
+        fail(f"15c {key}: a written row's priority is not finite and "
+             "above 0")
+    g = torch.Generator(device=dev).manual_seed(15)
+    w = replay.sample(runner.algo.batch_size, g).is_weights
+    if not bool(((w > 0) & (w <= 1)).all()):
+        fail(f"15c {key}: importance weights outside (0, 1]: "
+             f"{w.min().item()} .. {w.max().item()}")
+    print(f"phase 15c: {key} priorities finite and > 0 on "
+          f"{written.numel()} written entries; importance weights in "
+          f"[{w.min().item():.4g}, {w.max().item():.4g}]")
+
+
+def check_atari_sequence_replay(runner, key: str):
+    """Phase 15d (r2d1): every written slot's priority finite and above
+    0."""
+    replay = runner.algo.replay
+    n = replay.filled_t // replay.interval
+    written = replay.priorities[:n]
+    if not (torch.isfinite(written).all() and (written > 0).all()):
+        fail(f"15d {key}: a written slot's priority is not finite and "
+             "above 0")
+    print(f"phase 15d: {key} priorities finite and > 0 on {written.numel()}"
+          " written slots")
+
+
+def time_atari_kernels(fg, L, g, dev, errs):
+    """Phase 15f: the frame gather at the configs' batch of 32 on the
+    configs' ring of 1M frames (31,250 rows of 32 lanes, 8.3 GB, filled),
+    U = 5 (dqn) and U = 7 (ernbw), held bit for bit against its plain
+    version first (starts spread over every row, the last lanes of the
+    last rows and starts that wrap: byte offsets past 2^32) and then
+    timed; K3a, K3 and K4 at the r2d1 config's shapes (F, H = AT_F, 512)
+    beside their plain versions, bounds and library calls.  LSTM entries:
+    K3a at the training window's 2720 rows, K3 and K4 at that window
+    (T=85, B=32), K3 at a collection step (T=1, B=32).  Printed: K3a at
+    1280 (burn-in), 32 (collection) and 4 rows (evaluation), K3 at the
+    burn-in (T=40, B=32) and an evaluation step (T=1, B=4).  The gather's
+    errors go into ``errs``."""
+    size_T, F = 1_000_000 // AT_B, 8320
+    ring = torch.randint(0, 256, (size_T, AT_B, F), generator=g, device=dev,
+                         dtype=torch.uint8)
+    gathers = {}
+    for name, n in (("frame_gather_atari_cfg", 1),
+                    ("frame_gather_u7_atari_cfg", 3)):
+        _, start, b_idx, ma, mt = random_case(g, size_T, AT_B, 16, AT_B, 4,
+                                              n, dev)
+        # random_case puts starts 0-7 on the last 8 rows (they wrap);
+        # their lanes are the last 8, the rest spread over every row.
+        b_idx[:8] = torch.arange(AT_B - 8, AT_B, device=dev)
+        start[8:] = torch.linspace(0, size_T - 9, AT_B - 8,
+                                   device=dev).long()
+        errs[name] = hold_gather(fg, f"{name} (1M-frame ring, n={n})", ring,
+                                 start, b_idx, ma, mt, 4, n)
+        gathers[name] = time_gather(fg, g, dev, n, size_T, AT_B, AT_B, ring)
+    del ring
+    torch.cuda.empty_cache()
+    F, H = AT_F, AT_H
+    win = lstm_case(g, AT_WINDOW, AT_B, F, H, dev)
+    burn = lstm_case(g, AT_WARMUP, AT_B, F, H, dev)
+    wx, b = win["wx"], win["b"]
+    entries = add_bounds({
+        "lstm_input_proj_atari_r2d1": proj_times(
+            L, win["x"].view(-1, F), [wx], b, 20),
+        "lstm_fwd_atari_r2d1": fwd_times(L, win, dev, 20, 5),
+        "lstm_fwd_t1_atari_r2d1": fwd_times(
+            L, lstm_case(g, 1, AT_B, F, H, dev), dev, 50, 20),
+        "lstm_bwd_atari_r2d1": bwd_times(L, win, g, dev, 20, 5),
+    })
+    printed = add_bounds({
+        f"lstm_input_proj M={AT_WARMUP * AT_B}": proj_times(
+            L, burn["x"].view(-1, F), [wx], b, 20),
+        **{f"lstm_input_proj M={M}": proj_times(
+            L, torch.randn((M, F), generator=g, device=dev),
+            [wx, wx.clone()], b, 50) for M in (AT_B, AT_EVAL_B)},
+        f"lstm_fwd T={AT_WARMUP} B={AT_B}": fwd_times(L, burn, dev, 20, 5),
+        f"lstm_fwd T=1 B={AT_EVAL_B}": fwd_times(
+            L, lstm_case(g, 1, AT_EVAL_B, F, H, dev), dev, 50, 20),
+    })
+    for name, t in gathers.items():
+        print(f"phase 15f: {name} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms (int32 indices "
+              f"{t['device_int32_ms']:.4f}); index_select call "
+              f"{t['library_ms']:.4f} ms, device "
+              f"{t['library_device_ms']:.4f} ms; plain {t['plain_ms']:.4f}"
+              f" ms; bound {t['bound_ms']:.5f} ms ({t['bytes']} bytes)")
+    for name, t in list(entries.items()) + list(printed.items()):
+        print(f"phase 15f: {name} call {t['ms']:.4f} ms, device "
+              f"{t['device_ms']:.4f} ms; library call "
+              f"{t['library_ms']:.4f} ms"
+              + (f", device {t['library_device_ms']:.4f} ms"
+                 if t.get("library_device_ms") else "")
+              + f"; plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
+              f"operations, {t['bytes']} bytes)")
+    return {**gathers, **entries}
+
+
+def run_host_path(fg, L, g, dev, errs, times, launches, tf32):
+    """Phase 15, the host path: (a) the farm, (b) dqn, (c) ernbw, (d)
+    r2d1, (e) dqn under AsyncHostRl, (f) the kernels at the configs'
+    shapes."""
+    import statistics
+
+    t0 = time.time()
+    check_atari_farm()
+    counts = {}
+    with tempfile.TemporaryDirectory() as log_root:
+        for key, phase in (("dqn", "b"), ("ernbw", "c"), ("r2d1", "d")):
+            t1 = time.time()
+            runner, rows, per_itr, tm = run_atari(fg, L, key, Path(log_root))
+            algo = runner.algo
+            T = runner.batch_spec.T
+            farm_ms = 1e3 * tm["farm_s"] / (T * len(tm["collect_s"]))
+            rest_ms = [round(1e3 * c / T - farm_ms, 3)
+                       for c in tm["collect_s"]]
+            upd_ms = [round(1e3 * o / algo.updates_per_optimize, 3)
+                      for o, r in zip(tm["optimize_s"], rows)
+                      if float(r["loss"]) > 0]
+            counts[key] = {k: sum(it[k] for it in per_itr)
+                           for k in per_itr[0]}
+            if key == "dqn":
+                dqn_sps = [float(r["StepsPerSecond"]) for r in rows
+                           if float(r["loss"]) > 0]
+            print(f"phase 15{phase}: {key} {AT_ITR[key]} iterations at the "
+                  f"config's widths in {time.time() - t1:.1f} s (cuts "
+                  f"n_steps {runner.n_steps}, log_interval_steps "
+                  f"{runner.log_interval_steps}, min_steps_learn "
+                  f"{AT_LEARN[key]}, {AT_EVAL_CUT}), "
+                  f"{algo.update_counter} updates "
+                  f"({algo.updates_per_optimize} an iteration once "
+                  f"learning); env-steps/s per iteration "
+                  f"{[round(float(r['StepsPerSecond']), 1) for r in rows]};"
+                  f" host ms a farm step {farm_ms:.3f}, the rest of a "
+                  f"collection step (agent step, copies) {rest_ms}, an "
+                  f"update (device synced) {upd_ms} (median "
+                  f"{statistics.median(upd_ms):.3f}); launches in all "
+                  f"{counts[key]}")
+            if key == "ernbw":
+                check_atari_replay(runner, key, dev)
+            if key == "r2d1":
+                check_atari_sequence_replay(runner, key)
+            del runner, algo
+            torch.cuda.empty_cache()
+        t1 = time.time()
+        runner, rows, per_itr, tm = run_atari(fg, L, "dqn", Path(log_root)
+                                              / "async", asynchronous=True)
+        steps = AT_ASYNC_ITR * runner.batch_spec.size
+        span = tm["eval_start"][-1] - tm["first_collect"]
+        print(f"phase 15e: dqn under AsyncHostRl {AT_ASYNC_ITR} iterations"
+              f" in {time.time() - t1:.1f} s, {runner.algo.update_counter} "
+              f"updates, actor parameter lag per batch {runner.actor_lags}"
+              f"; {steps} env-steps from the first collection to the end "
+              f"of the learner's last optimize in {span:.3f} s: "
+              f"{steps / span:.1f} env-steps/s (the logged actor's rate "
+              f"{float(rows[-1]['StepsPerSecond']):.1f}; HostMinibatchRl's "
+              f"learning iterations in 15b {dqn_sps}), last loss "
+              f"{float(rows[-1]['loss']):.6g}")
+        del runner
+        torch.cuda.empty_cache()
+    launches.update({
+        "frame_gather_atari_cfg": counts["dqn"]["frame_gather"],
+        "frame_gather_u7_atari_cfg": counts["ernbw"]["frame_gather"],
+        "lstm_input_proj_atari_r2d1": counts["r2d1"]["lstm_input_proj"],
+        "lstm_fwd_atari_r2d1": (counts["r2d1"]["lstm_fwd"]
+                                - counts["r2d1"]["lstm_fwd_t1"]),
+        "lstm_fwd_t1_atari_r2d1": counts["r2d1"]["lstm_fwd_t1"],
+        "lstm_bwd_atari_r2d1": counts["r2d1"]["lstm_bwd"]})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs.update(check_lstm(L, g, dev, AT_CASES, "_atari_r2d1"))
+    times.update(time_atari_kernels(fg, L, g, dev, errs))
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 15: {time.time() - t0:.1f} s")
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2131,6 +2633,11 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # "_minatar_r2d1" entries: the r2d1 config of minatar_dqn.py (F=1031,
 # H=128), with the launches of phase 14b's run: K3a all of them (timed at
 # the training window's 1440 rows), K3 those at T>1 and at T=1, K4 all.
+# The "_atari_r2d1" entries: the r2d1 config of atari_dqn.py (F=6917,
+# H=512) with the launches of phase 15d's run, K3a timed at the training
+# window's 2720 rows; the "_atari_cfg" gathers: batch 32 on the 1M-frame
+# ring of the dqn (U=5) and ernbw (U=7) configs, with their runs'
+# launches.
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
@@ -2151,6 +2658,12 @@ KERNELS = {
     "lstm_fwd_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_fwd_t1_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_bwd_minatar_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "lstm_input_proj_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_t1_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_bwd_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "frame_gather_atari_cfg": _GATHER,
+    "frame_gather_u7_atari_cfg": _GATHER,
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
     "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
 }
@@ -2200,6 +2713,8 @@ def main():
     fg, L, ug = build_kernels()
 
     g = torch.Generator(device=dev).manual_seed(0)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     errs = {"frame_gather": check_gather(fg, g, dev)}
     errs["frame_gather_u7"] = errs["frame_gather"]
     print("phase 2: kernel bit-exact against its plain version")
@@ -2229,8 +2744,6 @@ def main():
         torch.cuda.empty_cache()
 
     # The LSTM checks compare fp32 kernels with fp32 cuBLAS and cuDNN.
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lstm_err = check_lstm(L, g, dev)
@@ -2393,6 +2906,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     print(f"phase 14: {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    run_host_path(fg, L, g, dev, errs, times, launches, tf32)
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

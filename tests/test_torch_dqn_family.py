@@ -366,3 +366,79 @@ def test_float_box_spaces_of_the_classic_envs_match_jax():
         np.testing.assert_array_equal(s.high, js.high)
         assert env.action_space.n == jenv.action_space.n == 3
         assert env.horizon == jenv.horizon
+
+
+def test_dict_obs_run_equals_vector_run_in_leaf_order():
+    """The learning twin's settings (tests/test_torch_dqn_learning.py:
+    test_dict_obs_dqn_learns) at a short budget: MinibatchRl on
+    DictObsCartPole gives the run of the vector CartPole whose features
+    are in the dict's sorted leaf order (x, theta, x_dot, theta_dot),
+    bit for bit: ReturnAverage of every interval and the final weights.
+    The dict path (collection, the flat replay ring, the model's leaf
+    concatenation) adds nothing of its own; beside the vector twin it
+    differs only by the order of the features.  That order is the JAX
+    package's: on the same states, the port's dict leaves and the model
+    input concatenated from them equal the JAX env's and JAX's
+    ``infer_leading_dims_tree``'s, bit for bit, and equal the leaf-order
+    twin's vector."""
+    from rlpyt_tpu.envs.classic import CartPoleState as JaxCartPoleState
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.struct import tree_leaves
+
+    class LeafOrderCartPole(CartPole):
+        @property
+        def observation_space(self):
+            high = [self.x_threshold * 2, self.theta_threshold * 2, 3.0e2,
+                    3.0e2]
+            return FloatBox(low=[-h for h in high], high=high, shape=(4,))
+
+        @staticmethod
+        def _obs(s):
+            return torch.stack([s.x, s.theta, s.x_dot, s.theta_dot], dim=-1)
+
+    def run(env):
+        agent = DqnAgent(ModelCls=DqnMlpModel,
+                         model_kwargs={"hidden_sizes": (32, 32)},
+                         eps_steps=2_000, eps_final=0.02, device="cpu")
+        algo = DQN(batch_size=32, min_steps_learn=256, replay_size=4_096,
+                   replay_ratio=2.0, target_update_interval=50,
+                   learning_rate=1e-3)
+        runner = MinibatchRl(algo=algo, agent=agent, env=env,
+                             batch_spec=BatchSpec(16, 8), n_steps=2_048,
+                             seed=1, log_interval_steps=512, device="cpu")
+        averages = []
+        record = runner.logger.record_tabular
+
+        def spy(key, value):
+            if key == "ReturnAverage":
+                averages.append(float(value))
+            record(key, value)
+
+        runner.logger.record_tabular = spy
+        runner.logger.dump_tabular = lambda *a, **k: None
+        runner.train()
+        return averages, agent.model.state_dict()
+
+    env = DictObsCartPole(device="cpu")
+    state = env.reset_batch(8, torch.Generator().manual_seed(0))[0]
+    state = state._replace(**{
+        f: torch.from_numpy(np.random.RandomState(i).uniform(
+            -1.0, 1.0, 8).astype(np.float32))
+        for i, f in enumerate(("x", "x_dot", "theta", "theta_dot"))})
+    jstate = JaxCartPoleState(*(jnp.asarray(v.numpy()) for v in state))
+    obs, jobs = env._obs(state), jax.vmap(JaxDictObsCartPole()._obs)(jstate)
+    leaves, jleaves = tree_leaves(obs), jax.tree_util.tree_leaves(jobs)
+    assert len(leaves) == len(jleaves) == 2
+    for leaf, jleaf in zip(leaves, jleaves):
+        np.testing.assert_array_equal(leaf.numpy(), np.asarray(jleaf))
+    x = infer_leading_dims_tree(obs, 1)[3]
+    np.testing.assert_array_equal(
+        x.numpy(), np.asarray(jax_infer_leading_dims_tree(jobs, 1)[3]))
+    assert torch.equal(x, LeafOrderCartPole._obs(state))
+
+    (avg_d, w_d), (avg_l, w_l) = (run(DictObsCartPole(device="cpu")),
+                                  run(LeafOrderCartPole(device="cpu")))
+    assert len(avg_d) == 4 and avg_d == avg_l
+    assert w_d.keys() == w_l.keys()
+    for k in w_d:
+        assert torch.equal(w_d[k], w_l[k]), k

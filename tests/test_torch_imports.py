@@ -15,7 +15,8 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
               + [ROOT / "tests" / "test_torch_minatar_learning.py",
                  ROOT / "tests" / "test_torch_pg_learning.py",
                  ROOT / "tests" / "test_torch_qpg_learning.py",
-                 ROOT / "tests" / "test_torch_dqn_learning.py"])
+                 ROOT / "tests" / "test_torch_dqn_learning.py",
+                 ROOT / "tests" / "test_torch_atari_learning.py"])
 
 
 def imported_modules(path: Path):
@@ -52,10 +53,15 @@ def test_scan_covers_the_port():
                  "struct.py", "models/dqn.py", "agents/dqn.py",
                  "algos/dqn.py", "utils/launching.py", "utils/seed.py",
                  "experiments/configs/minatar_dqn.py",
-                 "experiments/scripts/minatar_dqn.py"):
+                 "experiments/scripts/minatar_dqn.py",
+                 "envs/fake_ale.py", "envs/atari.py", "envs/gym_space.py",
+                 "envs/hostfarm_c.py", "envs/host.py", "runners/host.py",
+                 "experiments/configs/atari_dqn.py",
+                 "experiments/scripts/atari_dqn.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
     assert "bench_torch_minatar.py" in names
     assert "tests/test_torch_qpg_learning.py" in names
     assert "tests/test_torch_dqn_learning.py" in names
+    assert "tests/test_torch_atari_learning.py" in names
     assert "chip_smoke.py" in names and len(names) > 20
