@@ -134,6 +134,28 @@ Phases, each fatal on failure:
      U=7) bit for bit against its plain version at offsets past 2^32, and
      K3a, K3, K4 at the r2d1 config's shapes (F=6917, H=512), checked and
      timed as in phases 5 and 6.
+ 16. the rest of the single-device runner: (a) in a child process with
+     CUBLAS_WORKSPACE_CONFIG=:4096:8 and deterministic algorithms, the
+     flagship DQN of phase 4 (replay cut to 100,000 so that a checkpoint
+     stays under 1 GB) for 4 intervals, then 2 with checkpoint_dir and a
+     fresh runner resumed to 4: every tensor of state_dict() and every
+     logged row (time columns aside) equal bit for bit, the frame gather
+     launched in the resumed part, the checkpoint's size and its save and
+     load times; (b) in the same child, the torch form of example 5 (R2D1,
+     LSTM 128, under AsyncRl(pipeline_depth=2); cuts: n_steps, the log
+     interval) equal bit for bit to MinibatchRl, a resume from its
+     interval-2 checkpoint equal to the uninterrupted run, exact K3a, K3
+     (T=1 and windows) and K4 launches, and every host sync of the AsyncRl
+     run (torch's sync debug mode) by source line and part of the run; (c)
+     AsyncRlEval(pipeline_depth=3): each evaluation ran on its own
+     interval's parameters; (d) one wait-reset batch of the lstm_ppo agent
+     on MinAtar Breakout: frozen lanes stay done with reward 0 and their
+     observation, none waits after the batch, and
+     process_returns(mid_batch_reset=False) card against CPU to 1e-4;
+     (e) utils/profiling.py: trace names lstm_fwd_kernel and the frame
+     gather, time_fn within 20 % of time_ms on one K3 call,
+     device_memory_stats not empty; (f) example 5's env-steps/s under
+     MinibatchRl and AsyncRl in turns (M, A, A, M).
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -146,6 +168,11 @@ runs phases 1, 2, 3, 5 and 6 alone (no trainer) and prints the same
 ``kernels`` line for their seven kernels, with null launch counts and no
 result line: the quick loop while a kernel is being worked on, and the way
 to compare two trees on one card.
+
+    python3 chip_smoke.py --phase16
+
+builds the kernels and runs phase 16 alone (about 90 s), with no result
+line.
 """
 from __future__ import annotations
 
@@ -153,10 +180,12 @@ import copy
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -2592,6 +2621,468 @@ def run_host_path(fg, L, g, dev, errs, times, launches, tf32):
     print(f"phase 15: {time.time() - t0:.1f} s")
 
 
+# Phase 16: the rest of the single-device runner.  16a and 16b run in a
+# child process with deterministic cuBLAS (CUBLAS_WORKSPACE_CONFIG) and
+# torch.use_deterministic_algorithms(True); the rest in this process.
+# 16a: the flagship DQN of phase 4 with its replay cut from 200,000 to
+# P16_REPLAY transitions, so that a checkpoint stays under 1 GB (800 rows
+# x 128 lanes x 8320 bytes of frames).
+P16_REPLAY = 100_000
+P16_ITR = 4                  # 16a: iterations (one a log interval)
+# 16b-16d: rlpyt_tpu_torch/examples/example_5.py (R2D1, LSTM 128, B=32,
+# T=40, batch 32 windows of 20 + 40 + 5 rows) at its widths.  Cuts: the
+# log interval (50,000) to two iterations of 1280 steps, n_steps (1M) to
+# four intervals; min_steps_learn stays the example's 5000 (learning from
+# the fourth iteration).
+EX5_LOG = 2_560
+EX5_N_STEPS = 4 * EX5_LOG
+EX5_RATE_N_STEPS = 6 * EX5_LOG   # 16f: each timed run, 12 iterations
+EX5_EVAL = dict(eval_n_envs=8, eval_max_steps=800, eval_max_trajectories=4)
+WAIT_T = 128                 # 16d: the wait-reset batch's steps
+TIME_KEYS = ("CumTime (s)", "StepsPerSecond", "UpdatesPerSecond")
+
+
+def state_leaves(tree, path=""):
+    """(path, leaf) of every tensor and Python value of a state tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from state_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (tuple, list)):
+        for i, x in enumerate(tree):
+            yield from state_leaves(x, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(
+                    a.reshape(-1).contiguous().view(torch.uint8),
+                    b.reshape(-1).contiguous().view(torch.uint8)))
+    if isinstance(a, float) and a != a:
+        return isinstance(b, float) and b != b
+    return type(a) is type(b) and a == b
+
+
+def hold_states(tag: str, got: dict, want: dict) -> int:
+    """Every leaf of two runners' state_dict() equal bit for bit; returns
+    the number of leaves."""
+    got, want = dict(state_leaves(got)), dict(state_leaves(want))
+    if sorted(got) != sorted(want):
+        fail(f"{tag}: the states have other leaves")
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    if bad:
+        fail(f"{tag}: {len(bad)} of {len(want)} state leaves differ, "
+             f"first {bad[:6]}")
+    return len(want)
+
+
+def hold_rows(tag: str, got: list, want: list):
+    """The logged rows equal apart from the time columns."""
+    if len(got) != len(want):
+        fail(f"{tag}: {len(got)} logged rows against {len(want)}")
+    for g, w in zip(got, want):
+        diff = [k for k in w if k not in TIME_KEYS
+                and not same_bits(g.get(k), w[k])]
+        if list(g) != list(w) or diff:
+            fail(f"{tag}: row {w.get('Iteration')} differs in {diff}")
+
+
+def checkpoint_io(runner, path: Path) -> dict:
+    """Size of the checkpoint at ``path``, and the seconds of one more
+    save of the runner's state and of one load of ``path`` onto the
+    card."""
+    from rlpyt_tpu_torch.utils.checkpoint import load_checkpoint, \
+        save_checkpoint
+
+    like = runner.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(path.with_name("timed.pkl")), like, {"interval": 0})
+    t1 = time.perf_counter()
+    state, _ = load_checkpoint(str(path), like=like)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del state
+    return {"bytes": path.stat().st_size, "save_s": t1 - t0,
+            "load_s": t2 - t1}
+
+
+def resume_flagship(fg, dev, tmp: Path) -> dict:
+    """16a: the flagship DQN, 4 intervals uninterrupted; 2 with a
+    checkpoint; a fresh runner resumed to 4: every tensor of state_dict()
+    and every logged row (time columns aside) equal, bit for bit."""
+    def make(n_itr, logger, checkpoint_dir=None):
+        runner = build_flagship_runner(dev, n_itr, logger)
+        runner.algo.replay_size = P16_REPLAY
+        runner.checkpoint_dir = checkpoint_dir
+        return runner
+
+    full_log, first_log, resumed_log = row_logger(), row_logger(), \
+        row_logger()
+    full = make(P16_ITR, full_log).train()
+    first = make(P16_ITR // 2, first_log, str(tmp))
+    first.train()
+    path = tmp / "checkpoint.pkl"
+    io = checkpoint_io(first, path)
+    del first
+    resumed_runner = make(P16_ITR, resumed_log)
+    zero_launches()
+    resumed = resumed_runner.train(resume_from=str(path))
+    torch.cuda.synchronize()
+    launches = fg.gather_frame_stacks.launches
+    if launches <= 0:
+        fail("16a: no frame-gather launch in the resumed run")
+    n = hold_states("16a", resumed, full)
+    hold_rows("16a", first_log.rows + resumed_log.rows, full_log.rows)
+    print(f"phase 16a: flagship DQN (replay cut to {P16_REPLAY}) stopped "
+          f"after {P16_ITR // 2} of {P16_ITR} intervals and resumed: "
+          f"{n} state leaves and {len(full_log.rows)} rows equal bit for "
+          f"bit; frame-gather launches in the resumed part {launches}; "
+          f"checkpoint {io['bytes']} bytes, save {io['save_s']:.3f} s, "
+          f"load {io['load_s']:.3f} s")
+    return {"gather_launches": launches, "checkpoint": io}
+
+
+@contextmanager
+def count_syncs(counts: dict, where: list):
+    """Count the host syncs that torch's sync debug mode reports, by the
+    port's source line that caused each (the innermost frame under
+    rlpyt_tpu_torch/), and by the part of the run in ``where[0]`` at the
+    time (startup, interval, drain, loop)."""
+    import traceback
+    import warnings
+
+    root = str(Path(__file__).resolve().parent) + "/"
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = next((f for f in reversed(traceback.extract_stack()[:-1])
+                     if "rlpyt_tpu_torch" in f.filename), None)
+        key = (f"{site.filename.replace(root, '')}:{site.lineno}" if site
+               else f"{filename}:{lineno}")
+        key = f"{where[0]} {key}"
+        counts[key] = counts.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def example5_equal_and_resume(L, dev, tmp: Path) -> dict:
+    """16b: example 5 under AsyncRl(pipeline_depth=2) equal bit for bit
+    to MinibatchRl; a resume from its mid-run checkpoint equal to the
+    uninterrupted run; K3a/K3/K4 launches and host syncs of the AsyncRl
+    run."""
+    from rlpyt_tpu_torch.examples import example_5
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+
+    kw = dict(device=dev, log_interval_steps=EX5_LOG)
+    sync_log, async_log, first_log, resumed_log = (row_logger()
+                                                  for _ in range(4))
+    sync = example_5.build_runner(EX5_N_STEPS, runner_cls=MinibatchRl,
+                                  logger=sync_log, **kw).train()
+    runner = example_5.build_runner(EX5_N_STEPS, logger=async_log, **kw)
+    counts, where = {}, ["startup"]
+
+    def marked(part, fn):
+        def call(*args):
+            where[0] = part
+            try:
+                return fn(*args)
+            finally:
+                where[0] = "loop"
+        return call
+
+    runner.run_interval = marked("interval", runner.run_interval)
+    runner._drain = marked("drain", runner._drain)
+    zero_launches()
+    with count_syncs(counts, where):
+        full = runner.train()
+    torch.cuda.synchronize()
+    launches = {"lstm_input_proj": L.input_proj.launches,
+                "lstm_fwd_t1": L.lstm_fwd.step_launches,
+                "lstm_fwd_window": L.lstm_fwd.launches
+                - L.lstm_fwd.step_launches,
+                "lstm_bwd": L.lstm_bwd.launches}
+    n_intervals = len(async_log.rows)
+    updates = runner.algo.update_counter
+    steps = EX5_N_STEPS // runner.batch_spec.B   # collection steps
+    want = {"lstm_input_proj": steps + 4 * updates, "lstm_fwd_t1": steps,
+            "lstm_fwd_window": 4 * updates, "lstm_bwd": updates}
+    if updates <= 0 or launches != want:
+        fail(f"16b: LSTM launches {launches} with {updates} updates, "
+             f"expected {want}")
+    n = hold_states("16b AsyncRl against MinibatchRl", full, sync)
+    hold_rows("16b AsyncRl against MinibatchRl", async_log.rows,
+              sync_log.rows)
+    example_5.build_runner(EX5_N_STEPS // 2, logger=first_log,
+                           checkpoint_dir=str(tmp), **kw).train()
+    path = tmp / "checkpoint.pkl"
+    io = checkpoint_io(runner, path)
+    resumed = example_5.build_runner(EX5_N_STEPS, logger=resumed_log,
+                                     **kw).train(resume_from=str(path))
+    hold_states("16b resume", resumed, full)
+    hold_rows("16b resume", first_log.rows + resumed_log.rows,
+              async_log.rows)
+    print(f"phase 16b: example 5 (cuts: n_steps {EX5_N_STEPS}, "
+          f"log_interval_steps {EX5_LOG}; min_steps_learn the example's "
+          f"5000) under AsyncRl(pipeline_depth=2) equals MinibatchRl bit for "
+          f"bit ({n} state leaves, {n_intervals} rows), and resumed from "
+          f"its interval-2 checkpoint equals the uninterrupted run; "
+          f"{updates} updates; launches {launches}; checkpoint "
+          f"{io['bytes']} bytes, save {io['save_s']:.3f} s, load "
+          f"{io['load_s']:.3f} s")
+    per_itv = {part: sum(v for k, v in counts.items()
+                         if k.startswith(part + " ")) / n_intervals
+               for part in ("interval", "drain")}
+    print(f"phase 16b: host syncs of the AsyncRl run (torch's sync debug "
+          f"mode), by part and site, in all over {n_intervals} intervals: "
+          f"{dict(sorted(counts.items()))}; per interval: in "
+          f"collect + optimize {per_itv['interval']}, at drain "
+          f"{per_itv['drain']}")
+    syncs = {"sites": counts, "per_interval": per_itv}
+    return {"launches": launches, "updates": updates, "checkpoint": io,
+            "syncs": syncs, "intervals": n_intervals}
+
+
+def phase16_child(out: Path) -> int:
+    """16a and 16b, deterministic; their numbers go to ``out`` as JSON."""
+    torch.use_deterministic_algorithms(True)
+    from rlpyt_tpu_torch.ops import frame_gather as fg
+    from rlpyt_tpu_torch.ops import lstm as L
+
+    for m in (fg, L):
+        m.build()
+        m.load()
+    dev = torch.device("cuda")
+    res = {}
+    with tempfile.TemporaryDirectory() as d:
+        (Path(d) / "a").mkdir()
+        (Path(d) / "b").mkdir()
+        res["16a"] = resume_flagship(fg, dev, Path(d) / "a")
+        torch.cuda.empty_cache()
+        res["16b"] = example5_equal_and_resume(L, dev, Path(d) / "b")
+    out.write_text(json.dumps(res))
+    return 0
+
+
+def run_deterministic_child() -> dict:
+    """Run 16a and 16b in a child process with deterministic cuBLAS; its
+    failure fails the phase."""
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "phase16.json"
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--phase16-child", str(out)],
+            env=env, capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            print(proc.stderr[-8000:], file=sys.stderr)
+            fail(f"16a/16b: the deterministic child exited "
+                 f"{proc.returncode}")
+        return json.loads(out.read_text())
+
+
+def check_eval_attribution(dev):
+    """16c: AsyncRlEval(pipeline_depth=3) on example 5: each evaluation
+    ran on its own interval's parameters (a copy of the first parameter
+    tensor, enqueued after the interval and at the evaluation's start)."""
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.examples import example_5
+    from rlpyt_tpu_torch.runners.async_rl import AsyncRlEval
+
+    logger = row_logger()
+    runner = example_5.build_runner(
+        EX5_N_STEPS, device=dev, runner_cls=AsyncRlEval, pipeline_depth=3,
+        log_interval_steps=EX5_LOG, eval_env=Breakout(device=dev),
+        logger=logger, **EX5_EVAL)
+    after_interval, at_eval = [], []
+    run_interval, run_eval = runner.run_interval, runner.run_eval
+
+    def probe():
+        return next(runner.agent.model.parameters()).detach().clone()
+
+    def spy_interval():
+        out = run_interval()
+        after_interval.append(probe())
+        return out
+
+    def spy_eval():
+        at_eval.append(probe())
+        return run_eval()
+
+    runner.run_interval, runner.run_eval = spy_interval, spy_eval
+    runner.train()
+    torch.cuda.synchronize()
+    if not len(at_eval) == len(after_interval) == len(logger.rows) >= 4:
+        fail(f"16c: {len(at_eval)} evaluations, {len(after_interval)} "
+             f"intervals, {len(logger.rows)} rows")
+    for k, (a, e) in enumerate(zip(after_interval, at_eval)):
+        if not torch.equal(a, e):
+            fail(f"16c: the evaluation of interval {k} ran on other "
+                 f"parameters")
+    if torch.equal(after_interval[0], after_interval[-1]):
+        fail("16c: the parameters never changed")
+    print(f"phase 16c: AsyncRlEval(pipeline_depth=3) {len(at_eval)} "
+          f"evaluations, each on its own interval's parameters; Eval "
+          f"trajectories {[r['EvalTrajs'] for r in logger.rows]}")
+
+
+def check_wait_reset(dev):
+    """16d: one wait-reset batch of the lstm_ppo agent on MinAtar
+    Breakout (B=128, T=WAIT_T): a lane done at t stays done, with reward
+    0 and its observation unchanged, to the batch's end; no lane waits
+    after the batch; process_returns(mid_batch_reset=False) on the card
+    against the CPU on the same tensors, to phase 12a's 1e-4."""
+    from rlpyt_tpu_torch.algos.pg import PPO
+    from rlpyt_tpu_torch.experiments.scripts import minatar_pg
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector
+
+    runner, config = minatar_pg.build_runner("lstm_ppo", device=dev)
+    agent, env = runner.agent, runner.env
+    torch.manual_seed(0)
+    agent.initialize(env.spaces)
+    col = Collector(env, agent, BatchSpec(WAIT_T, PG_B),
+                    mid_batch_reset=False)
+    g = torch.Generator(device=dev).manual_seed(0)
+    state = col.init_state(g)
+    state, s = col.collect(state, g)
+    done = s.done
+    seen = torch.cummax(done.to(torch.int32), 0).values.bool()
+    frozen = seen[:-1]                  # done at an earlier step
+    lanes = int(seen[-1].sum())
+    obs = s.observation.reshape(WAIT_T, PG_B, -1)
+    if not torch.equal(done, seen):
+        fail("16d: a lane's done went back to False before the batch end")
+    if lanes == 0:
+        fail("16d: no lane finished an episode in the batch")
+    if bool((s.reward[1:][frozen] != 0).any()):
+        fail("16d: a frozen lane recorded a reward")
+    if not torch.equal(obs[1:][frozen], obs[:-1][frozen]):
+        fail("16d: a frozen lane's observation changed")
+    if bool(state.needs_reset.any()):
+        fail("16d: a lane still waits after the batch")
+    algo = PPO(**config["algo"])
+    with torch.no_grad():
+        boot = agent.value(state.observation, state.prev_action,
+                           state.prev_reward, state.agent_carry)
+    out = {}
+    for d in ("cpu", dev):
+        sd = s._replace(reward=s.reward.to(d), done=done.to(d),
+                        agent_info={"value": s.agent_info["value"].to(d)})
+        out[d] = algo.process_returns(sd, boot.to(d), mid_batch_reset=False)
+    worst = 0.0
+    for name, c, gpu in zip(("return", "advantage"), out["cpu"][:2],
+                            out[dev][:2]):
+        err = float(((gpu.cpu() - c).abs() / c.abs().clamp(min=1.0)).max())
+        if not err <= 1e-4:
+            fail(f"16d: process_returns {name} differs by {err:.3g}")
+        worst = max(worst, err)
+    if not torch.equal(out[dev][2].cpu(), out["cpu"][2]):
+        fail("16d: process_returns valid differs card against CPU")
+    print(f"phase 16d: wait-reset batch of {WAIT_T} x {PG_B}: {lanes} lanes "
+          f"finished and froze ({int(frozen.sum())} frozen steps), none "
+          f"waits after the batch; process_returns(mid_batch_reset=False) "
+          f"card against CPU max relative err {worst:.3g}, valid equal "
+          f"({int(out[dev][2].sum())} of {out[dev][2].numel()} valid)")
+
+
+def check_profiling(fg, L, g, dev) -> dict:
+    """16e: ``trace`` names the port's kernels, ``time_fn`` agrees with
+    ``time_ms`` within 20 % on one K3 call, ``device_memory_stats`` is
+    not empty."""
+    from rlpyt_tpu_torch.utils.profiling import device_memory_stats, \
+        time_fn, trace
+
+    T, B, F, H = 45, 32, 1031, 128     # example 5's training window
+    c = lstm_case(g, T, B, F, H, dev)
+    xg = L.input_proj_plain(c["x"].view(T * B, F), c["wx"],
+                            c["b"]).view(T, B, 4 * H)
+    args = (xg, c["wh"], (~c["done"]).float(), c["h0"], c["c0"])
+    ring, start, b_idx, ma, mt = random_case(g, 1568, 128, 8320, 256, 4, 1,
+                                             dev)
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            L.lstm_fwd(*args)
+            fg.gather_frame_stacks(ring, start, b_idx, ma, mt, 4, 1)
+            torch.cuda.synchronize()
+        files = list(Path(d).glob("trace_*.json"))
+        text = files[0].read_text() if len(files) == 1 else ""
+    names = [n for n in ("lstm_fwd_kernel", "gather_bulk_kernel",
+                         "gather_bytes_kernel") if n in text]
+    if "lstm_fwd_kernel" not in names or len(names) < 2:
+        fail(f"16e: the trace names {names} of the port's kernels")
+    fn_ms = 1e3 * time_fn(lambda: L.lstm_fwd(*args), iters=50,
+                          warmup=3)["mean_s"]
+    ev_ms = time_ms(lambda: L.lstm_fwd(*args), 50)
+    if not abs(fn_ms - ev_ms) <= 0.2 * ev_ms:
+        fail(f"16e: time_fn {fn_ms:.4f} ms against time_ms {ev_ms:.4f} ms")
+    mem = device_memory_stats()
+    if not mem or any(v is None or not v for v in mem.values()):
+        fail(f"16e: device_memory_stats {list(mem)} has an empty entry")
+    print(f"phase 16e: trace names {names}; K3 (T={T}, B={B}, H={H}) "
+          f"time_fn {fn_ms:.4f} ms, time_ms {ev_ms:.4f} ms; "
+          f"device_memory_stats {list(mem)}, allocated.all.peak "
+          f"{mem['cuda:0'].get('allocated_bytes.all.peak')} bytes")
+    return {"time_fn_ms": fn_ms, "time_ms": ev_ms}
+
+
+def example5_rates(dev) -> dict:
+    """16f: example 5's env-steps/s under MinibatchRl and AsyncRl in
+    turns (M, A, A, M), each EX5_RATE_N_STEPS steps from the end of
+    startup to the end of training (the card synced), in this process
+    (not deterministic)."""
+    from rlpyt_tpu_torch.examples import example_5
+    from rlpyt_tpu_torch.runners.async_rl import AsyncRl
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+
+    rates = {"MinibatchRl": [], "AsyncRl": []}
+    for cls in (MinibatchRl, AsyncRl, AsyncRl, MinibatchRl):
+        runner = example_5.build_runner(
+            EX5_RATE_N_STEPS, device=dev, runner_cls=cls,
+            log_interval_steps=EX5_LOG, logger=row_logger())
+        stamp, startup = {}, runner.startup
+
+        def timed_startup():
+            startup()
+            torch.cuda.synchronize()
+            stamp["t0"] = time.perf_counter()
+
+        runner.startup = timed_startup
+        runner.train()
+        torch.cuda.synchronize()
+        rates[cls.__name__].append(
+            EX5_RATE_N_STEPS / (time.perf_counter() - stamp["t0"]))
+    print(f"phase 16f: example 5 env-steps/s over {EX5_RATE_N_STEPS} steps "
+          f"({runner.algo.update_counter} updates), turns M, A, A, M: "
+          f"MinibatchRl {[round(r, 1) for r in rates['MinibatchRl']]}, "
+          f"AsyncRl {[round(r, 1) for r in rates['AsyncRl']]}")
+    return rates
+
+
+def run_phase16(fg, L, g, dev):
+    t0 = time.time()
+    res = run_deterministic_child()
+    check_eval_attribution(dev)
+    torch.cuda.empty_cache()
+    check_wait_reset(dev)
+    check_profiling(fg, L, g, dev)
+    example5_rates(dev)
+    print(f"phase 16: checkpoint sizes {res['16a']['checkpoint']['bytes']}"
+          f" / {res['16b']['checkpoint']['bytes']} bytes (16a / 16b); "
+          f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2706,11 +3197,17 @@ def main():
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+    if sys.argv[1:2] == ["--phase16-child"]:
+        return phase16_child(Path(sys.argv[2]))
     kernels_only = "--kernels-only" in sys.argv[1:]
     dev = torch.device("cuda")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           torch.cuda.get_device_name(0))
     fg, L, ug = build_kernels()
+    if "--phase16" in sys.argv[1:]:
+        run_phase16(fg, L, torch.Generator(device=dev).manual_seed(0), dev)
+        print(nvidia_smi_line())
+        return 0
 
     g = torch.Generator(device=dev).manual_seed(0)
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -2909,6 +3406,7 @@ def main():
     torch.cuda.empty_cache()
 
     run_host_path(fg, L, g, dev, errs, times, launches, tf32)
+    run_phase16(fg, L, g, dev)
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

@@ -16,6 +16,8 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from rlpyt_tpu_torch.struct import load_state, state_of
+
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over all tensors, as a device scalar."""
@@ -126,6 +128,15 @@ class Optimizer:
         self.count += 1
         return norm
 
+    def state_dict(self) -> dict:
+        """The update count (the schedule's position) and the inner
+        optimizer's moments."""
+        return {"count": self.count, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: dict):
+        self.count = int(state["count"])
+        self.inner.load_state_dict(state["inner"])
+
 
 def make_optimizer(params, learning_rate: float,
                    clip_grad_norm: Optional[float] = None,
@@ -144,7 +155,13 @@ class RlAlgorithm:
     schedule spans), then ``optimize(samples, rollout_state) -> OptInfo``
     once per iteration, with the collector's state after the batch
     (``cum_steps`` for schedules; the last observation and carry for a
-    bootstrap value)."""
+    bootstrap value).  ``state_dict()`` / ``load_state_dict()`` after
+    ``initialize`` hold everything an update reads besides the agent's
+    model and the generator (which the runner keeps)."""
+
+    # What state_dict() holds (struct.py:state_of): each algorithm names
+    # its target networks, optimizers, update counter and replay.
+    state_attrs: tuple = ("optimizer", "update_counter")
 
     def initialize(self, agent, batch_spec, example_obs,
                    generator: torch.Generator, n_itr: int = 1):
@@ -152,3 +169,9 @@ class RlAlgorithm:
 
     def optimize(self, samples, rollout_state):
         raise NotImplementedError
+
+    def state_dict(self) -> dict:
+        return state_of(self, self.state_attrs)
+
+    def load_state_dict(self, state: dict):
+        load_state(self, state, self.state_attrs)

@@ -36,6 +36,8 @@ class OptInfo(NamedTuple):
 
 
 class DQN(RlAlgorithm):
+    state_attrs = ("target_model", "optimizer", "update_counter", "replay")
+
     def __init__(
         self,
         discount: float = 0.99,

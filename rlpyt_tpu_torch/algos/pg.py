@@ -13,9 +13,11 @@ epoch's permutation comes from the algorithm's generator
 (``torch.randperm``); ``optimize(permutations=...)`` takes them from the
 caller instead.
 
-The collector always resets lanes mid-batch, so every sample is valid
-and the means are plain means (the JAX package's ``valid`` mask is
-None there too).
+``process_returns`` also gives the ``valid`` mask: None under the
+collector's mid-batch reset, where every sample is valid and the means
+are plain means, and ``valid_from_done(done)`` for a wait-reset batch.
+A2C and PPO call it with the default, as the JAX package's do, so their
+``valid`` is None.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from rlpyt_tpu_torch.algos.base import RlAlgorithm, make_optimizer
 from rlpyt_tpu_torch.ops.returns import (
     discount_return,
     generalized_advantage_estimation,
+    valid_from_done,
 )
-from rlpyt_tpu_torch.struct import tree_map
+from rlpyt_tpu_torch.struct import tree_map, valid_mean
 
 
 class PgOptInfo(NamedTuple):
@@ -76,10 +79,13 @@ class PolicyGradientAlgo(RlAlgorithm):
                                     s.prev_reward, s.agent_carry)
         return self.agent.value(s.observation, s.prev_action, s.prev_reward)
 
-    def process_returns(self, samples, bootstrap_value):
-        """(return_, advantage), [T, B]: discounted returns when
-        ``gae_lambda`` is 1, else GAE(lambda); the advantage normalized
-        by its mean and population variance if asked."""
+    def process_returns(self, samples, bootstrap_value,
+                        mid_batch_reset: bool = True):
+        """(return_, advantage, valid), [T, B]: discounted returns when
+        ``gae_lambda`` is 1, else GAE(lambda); ``valid`` None after a
+        mid-batch-reset collection, else 1 up to each lane's first done;
+        the advantage normalized by its (valid) mean and population
+        variance if asked."""
         reward, done = samples.reward, samples.done
         value = samples.agent_info["value"]
         if self.gae_lambda == 1.0:
@@ -90,11 +96,12 @@ class PolicyGradientAlgo(RlAlgorithm):
             advantage, return_ = generalized_advantage_estimation(
                 reward, value, done, bootstrap_value, self.discount,
                 self.gae_lambda)
+        valid = None if mid_batch_reset else valid_from_done(done)
         if self.normalize_advantage:
-            m = advantage.mean()
-            v = ((advantage - m) ** 2).mean()
+            m = valid_mean(advantage, valid)
+            v = valid_mean((advantage - m) ** 2, valid)
             advantage = (advantage - m) * torch.rsqrt(v + 1e-8)
-        return return_, advantage
+        return return_, advantage, valid
 
     @staticmethod
     def shifted_done(done: torch.Tensor) -> torch.Tensor:
@@ -102,13 +109,13 @@ class PolicyGradientAlgo(RlAlgorithm):
         training window is replayed."""
         return torch.cat([torch.zeros_like(done[:1]), done[:-1]], dim=0)
 
-    def _total_loss(self, pi_loss, dist_info, value, return_):
-        """pi_loss plus the value and entropy terms; returns (loss,
-        entropy, mean perplexity)."""
+    def _total_loss(self, pi_loss, dist_info, value, return_, valid=None):
+        """pi_loss plus the value and entropy terms, means over ``valid``;
+        returns (loss, entropy, mean perplexity)."""
         dist = self.agent.distribution
-        value_loss = self.value_loss_coeff * (
-            0.5 * (value - return_) ** 2).mean()
-        entropy = dist.mean_entropy(dist_info)
+        value_loss = self.value_loss_coeff * valid_mean(
+            0.5 * (value - return_) ** 2, valid)
+        entropy = dist.mean_entropy(dist_info, valid)
         loss = pi_loss + value_loss - self.entropy_loss_coeff * entropy
         return loss, entropy, dist.perplexity(dist_info).mean()
 
@@ -142,11 +149,12 @@ class A2C(PolicyGradientAlgo):
             dist_info, value = self.agent(samples.observation,
                                           samples.prev_action,
                                           samples.prev_reward)
-        return_, advantage = self.process_returns(samples, bootstrap_value)
+        return_, advantage, valid = self.process_returns(samples,
+                                                         bootstrap_value)
         logli = self.agent.distribution.log_likelihood(samples.action,
                                                         dist_info)
-        pi_loss = -(logli * advantage.detach()).mean()
-        return self._total_loss(pi_loss, dist_info, value, return_)
+        pi_loss = -valid_mean(logli * advantage.detach(), valid)
+        return self._total_loss(pi_loss, dist_info, value, return_, valid)
 
     def optimize(self, samples, rollout_state) -> PgOptInfo:
         bootstrap_value = self.bootstrap(rollout_state)
@@ -182,7 +190,8 @@ class PPO(PolicyGradientAlgo):
 
     def surrogate_loss(self, mb: dict):
         """Clipped surrogate + value + entropy on one minibatch; ``mb``
-        leaves are [T, b, ...] (recurrent) or [n, ...] (feedforward)."""
+        leaves are [T, b, ...] (recurrent) or [n, ...] (feedforward), and
+        its optional "valid" weights the means."""
         if self.agent.recurrent:
             dist_info, value, _ = self.agent(
                 mb["observation"], mb["prev_action"], mb["prev_reward"],
@@ -196,15 +205,18 @@ class PPO(PolicyGradientAlgo):
         clipped = torch.clamp(ratio, 1.0 - self.ratio_clip,
                               1.0 + self.ratio_clip)
         adv = mb["advantage"]
-        pi_loss = -torch.minimum(ratio * adv, clipped * adv).mean()
-        return self._total_loss(pi_loss, dist_info, value, mb["return_"])
+        valid = mb.get("valid")
+        pi_loss = -valid_mean(torch.minimum(ratio * adv, clipped * adv),
+                              valid)
+        return self._total_loss(pi_loss, dist_info, value, mb["return_"],
+                                valid)
 
     def optimize(self, samples, rollout_state,
                  permutations: Optional[torch.Tensor] = None) -> PgOptInfo:
         """``permutations`` [epochs, n_items] (lanes if recurrent, else
         T*B samples) replace the generator's draws."""
         T, B = self.batch_spec
-        return_, advantage = self.process_returns(
+        return_, advantage, valid = self.process_returns(
             samples, self.bootstrap(rollout_state))
         data = {"observation": samples.observation,
                 "prev_action": samples.prev_action,
@@ -212,6 +224,8 @@ class PPO(PolicyGradientAlgo):
                 "action": samples.action,
                 "old_dist_info": samples.agent_info["dist_info"],
                 "return_": return_, "advantage": advantage}
+        if valid is not None:
+            data["valid"] = valid
         recurrent = self.agent.recurrent
         if recurrent:
             data["done_shifted"] = self.shifted_done(samples.done)

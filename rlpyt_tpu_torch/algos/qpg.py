@@ -65,6 +65,8 @@ class QpgBase(RlAlgorithm):
     SAC."""
 
     policy_name = "mu"
+    # The target networks are in the agent's model (agent.nets).
+    state_attrs = ("optimizers", "update_counter", "replay")
 
     def __init__(self, discount: float = 0.99, batch_size: int = 256,
                  min_steps_learn: int = int(1e4),
@@ -240,6 +242,7 @@ class TD3(DDPG):
 
 class SAC(QpgBase):
     policy_name = "pi"
+    state_attrs = QpgBase.state_attrs + ("log_alpha", "alpha_optimizer")
 
     def __init__(self, learning_rate=3e-4, target_update_tau=0.005,
                  batch_size=256, replay_ratio=256.0,

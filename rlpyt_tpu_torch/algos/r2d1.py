@@ -39,6 +39,8 @@ from rlpyt_tpu_torch.struct import select_at_indexes, tree_map, valid_mean
 
 
 class R2D1(RlAlgorithm):
+    state_attrs = ("target_model", "optimizer", "update_counter", "replay")
+
     def __init__(
         self,
         discount: float = 0.997,

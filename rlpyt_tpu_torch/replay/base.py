@@ -18,7 +18,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from rlpyt_tpu_torch.struct import buffer_from_example, tree_map
+from rlpyt_tpu_torch.struct import buffer_from_example, load_state, \
+    state_of, tree_map
 
 
 class SamplesToBuffer(NamedTuple):
@@ -48,6 +49,9 @@ class SamplesFromReplay(NamedTuple):
 
 
 class BaseReplayBuffer:
+    # What state_dict() holds: the cursors and the ring.
+    state_attrs: tuple = ("t", "filled_t", "data")
+
     def __init__(self, size: int, B: int, sample_T: int,
                  discount: float = 0.99, n_step_return: int = 1,
                  device="cuda"):
@@ -73,6 +77,13 @@ class BaseReplayBuffer:
             observation=self._flatten_obs(example.observation, lead=0))
         self.data = buffer_from_example(example, (self.size_T, self.B),
                                         self.device)
+
+    def state_dict(self) -> dict:
+        return state_of(self, self.state_attrs)
+
+    def load_state_dict(self, state: dict):
+        """Copy a saved state into the allocated ring (after ``init``)."""
+        load_state(self, state, self.state_attrs)
 
     @staticmethod
     def _flatten_obs(obs, lead: int):

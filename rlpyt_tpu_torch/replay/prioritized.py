@@ -45,6 +45,9 @@ def importance_weights(flat: torch.Tensor, idx: torch.Tensor,
 
 
 class PrioritizedReplayBuffer(BaseReplayBuffer):
+    state_attrs = BaseReplayBuffer.state_attrs + ("priorities",
+                                                  "max_priority")
+
     def __init__(self, *args, alpha: float = 0.6, beta: float = 0.4,
                  **kwargs):
         super().__init__(*args, **kwargs)

@@ -25,7 +25,8 @@ import torch
 from rlpyt_tpu_torch.replay.base import SamplesToBuffer
 from rlpyt_tpu_torch.replay.prioritized import importance_weights, \
     stratified_idxs
-from rlpyt_tpu_torch.struct import buffer_from_example, tree_map
+from rlpyt_tpu_torch.struct import buffer_from_example, load_state, \
+    state_of, tree_map
 
 
 class SequenceSamples(NamedTuple):
@@ -43,6 +44,11 @@ class SequenceSamples(NamedTuple):
 
 
 class PrioritizedSequenceReplayBuffer:
+    # What state_dict() holds: the cursors, the ring, the stored rnn
+    # states and the priorities.
+    state_attrs = ("t", "filled_t", "data", "rnn_state", "priorities",
+                   "max_priority")
+
     def __init__(self, size: int, B: int, sample_T: int,
                  warmup_T: int = 40, batch_T: int = 80,
                  n_step_return: int = 1, discount: float = 0.99,
@@ -88,6 +94,13 @@ class PrioritizedSequenceReplayBuffer:
         self.priorities = torch.zeros((self.n_slots, self.B),
                                       device=self.device)
         self.max_priority = torch.ones((), device=self.device)
+
+    def state_dict(self) -> dict:
+        return state_of(self, self.state_attrs)
+
+    def load_state_dict(self, state: dict):
+        """Copy a saved state into the allocated ring (after ``init``)."""
+        load_state(self, state, self.state_attrs)
 
     def append(self, samples: SamplesToBuffer, rnn_states,
                input_priorities: Optional[torch.Tensor] = None):

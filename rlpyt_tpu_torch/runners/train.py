@@ -1,15 +1,24 @@
 """Training runners (port of rlpyt_tpu/runners/train.py: MinibatchRl,
 with start-state decorrelation, a parameter snapshot and evaluation at
-each log interval, and MinibatchRlEval).
+each log interval, checkpoints and resume, and MinibatchRlEval).
 
 The JAX runner compiles a whole log interval into one device program.
 Here the loop runs on the host and launches work on the device; values
 cross to the host only at the end of each log interval, when the
 diagnostics are read.
+
+The JAX carry is one pytree; here the state lives in objects, and
+``state_dict()`` gathers it: the model, the algorithm's (target
+networks, optimizers, replay), the collector's ``RolloutState``, every
+generator the runner made and the last logged trajectory stats.  With
+``checkpoint_dir`` it is saved after every log interval, and
+``train(resume_from=path)`` goes on from the saved interval as the
+uninterrupted run would have, bit for bit.
 """
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional
 
@@ -17,11 +26,15 @@ import torch
 
 from rlpyt_tpu_torch.params import agent_params_to_jax
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector, TrajStats
+from rlpyt_tpu_torch.struct import tree_map
+from rlpyt_tpu_torch.utils.checkpoint import load_checkpoint, \
+    save_checkpoint
 from rlpyt_tpu_torch.utils.logging import TabularLogger
 
 _TRAJ_KEYS = ("ReturnAverage", "ReturnStd", "ReturnMax", "ReturnMin",
               "LengthAverage", "NonzeroRewardsAverage",
               "DiscountedReturnAverage")
+CHECKPOINT_NAME = "checkpoint.pkl"
 
 
 class MinibatchRl:
@@ -29,7 +42,8 @@ class MinibatchRl:
     agent is evaluated after every log interval on ``eval_n_envs`` fresh
     lanes for at most ``eval_max_steps`` env steps in all (and, if given,
     ``eval_max_trajectories`` completed episodes), and the "Eval" stats
-    are logged with the interval's."""
+    are logged with the interval's.  With ``checkpoint_dir``, the run's
+    state is saved there as ``checkpoint.pkl`` after every interval."""
 
     def __init__(self, algo, agent, env, batch_spec: BatchSpec,
                  n_steps: int, seed: int = 0,
@@ -37,7 +51,8 @@ class MinibatchRl:
                  max_decorrelation_steps: int = 100, eval_env=None,
                  eval_n_envs: int = 8, eval_max_steps: int = 2500,
                  eval_max_trajectories: Optional[int] = None,
-                 logger: Optional[TabularLogger] = None, device="cuda"):
+                 logger: Optional[TabularLogger] = None, device="cuda",
+                 checkpoint_dir: Optional[str] = None):
         self.algo = algo
         self.agent = agent
         self.env = env
@@ -52,6 +67,7 @@ class MinibatchRl:
         self.eval_max_trajectories = eval_max_trajectories
         self.logger = logger or TabularLogger(None)
         self.device = torch.device(device)
+        self.checkpoint_dir = checkpoint_dir
         self._last_traj_vals = {}   # stats prefix -> last values
 
     def startup(self):
@@ -97,16 +113,68 @@ class MinibatchRl:
             self.rollout_state)
         return opt_infos, traj_stats
 
-    def train(self):
+    def run_eval(self) -> TrajStats:
+        """Evaluate the current parameters (``eval_env`` given)."""
+        return self.eval_collector.evaluate(
+            self.eval_generator, self.eval_T, self.eval_max_trajectories)
+
+    def _generators(self) -> dict:
+        gens = {"env": self.env_generator, "algo": self.algo.generator}
+        if self.eval_env is not None:
+            gens["eval"] = self.eval_generator
+        return gens
+
+    def state_dict(self) -> dict:
+        """The run's whole state after ``startup()`` (live tensors, not
+        copies): what a checkpoint holds."""
+        return {"model": self.agent.model.state_dict(),
+                "algo": self.algo.state_dict(),
+                "rollout_state": self.rollout_state,
+                "generators": {k: g.get_state()
+                               for k, g in self._generators().items()},
+                "last_traj_vals": dict(self._last_traj_vals)}
+
+    def load_state_dict(self, state: dict):
+        """Restore a ``state_dict()`` into a runner after ``startup()``;
+        tensors go to the devices of the runner's own."""
+        self.agent.model.load_state_dict(state["model"])
+        self.algo.load_state_dict(state["algo"])
+        self.rollout_state = tree_map(
+            lambda ref, x: x.to(ref.device)
+            if isinstance(ref, torch.Tensor) else x,
+            self.rollout_state, state["rollout_state"])
+        for k, g in self._generators().items():
+            g.set_state(state["generators"][k].cpu())
+        self._last_traj_vals = dict(state["last_traj_vals"])
+
+    def save_checkpoint(self, interval: int, cum_steps: int, itr: int):
+        save_checkpoint(
+            os.path.join(self.checkpoint_dir, CHECKPOINT_NAME),
+            self.state_dict(),
+            {"interval": interval, "cum_steps": cum_steps, "itr": itr})
+
+    def _resume(self, path: str) -> int:
+        """Load the checkpoint at ``path``; returns its interval."""
+        state, meta = load_checkpoint(path, like=self.state_dict())
+        self.load_state_dict(state)
+        start = int(meta.get("interval", 0))
+        self.logger.log(f"Resumed from {path} (interval {start})")
+        return start
+
+    def train(self, resume_from: Optional[str] = None) -> dict:
+        """Run to ``n_steps``; with ``resume_from`` (a checkpoint's path),
+        from the interval it was saved at.  Returns ``state_dict()``."""
         self.startup()
         steps_per_interval = self.itrs_per_interval * self.batch_spec.size
         n_intervals = max(1, math.ceil(self.n_itr / self.itrs_per_interval))
+        start_interval = (0 if resume_from is None
+                          else self._resume(resume_from))
         self.logger.log(
             f"Training: {self.n_itr} itrs ({self.n_steps} steps), "
             f"{n_intervals} intervals x {self.itrs_per_interval} itrs")
         t_start = time.time()
-        cum_steps = 0
-        for interval in range(n_intervals):
+        cum_steps = start_interval * steps_per_interval
+        for interval in range(start_interval, n_intervals):
             t0 = time.time()
             opt_infos, traj_stats = self.run_interval()
             if self.device.type == "cuda":
@@ -121,10 +189,12 @@ class MinibatchRl:
                     "params": agent_params_to_jax(self.agent), "itr": itr,
                     "cum_steps": cum_steps})
             if self.eval_env is not None:
-                self._log_traj_stats("Eval", self.eval_collector.evaluate(
-                    self.eval_generator, self.eval_T,
-                    self.eval_max_trajectories))
+                self._log_traj_stats("Eval", self.run_eval())
+            # After the evaluation, whose generator state it holds.
+            if self.checkpoint_dir is not None:
+                self.save_checkpoint(interval + 1, cum_steps, itr)
             self.logger.dump_tabular()
+        return self.state_dict()
 
     def _log_traj_stats(self, prefix: str, ts: TrajStats):
         n = int(ts.completed)

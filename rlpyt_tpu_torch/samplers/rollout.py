@@ -7,7 +7,11 @@ Python loop here, writing each step into preallocated [T, B] buffers.
 Auto-reset follows rlpyt's CpuResetCollector (``mid_batch_reset=True``):
 when lane b is done at step t, the observation recorded at t+1 is the
 reset observation, prev_action / prev_reward are zeroed and the agent's
-recurrent carry (None for a feedforward agent) is zeroed.
+recurrent carry (None for a feedforward agent) is zeroed.  With
+``mid_batch_reset=False`` (rlpyt's WaitResetCollector) a lane that is
+done freezes until the end of the batch: its env state stays, it records
+reward 0 and done each step, it adds nothing to the episode sums, and it
+is reset, carry and all, after the batch's last step.
 """
 from __future__ import annotations
 
@@ -76,15 +80,17 @@ class RolloutState(NamedTuple):
     ep_nonzero: torch.Tensor
     ep_discounted: torch.Tensor
     ep_gamma: torch.Tensor
+    needs_reset: torch.Tensor   # [B] done and waiting (wait-reset only)
     traj_stats: TrajStats
 
 
 class Collector:
     def __init__(self, env, agent, batch_spec: BatchSpec,
-                 discount: float = 1.0):
+                 discount: float = 1.0, mid_batch_reset: bool = True):
         self.env = env
         self.agent = agent
         self.batch_spec = batch_spec
+        self.mid_batch_reset = mid_batch_reset
         # Discount of the DiscountedReturn trajectory stat.
         self.discount = float(discount)
         self.device = env.device
@@ -101,6 +107,8 @@ class Collector:
             cum_steps=0, ep_return=zeros,
             ep_length=zeros, ep_nonzero=zeros, ep_discounted=zeros,
             ep_gamma=torch.ones((B,), device=self.device),
+            needs_reset=torch.zeros((B,), dtype=torch.bool,
+                                    device=self.device),
             traj_stats=TrajStats.zeros(self.device))
 
     def reset_traj_stats(self, state: RolloutState) -> RolloutState:
@@ -113,8 +121,9 @@ class Collector:
         """Random-action start-state decorrelation (rlpyt's
         DecorrelatingStartCollector): lane b takes ``n_steps[b]`` uniform
         random steps, ``n_steps`` uniform in [0, max_steps), resetting
-        when done.  Every lane runs all ``max_steps`` iterations and keeps
-        the result only while active, so the loop costs no device sync.
+        when done (under either reset rule, as in the JAX package).  Every
+        lane runs all ``max_steps`` iterations and keeps the result only
+        while active, so the loop costs no device sync.
         ``draws`` = (n_steps [B], actions [max_steps, B]) replaces the
         draws of the step counts and actions."""
         if max_steps <= 0:
@@ -151,7 +160,8 @@ class Collector:
     def collect(self, state: RolloutState, generator: torch.Generator,
                 is_eval: bool = False) -> Tuple[RolloutState, Samples]:
         """Collect one [T, B] batch; ``is_eval``: the agent acts with its
-        evaluation epsilon."""
+        evaluation epsilon.  Under wait-reset the lanes that wait are
+        reset after the last step."""
         T = self.batch_spec.T
         buf = None
         for t in range(T):
@@ -159,6 +169,8 @@ class Collector:
             if buf is None:
                 buf = buffer_from_example(out, (T,), self.device)
             tree_map(lambda b, x: b[t].copy_(x), buf, out)
+        if not self.mid_batch_reset:
+            state = self._reset_waiting(state, generator)
         return state, buf
 
     def evaluate(self, generator: torch.Generator, max_T: int,
@@ -171,7 +183,9 @@ class Collector:
         its ``while_loop`` on the step that reaches the cap; here the cap
         is read on the host every ``EVAL_CHECK_STEPS`` steps, which costs
         one sync per check instead of one per step.  The steps run past
-        the cap add nothing to the stats, so they come out the same."""
+        the cap add nothing to the stats, so they come out the same.
+        Under wait-reset a lane that finishes waits to the end, as in the
+        JAX package."""
         state = self.init_state(generator)
         for t in range(max_T):
             if (max_trajectories is not None and t % EVAL_CHECK_STEPS == 0
@@ -192,20 +206,30 @@ class Collector:
                                                   generator)
         reward = env_step.reward.to(torch.float32)
         done = env_step.done
+        waiting = carry.needs_reset
+        if not self.mid_batch_reset:
+            # Frozen lanes: no state advance, reward 0, done stays.
+            env_state = tree_select(waiting, carry.env_state, env_state)
+            reward = torch.where(waiting, 0.0, reward)
+            done = done | waiting
+        fresh_done = done & ~waiting   # episodes that end at this step
         out = Samples(carry.observation, action, reward, done,
                       carry.prev_action, carry.prev_reward,
                       agent_step.agent_info, env_step.info)
 
-        # Trajectory accounting.
-        ep_return = carry.ep_return + reward
-        ep_length = carry.ep_length + 1.0
-        ep_nonzero = carry.ep_nonzero + (reward != 0.0).to(torch.float32)
-        ep_discounted = carry.ep_discounted + reward * carry.ep_gamma
-        ep_gamma = carry.ep_gamma * self.discount
+        # Trajectory accounting (a waiting lane adds nothing).
+        live = (~waiting).to(torch.float32)
+        ep_return = carry.ep_return + reward * live
+        ep_length = carry.ep_length + live
+        ep_nonzero = carry.ep_nonzero + (reward != 0.0).to(torch.float32) \
+            * live
+        ep_discounted = carry.ep_discounted + reward * carry.ep_gamma * live
+        ep_gamma = torch.where(waiting, carry.ep_gamma,
+                               carry.ep_gamma * self.discount)
         ts = carry.traj_stats
-        d = done   # the episodes that count in the stats
+        d = fresh_done   # the episodes that count in the stats
         if max_trajectories is not None:
-            d = done & (ts.completed < max_trajectories)
+            d = d & (ts.completed < max_trajectories)
         df = d.to(torch.float32)
         inf = float("inf")
         traj_stats = TrajStats(
@@ -221,23 +245,48 @@ class Collector:
                 ts.max_return, torch.where(d, ep_return, -inf).max()),
             min_return=torch.minimum(
                 ts.min_return, torch.where(d, ep_return, inf).min()))
-        live = 1.0 - done.to(torch.float32)
-        ep_gamma = torch.where(done, 1.0, ep_gamma)
+        finished = 1.0 - fresh_done.to(torch.float32)
+        ep_gamma = torch.where(fresh_done, 1.0, ep_gamma)
 
-        # Auto-reset (CpuResetCollector parity).
-        reset_state, reset_obs = self.env.reset_batch(B, generator)
+        if self.mid_batch_reset:
+            # Auto-reset (CpuResetCollector parity).
+            reset_state, reset_obs = self.env.reset_batch(B, generator)
+            env_state = tree_select(done, reset_state, env_state)
+            observation = tree_select(done, reset_obs, env_step.observation)
+            agent_carry = self.agent.reset_carry_where(done, agent_carry)
+        else:
+            # Wait-reset: the lane keeps its observation until batch end.
+            observation = tree_select(done, carry.observation,
+                                      env_step.observation)
         new_carry = RolloutState(
-            env_state=tree_select(done, reset_state, env_state),
-            observation=tree_select(done, reset_obs, env_step.observation),
+            env_state=env_state, observation=observation,
             prev_action=tree_select(done, torch.zeros_like(action), action),
             prev_reward=torch.where(done, 0.0, reward),
-            agent_carry=self.agent.reset_carry_where(done, agent_carry),
+            agent_carry=agent_carry,
             cum_steps=carry.cum_steps + B,
-            ep_return=ep_return * live, ep_length=ep_length * live,
-            ep_nonzero=ep_nonzero * live,
-            ep_discounted=ep_discounted * live, ep_gamma=ep_gamma,
+            ep_return=ep_return * finished, ep_length=ep_length * finished,
+            ep_nonzero=ep_nonzero * finished,
+            ep_discounted=ep_discounted * finished, ep_gamma=ep_gamma,
+            needs_reset=(carry.needs_reset if self.mid_batch_reset
+                         else done),
             traj_stats=traj_stats)
         return new_carry, out
+
+    def _reset_waiting(self, state: RolloutState,
+                       generator: torch.Generator) -> RolloutState:
+        """Batch-end reset of the lanes that wait (rlpyt's
+        WaitResetCollector.reset_if_needed)."""
+        reset_state, reset_obs = self.env.reset_batch(self.batch_spec.B,
+                                                      generator)
+        w = state.needs_reset
+        return state._replace(
+            env_state=tree_select(w, reset_state, state.env_state),
+            observation=tree_select(w, reset_obs, state.observation),
+            prev_action=tree_select(w, torch.zeros_like(state.prev_action),
+                                    state.prev_action),
+            prev_reward=torch.where(w, 0.0, state.prev_reward),
+            agent_carry=self.agent.reset_carry_where(w, state.agent_carry),
+            needs_reset=torch.zeros_like(w))
 
 
 def evaluate(collector: Collector, generator: torch.Generator, max_T: int,

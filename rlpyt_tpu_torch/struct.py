@@ -107,3 +107,39 @@ def valid_mean(x: torch.Tensor, valid: torch.Tensor | None = None
         return x.mean()
     valid = valid.to(x.dtype)
     return (x * valid).sum() / torch.clamp(valid.sum(), min=1e-8)
+
+
+def state_of(obj, names) -> dict:
+    """The named attributes of ``obj`` as one state dict: an attribute
+    with a ``state_dict()`` (a module, an optimizer, a replay buffer), or
+    a dict of such, gives its state; any other (a tensor tree, a Python
+    number) is taken as it is.  Tensors are the live ones, not copies."""
+
+    def one(value):
+        if hasattr(value, "state_dict"):
+            return value.state_dict()
+        if isinstance(value, dict) and value and all(
+                hasattr(v, "state_dict") for v in value.values()):
+            return {k: v.state_dict() for k, v in value.items()}
+        return value
+
+    return {name: one(getattr(obj, name)) for name in names}
+
+
+@torch.no_grad()
+def load_state(obj, state: dict, names):
+    """Undo ``state_of``: stateful attributes load their part, tensor
+    trees are copied into the live tensors (which keeps their device and
+    every reference to them), Python numbers are set."""
+    for name in names:
+        value, saved = getattr(obj, name), state[name]
+        if hasattr(value, "load_state_dict"):
+            value.load_state_dict(saved)
+        elif isinstance(value, dict) and value and all(
+                hasattr(v, "load_state_dict") for v in value.values()):
+            for k, v in value.items():
+                v.load_state_dict(saved[k])
+        elif isinstance(value, (bool, int, float)):
+            setattr(obj, name, type(value)(saved))
+        else:
+            tree_map(lambda dst, src: dst.copy_(src), value, saved)

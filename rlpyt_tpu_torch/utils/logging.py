@@ -1,7 +1,9 @@
 """Tabular logger (port of rlpyt_tpu/utils/logging.py: TabularLogger and
-logger_context, without the TensorBoard writer): console table per dump,
-and ``progress.csv``, ``debug.log`` and parameter snapshots under
-``log_dir`` when one is given.
+logger_context): console table per dump, and ``progress.csv``,
+``debug.log``, parameter snapshots and, with ``use_summary_writer``,
+TensorBoard events (every numeric key at step ``CumSteps``) under
+``log_dir`` when one is given.  ``torch.utils.tensorboard`` is imported
+only when a writer is asked for.
 
 A snapshot is the pickle the JAX package writes: a dict of numpy values,
 ``{"params": <the agent's flax parameter tree>, "itr", "cum_steps"}``
@@ -26,12 +28,18 @@ from rlpyt_tpu_torch.struct import tree_map
 
 class TabularLogger:
     def __init__(self, log_dir: Optional[str] = None,
-                 snapshot_mode: str = "last", snapshot_gap: int = 1):
+                 snapshot_mode: str = "last", snapshot_gap: int = 1,
+                 use_summary_writer: bool = False):
         if snapshot_mode not in ("last", "all", "gap", "none"):
             raise ValueError(f"unknown snapshot_mode {snapshot_mode!r}")
         self.log_dir = log_dir
         self.snapshot_mode = snapshot_mode
         self.snapshot_gap = snapshot_gap
+        self._tb = None
+        self._tb_step = 0
+        if use_summary_writer and log_dir is not None:
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb = SummaryWriter(log_dir=log_dir)
         self._tabular: Dict[str, Any] = {}
         self._csv_file = None
         self._csv_writer = None
@@ -46,9 +54,27 @@ class TabularLogger:
             value = value.item()
         self._tabular[key] = value
 
+    def record_tabular_misc_stat(self, key: str, values):
+        """``key`` + Average, Std, Min and Max of ``values`` (NaN when
+        there are none), in float64 as the JAX logger computes them."""
+        values = np.asarray(values, dtype=np.float64)
+        if values.size:
+            stats = (np.mean(values), np.std(values), np.min(values),
+                     np.max(values))
+        else:
+            stats = (float("nan"),) * 4
+        for suffix, v in zip(("Average", "Std", "Min", "Max"), stats):
+            self.record_tabular(key + suffix, float(v))
+
     def dump_tabular(self, print_fn=print):
         if not self._tabular:
             return
+        if self._tb is not None:
+            step = int(self._tabular.get("CumSteps", self._tb_step))
+            for k, v in self._tabular.items():
+                if isinstance(v, (int, float)):
+                    self._tb.add_scalar(k, v, step)
+            self._tb_step = step + 1
         width = max(len(k) for k in self._tabular)
         lines = ["-" * (width + 22)]
         for k, v in self._tabular.items():
@@ -98,6 +124,8 @@ class TabularLogger:
             pickle.dump(tree_map(np.asarray, params), f)
 
     def close(self):
+        if self._tb is not None:
+            self._tb.close()
         if self._csv_file:
             self._csv_file.close()
         if self._debug_file:
@@ -107,7 +135,8 @@ class TabularLogger:
 @contextmanager
 def logger_context(log_dir: str, run_id: int, name: str,
                    config: Optional[dict] = None,
-                   snapshot_mode: str = "last"):
+                   snapshot_mode: str = "last",
+                   use_summary_writer: bool = False):
     """A TabularLogger writing under ``log_dir/run_<run_id>``, with the
     run's config saved there as ``params.json``; closed on exit."""
     run_dir = os.path.join(log_dir, f"run_{run_id}")
@@ -115,7 +144,8 @@ def logger_context(log_dir: str, run_id: int, name: str,
     if config is not None:
         with open(os.path.join(run_dir, "params.json"), "w") as f:
             json.dump(config, f, indent=2, default=str)
-    logger = TabularLogger(run_dir, snapshot_mode=snapshot_mode)
+    logger = TabularLogger(run_dir, snapshot_mode=snapshot_mode,
+                           use_summary_writer=use_summary_writer)
     logger.log(f"Starting run {name} (run_{run_id})")
     try:
         yield logger

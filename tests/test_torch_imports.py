@@ -16,7 +16,8 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
                  ROOT / "tests" / "test_torch_pg_learning.py",
                  ROOT / "tests" / "test_torch_qpg_learning.py",
                  ROOT / "tests" / "test_torch_dqn_learning.py",
-                 ROOT / "tests" / "test_torch_atari_learning.py"])
+                 ROOT / "tests" / "test_torch_atari_learning.py",
+                 ROOT / "tests" / "test_torch_checkpoint.py"])
 
 
 def imported_modules(path: Path):
@@ -57,11 +58,17 @@ def test_scan_covers_the_port():
                  "envs/fake_ale.py", "envs/atari.py", "envs/gym_space.py",
                  "envs/hostfarm_c.py", "envs/host.py", "runners/host.py",
                  "experiments/configs/atari_dqn.py",
-                 "experiments/scripts/atari_dqn.py"):
+                 "experiments/scripts/atari_dqn.py",
+                 "utils/checkpoint.py", "utils/profiling.py",
+                 "runners/async_rl.py", "examples/example_1.py",
+                 "examples/example_2.py", "examples/example_3.py",
+                 "examples/example_5.py", "examples/example_6.py",
+                 "examples/example_8.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
     assert "bench_torch_minatar.py" in names
     assert "tests/test_torch_qpg_learning.py" in names
     assert "tests/test_torch_dqn_learning.py" in names
     assert "tests/test_torch_atari_learning.py" in names
+    assert "tests/test_torch_checkpoint.py" in names
     assert "chip_smoke.py" in names and len(names) > 20
