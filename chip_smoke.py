@@ -156,6 +156,29 @@ Phases, each fatal on failure:
      gather, time_fn within 20 % of time_ms on one K3 call,
      device_memory_stats not empty; (f) example 5's env-steps/s under
      MinibatchRl and AsyncRl in turns (M, A, A, M).
+ 17. data-parallel SyncRl (rlpyt_tpu_torch/runners/sync.py), ranks
+     spawned: (a) in a deterministic child, the r2d1 config of
+     minatar_dqn.py with 14a's cuts under SyncRl(MeshSpec(dp=1)), a
+     world of one on NCCL, equal bit for bit to MinibatchRl in every
+     state leaf and logged row, with 14b's K3a/K3/K4 launches, and
+     resumed after 2 of 4 intervals equal to the whole run; (b) the
+     flagship DQN over two gloo ranks sharing the card for 4 iterations:
+     each rank's frame ring [size_T, 64, 8320], parameters equal over
+     ranks, one gather an update on each; and one flagship update by two
+     ranks, each with its lanes of a common replay, against one process
+     in parameters, diagnostics and Adam moments (rtol 2e-3, atol 2e-4,
+     TF32 off); (c) r2d1 over two gloo ranks:
+     parameters and priority tables equal over ranks, finite losses and
+     priorities; (d) minatar_pg.py's ppo over two gloo ranks, and one ppo
+     optimize by two ranks against one process to the same tolerance; (e)
+     the torch example 4 (NCCL, a world of one) at a cut n_steps; (f)
+     DqnMlpModel(256, 512) on CartPole under MeshSpec(dp=1, mp=2) over
+     gloo, evaluating and writing checkpoints: the 512 x 256 weight a
+     DTensor split on mp, the run equal to MinibatchRl to that
+     tolerance; a line of the kernels' launches per
+     rank; (g) readings: r2d1 env-steps/s under SyncRl(dp=1) and
+     MinibatchRl in turns (S, M, M, S), the host ms of one gradient
+     all-reduce, and the dp = 2 rates (two ranks on one card).
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -173,10 +196,16 @@ to compare two trees on one card.
 
 builds the kernels and runs phase 16 alone (about 90 s), with no result
 line.
+
+    python3 chip_smoke.py --phase17
+
+builds the kernels and runs phase 17 alone, with no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import itertools
 import json
 import math
@@ -191,6 +220,7 @@ from pathlib import Path
 import torch
 
 import bench_torch_gather_formulations as harness
+from rlpyt_tpu_torch.runners.sync import SyncRl
 from rlpyt_tpu_torch.utils.cuda_timing import graph_ms, time_ms
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
@@ -630,15 +660,12 @@ def zero_launches():
     L.lstm_fwd.step_launches = 0
 
 
-def build_flagship_runner(dev, n_itr: int, logger=None):
-    """The flagship Nature-CNN DQN trainer of bench_atari.py:139-176
-    (B=128, T=32, update batch 256, replay ratio 8, replay 200k, bf16,
-    double DQN, frame replay) on the port, one iteration per log row."""
+def flagship_agent_algo(dev):
+    """The flagship's agent and algorithm (bench_atari.py:139-176: bf16
+    Nature CNN, update batch 256, replay ratio 8, replay 200k, double
+    DQN, frame replay)."""
     from rlpyt_tpu_torch.agents.dqn import DqnAgent
     from rlpyt_tpu_torch.algos.dqn import DQN
-    from rlpyt_tpu_torch.envs.synthetic_atari import SyntheticAtariEnv
-    from rlpyt_tpu_torch.runners.train import MinibatchRl
-    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
 
     agent = DqnAgent(model_kwargs=dict(compute_dtype=torch.bfloat16),
                      eps_steps=250_000, eps_final=0.01, device=dev)
@@ -647,10 +674,24 @@ def build_flagship_runner(dev, n_itr: int, logger=None):
                target_update_interval=2_500, learning_rate=2.5e-4,
                double_dqn=True, n_step_return=1, frame_buffer=True,
                frames_per_obs=4)
-    return MinibatchRl(algo, agent, SyntheticAtariEnv(dev),
-                       BatchSpec(T=T, B=B), n_steps=n_itr * T * B, seed=0,
-                       log_interval_steps=T * B, max_decorrelation_steps=0,
-                       logger=logger, device=dev)
+    return agent, algo
+
+
+def build_flagship_runner(dev, n_itr: int, logger=None, runner_cls=None,
+                          **runner_kwargs):
+    """The flagship Nature-CNN DQN trainer of bench_atari.py:139-176
+    (B=128, T=32) on the port, one iteration per log row; MinibatchRl
+    unless ``runner_cls`` is given."""
+    from rlpyt_tpu_torch.envs.synthetic_atari import SyntheticAtariEnv
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    agent, algo = flagship_agent_algo(dev)
+    return (runner_cls or MinibatchRl)(
+        algo, agent, SyntheticAtariEnv(dev), BatchSpec(T=T, B=B),
+        n_steps=n_itr * T * B, seed=0, log_interval_steps=T * B,
+        max_decorrelation_steps=0, logger=logger, device=dev,
+        **runner_kwargs)
 
 
 def row_logger():
@@ -3083,6 +3124,541 @@ def run_phase16(fg, L, g, dev):
     torch.cuda.empty_cache()
 
 
+# Phase 17: data-parallel SyncRl (rlpyt_tpu_torch/runners/sync.py) and
+# the mp axis.  17a runs in a deterministic child, as 16a/16b do; the
+# worlds of 2 share this one card over gloo (NCCL takes one rank a card).
+P17_ITR = 4                  # 17b: flagship DQN iterations at dp = 2
+P17_PG_ITR = 2               # 17d: ppo iterations at dp = 2
+P17_EX4_ITR = 3              # 17e: example 4 iterations (2048 steps each)
+P17_MP_STEPS = 2_048         # 17f: CartPole steps of the mp = 2 run
+P17_RATE_ITR = 6             # 17g: r2d1 iterations of each timed run
+P17_KEYS = ("frame_gather", "lstm_input_proj", "lstm_fwd", "lstm_fwd_t1",
+            "lstm_bwd", "updates", "all_reduce_s", "all_reduces")
+P17_TOL = dict(rtol=2e-3, atol=2e-4)   # tests/test_parallel.py:86
+
+
+class CheckedSyncRl(SyncRl):
+    """SyncRl that, before its process group goes down, gathers from
+    every rank what phase 17 holds: its kernel launches and updates, the
+    host seconds of its gradient all-reduces, and whether the ranks'
+    parameters and priority tables agree bit for bit (``report``)."""
+
+    def _train_rank(self, resume_from):
+        import torch.distributed as dist
+
+        from rlpyt_tpu_torch.ops import frame_gather as fg
+        from rlpyt_tpu_torch.ops import lstm as L
+        from rlpyt_tpu_torch.parallel.mesh import DpShard, full_tensor
+
+        spent = [0.0, 0]
+        reduce = DpShard.all_reduce_grads_
+
+        def timed(shard, grads):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduce(shard, grads)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+
+        zero_launches()
+        DpShard.all_reduce_grads_ = timed
+        try:
+            state = super()._train_rank(resume_from)
+        finally:
+            DpShard.all_reduce_grads_ = reduce
+        tables = [full_tensor(p).detach().reshape(-1).float()
+                  for p in self.agent.model.parameters()]
+        replay = getattr(self.algo, "replay", None)
+        if hasattr(replay, "priorities"):
+            tables.append(replay.priorities.reshape(-1))
+        lo = torch.cat(tables)
+        hi = lo.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        mine = torch.tensor(
+            [fg.gather_frame_stacks.launches, L.input_proj.launches,
+             L.lstm_fwd.launches, L.lstm_fwd.step_launches,
+             L.lstm_bwd.launches, self.algo.update_counter, spent[0],
+             spent[1]], dtype=torch.float64, device=self.device)
+        every = [torch.empty_like(mine)
+                 for _ in range(dist.get_world_size())]
+        dist.all_gather(every, mine)
+        self.report = {"ranks_equal": torch.equal(lo, hi), "per_rank": [
+            dict(zip(P17_KEYS, e.tolist())) for e in every]}
+        return state
+
+
+def p17_reduce_ms(report) -> list:
+    """Host ms of one gradient all-reduce, per rank."""
+    return [round(1e3 * r["all_reduce_s"] / max(r["all_reduces"], 1), 3)
+            for r in report["per_rank"]]
+
+
+def p17_r2d1_runner(runner_cls, n_itr: int, logger=None, eval_cut=True,
+                    **kwargs):
+    """The r2d1 config of minatar_dqn.py through its build_runner, with
+    14a's cuts (n_steps, the log interval, the evaluation caps); with
+    ``runner_cls`` SyncRl (or a subclass) over ``kwargs``' mesh."""
+    from rlpyt_tpu_torch.experiments.scripts.minatar_dqn import \
+        build_runner
+
+    steps = MD_T * MD_B
+    overrides = {"runner": {"n_steps": n_itr * steps,
+                            "log_interval_steps": steps},
+                 "sampler": dict(MD_EVAL_CUT) if eval_cut
+                 else {"eval_n_envs": 0}}
+    mesh = kwargs.pop("mesh", None)
+    runner, _ = build_runner("r2d1", config_overrides=overrides, mesh=mesh,
+                             backend=kwargs.pop("backend", None))
+    if runner_cls is not None:
+        runner.__class__ = runner_cls
+    runner.logger = logger or row_logger()
+    for k, v in kwargs.items():
+        setattr(runner, k, v)
+    return runner
+
+
+def p17_r2d1_equal_and_resume(L, tmp: Path) -> dict:
+    """17a: r2d1 under SyncRl(MeshSpec(dp=1)), a world of one on NCCL,
+    against MinibatchRl: every state leaf and logged row bit for bit, and
+    the same K3a/K3/K4 launches; then 2 of its 4 intervals with a
+    checkpoint and a fresh SyncRl resumed to 4: equal to the whole run."""
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+
+    def run(runner_cls, n_itr, resume_from=None, **kwargs):
+        runner = p17_r2d1_runner(runner_cls, n_itr, **kwargs)
+        zero_launches()
+        state = runner.train(resume_from=resume_from)
+        torch.cuda.synchronize()
+        return runner, state, md_launches(L)
+
+    n = MD_ITR["r2d1"]
+    m_run, m_state, m_launch = run(None, n)
+    s_run, s_state, s_launch = run(SyncRl, n, mesh=MeshSpec(dp=1))
+    leaves = hold_states("17a SyncRl(dp=1) against MinibatchRl", s_state,
+                         m_state)
+    hold_rows("17a", s_run.logger.rows, m_run.logger.rows)
+    if s_launch != m_launch:
+        fail(f"17a: SyncRl's LSTM launches {s_launch}, MinibatchRl's "
+             f"{m_launch}")
+    run(SyncRl, n // 2, mesh=MeshSpec(dp=1), checkpoint_dir=str(tmp))
+    r_run, r_state, _ = run(SyncRl, n, mesh=MeshSpec(dp=1),
+                            checkpoint_dir=str(tmp),
+                            resume_from=str(tmp / "checkpoint.pkl"))
+    hold_states("17a resumed", r_state, s_state)
+    hold_rows("17a resumed", r_run.logger.rows, s_run.logger.rows[n // 2:])
+    return {"leaves": leaves, "launches": s_launch,
+            "backend": "nccl", "rows": len(s_run.logger.rows)}
+
+
+def phase17_child(out: Path) -> int:
+    """17a, deterministic; its numbers go to ``out`` as JSON."""
+    torch.use_deterministic_algorithms(True)
+    from rlpyt_tpu_torch.ops import lstm as L
+
+    L.build()
+    L.load()
+    with tempfile.TemporaryDirectory() as d:
+        res = p17_r2d1_equal_and_resume(L, Path(d))
+    out.write_text(json.dumps(res))
+    return 0
+
+
+def p17_case(name: str, dev):
+    """(agent, algo, env, batch_spec, batches) of a 17b/17d update check:
+    the flagship DQN on 2 collected [32, 128] batches, or the ppo config
+    of minatar_pg.py on one [16, 128] batch, each collected with the
+    weights drawn from seed 0."""
+    from rlpyt_tpu_torch.envs.synthetic_atari import SyntheticAtariEnv
+    from rlpyt_tpu_torch.experiments.scripts.minatar_pg import \
+        build_runner
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector
+
+    torch.manual_seed(0)
+    if name == "flagship":
+        agent, algo = flagship_agent_algo(dev)
+        env, spec, n_batches = SyntheticAtariEnv(dev), BatchSpec(T, B), 2
+    else:
+        runner, _ = build_runner("ppo")
+        agent, algo, env = runner.agent, runner.algo, runner.env
+        spec, n_batches = runner.batch_spec, 1
+    agent.initialize(env.spaces)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    collector = Collector(env, agent, spec, discount=float(algo.discount))
+    state = collector.init_state(gen)
+    batches = []
+    for _ in range(n_batches):
+        state, samples = collector.collect(state, gen)
+        batches.append((samples, state))
+    return agent, algo, spec, batches
+
+
+def p17_update(name: str, dev, shard=None) -> dict:
+    """The case's update on this process's lanes (all without ``shard``):
+    the flagship's appends then one DQN update; ppo's one optimize (4
+    epochs of 4 minibatches).  Returns, on the CPU, the model's state,
+    the update's diagnostics (loss, the norm before the clip, ...) and
+    Adam's moments: a gradient off by a constant factor shows in the
+    last two, where Adam's step hides it from the parameters."""
+    from rlpyt_tpu_torch.struct import tree_map
+
+    agent, algo, spec, batches = p17_case(name, dev)
+    lanes = slice(0, spec.B) if shard is None else shard.lanes(spec.B)
+
+    def local(tree, dim):
+        return tree_map(lambda x: x.narrow(dim, lanes.start,
+                                           lanes.stop - lanes.start)
+                        if isinstance(x, torch.Tensor) and x.dim() > dim
+                        else x, tree)
+
+    samples, state = batches[-1]
+    algo.shard = shard
+    algo.initialize(agent, spec, local(state.observation, 0),
+                    torch.Generator(device=dev).manual_seed(2), n_itr=1)
+    if name == "flagship":
+        for samples, _ in batches:
+            algo.replay.append(algo.samples_to_buffer(local(samples, 1)))
+        info = algo.update(algo.replay.sample(algo.batch_size,
+                                              algo.generator))
+    else:
+        info = algo.optimize(local(samples, 1), state._replace(
+            observation=local(state.observation, 0),
+            prev_action=local(state.prev_action, 0),
+            prev_reward=local(state.prev_reward, 0)))
+    torch.cuda.synchronize()
+    moments = algo.optimizer.state_dict()["inner"]["state"]
+    return {"model": {k: v.cpu() for k, v in agent.model.state_dict().items()},
+            "info": {k: v.cpu() for k, v in info._asdict().items()},
+            "moments": {f"{i}.{k}": v.cpu() for i, m in moments.items()
+                        for k, v in m.items() if k != "step"}}
+
+
+def p17_update_rank(rank: int, world: int, address: str, out: str):
+    """A gloo rank of the 17b/17d update checks on the shared card."""
+    import torch.distributed as dist
+
+    from rlpyt_tpu_torch.parallel.mesh import DpShard, init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    init_distributed(address, world, rank, "gloo", 300)
+    try:
+        result = {name: p17_update(name, dev, DpShard(rank, world))
+                  for name in ("flagship", "ppo")}
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+
+
+def p17_updates_against_single(dev) -> dict:
+    """17b/17d: one flagship DQN update and one ppo optimize by two gloo
+    ranks, each with its half of the lanes of a common replay (or batch),
+    against the same on one process: the ranks agree bit for bit and hold
+    the single-process parameters, diagnostics and Adam moments to
+    P17_TOL.  Returns the largest absolute differences."""
+    import multiprocessing
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    errs = {}
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=p17_update_rank,
+                             args=(r, 2, address, d)) for r in range(2)]
+        for p in procs:
+            p.start()
+        want = {name: p17_update(name, dev) for name in ("flagship", "ppo")}
+        for p in procs:
+            p.join(300)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if [p.exitcode for p in procs] != [0, 0]:
+            fail(f"17b/17d: update ranks exited {[p.exitcode for p in procs]}")
+        got = [torch.load(Path(d) / f"rank{r}.pt", weights_only=False)
+               for r in range(2)]
+    for name, w in want.items():
+        hold_states(f"17 {name}: rank 1 against rank 0", got[1][name],
+                    got[0][name])
+        err = 0.0
+        for part, leaves in w.items():
+            for k, v in leaves.items():
+                g = got[0][name][part][k]
+                if not torch.allclose(g, v, **P17_TOL):
+                    fail(f"17 {name}: {part} {k} off the single-process "
+                         f"update by {(g - v).abs().max().item():.3g}")
+                err = max(err, (g - v).abs().max().item())
+        errs[name] = err
+    return errs
+
+
+def p17_flagship_dp2(dev) -> dict:
+    """17b: the flagship DQN over two gloo ranks sharing the card, frame
+    replay split by lanes ([size_T, 64, 8320] each), for P17_ITR
+    iterations: parameters equal over ranks, one gather an update on each
+    rank, finite losses."""
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+
+    logger = row_logger()
+    runner = build_flagship_runner(dev, P17_ITR, logger, CheckedSyncRl,
+                                   mesh=MeshSpec(dp=2), backend="gloo")
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = runner.train()
+    ring = state["algo"]["replay"]["data"].observation
+    if tuple(ring.shape) != (runner.algo.replay.size_T, B // 2, 8320):
+        fail(f"17b: rank 0's ring is {tuple(ring.shape)}")
+    rep = runner.report
+    if not rep["ranks_equal"]:
+        fail("17b: the ranks' parameters differ")
+    want = P17_ITR * runner.algo.updates_per_optimize
+    for r, c in enumerate(rep["per_rank"]):
+        if c["updates"] != want or c["frame_gather"] != want:
+            fail(f"17b rank {r}: {c['frame_gather']} gathers for "
+                 f"{c['updates']} updates, expected {want} each")
+    for row in logger.rows:
+        if not all(math.isfinite(row[k]) for k in ("loss", "grad_norm")):
+            fail(f"17b: non-finite loss in iteration {row['Iteration']}")
+    return {"ring": list(ring.shape), "per_rank": rep["per_rank"],
+            "sps": [r["StepsPerSecond"] for r in logger.rows],
+            "reduce_ms": p17_reduce_ms(rep)}
+
+
+def p17_r2d1_dp2() -> dict:
+    """17c: r2d1 (prioritized sequence replay, the global draw, K3a/K3/K4)
+    over two gloo ranks with 14a's cuts: parameters and priority tables
+    equal over ranks, finite losses and priorities, LSTM launches on both
+    ranks."""
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+
+    runner = p17_r2d1_runner(CheckedSyncRl, MD_ITR["r2d1"],
+                             mesh=MeshSpec(dp=2), backend="gloo")
+    runner.train()
+    rep = runner.report
+    if not rep["ranks_equal"]:
+        fail("17c: the ranks' parameters or priority tables differ")
+    replay = runner.algo.replay
+    if not (torch.isfinite(replay.priorities).all()
+            and (replay.priorities[:replay.filled_t
+                                   // replay.interval] > 0).all()):
+        fail("17c: a written priority is not finite and above 0")
+    # A rank whose lanes hold none of an update's windows launches
+    # nothing for it (before a whole window exists, the draw on an
+    # all-zero mass takes the last lane: ROADMAP Queue 3, item 3).
+    per_rank = rep["per_rank"]
+    updates = per_rank[0]["updates"]
+    if not (updates > 0 and sum(c["lstm_bwd"] for c in per_rank) >= updates
+            and all(0 < c["lstm_bwd"] <= updates and c["lstm_fwd"] > 0
+                    and c["lstm_input_proj"] > 0 for c in per_rank)):
+        fail(f"17c: LSTM launches per rank {per_rank}")
+    for row in runner.logger.rows[1:]:
+        if not all(math.isfinite(row[k]) for k in ("loss", "td_abs_err")):
+            fail(f"17c: non-finite loss in iteration {row['Iteration']}")
+    return {"per_rank": rep["per_rank"], "reduce_ms": p17_reduce_ms(rep),
+            "sps": [r["StepsPerSecond"] for r in runner.logger.rows]}
+
+
+def p17_ppo_dp2() -> dict:
+    """17d (the run): minatar_pg.py's ppo over two gloo ranks for
+    P17_PG_ITR iterations (the global permutation, all-reduced advantage
+    moments): parameters equal over ranks, finite losses."""
+    from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
+    from rlpyt_tpu_torch.experiments.scripts.minatar_pg import \
+        build_runner
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+
+    steps = PG_T * PG_B
+    runner, _ = build_runner("ppo", mesh=MeshSpec(dp=2), backend="gloo",
+                             config_overrides={
+                                 "runner": {"n_steps": P17_PG_ITR * steps,
+                                            "log_interval_steps": steps},
+                                 "sampler": {"eval_max_steps": 100 * 32}})
+    runner.__class__ = CheckedSyncRl
+    runner.logger = row_logger()
+    runner.train()
+    rep = runner.report
+    if not rep["ranks_equal"]:
+        fail("17d: the ranks' parameters differ")
+    for row in runner.logger.rows:
+        if not all(math.isfinite(row[k]) for k in ("loss", "entropy")):
+            fail(f"17d: non-finite loss in iteration {row['Iteration']}")
+    cfg = configs["ppo"]["algo"]
+    if any(c["updates"] != P17_PG_ITR * cfg["epochs"] * cfg["minibatches"]
+           for c in rep["per_rank"]):
+        fail(f"17d: updates {[c['updates'] for c in rep['per_rank']]}")
+    return {"reduce_ms": p17_reduce_ms(rep),
+            "sps": [r["StepsPerSecond"] for r in runner.logger.rows]}
+
+
+def p17_example4() -> dict:
+    """17e: the torch example 4 (dqn at 64 lanes, MeshSpec(dp=-1): a world
+    of one on NCCL on this card) cut to P17_EX4_ITR iterations and its
+    evaluation to 100 steps a lane."""
+    from rlpyt_tpu_torch.examples import example_4
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        runner = example_4.build_and_train(
+            n_steps=P17_EX4_ITR * 2_048, log_interval_steps=2_048,
+            config_overrides={"sampler": {"eval_max_steps": 32 * 100}})
+    if runner.dp != 1 or runner.rollout_state.cum_steps \
+            != P17_EX4_ITR * 2_048:
+        fail(f"17e: dp {runner.dp}, {runner.rollout_state.cum_steps} steps")
+    learning = sum((i + 1) * 2_048 >= 5_000 for i in range(P17_EX4_ITR))
+    if runner.algo.update_counter != \
+            learning * runner.algo.updates_per_optimize:
+        fail(f"17e: {runner.algo.update_counter} updates")
+    if not all(torch.isfinite(p).all()
+               for p in runner.agent.model.parameters()):
+        fail("17e: non-finite parameters")
+    return {"updates": runner.algo.update_counter}
+
+
+def p17_mp() -> dict:
+    """17f: DqnMlpModel(256, 512) on CartPole under MeshSpec(dp=1, mp=2)
+    over gloo (tests/test_learning_coverage.py:95): the live 512 x 256
+    weight (JAX's 256 x 512 kernel) is a DTensor split on mp by output
+    units, the ranks agree, and the run equals MinibatchRl to P17_TOL
+    (TF32 off).  Both evaluate after each interval (under mp, both ranks
+    of dp group 0 together) and the mp run writes checkpoints."""
+    from rlpyt_tpu_torch.agents.dqn import DqnAgent
+    from rlpyt_tpu_torch.algos.dqn import DQN
+    from rlpyt_tpu_torch.envs.classic import CartPole
+    from rlpyt_tpu_torch.models.dqn import DqnMlpModel
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    def make(runner_cls, **kwargs):
+        agent = DqnAgent(ModelCls=DqnMlpModel,
+                         model_kwargs={"hidden_sizes": (256, 512)},
+                         eps_steps=2_000)
+        algo = DQN(batch_size=64, min_steps_learn=256, replay_size=8_192,
+                   replay_ratio=1.0, learning_rate=1e-3)
+        return runner_cls(algo=algo, agent=agent, env=CartPole(),
+                          batch_spec=BatchSpec(T=16, B=16),
+                          n_steps=P17_MP_STEPS, seed=3,
+                          log_interval_steps=1_024,
+                          max_decorrelation_steps=0, logger=row_logger(),
+                          eval_env=CartPole(), eval_n_envs=4,
+                          eval_max_steps=256, **kwargs)
+
+    with tempfile.TemporaryDirectory() as d:
+        runner = make(CheckedSyncRl, mesh=MeshSpec(dp=1, mp=2),
+                      backend="gloo", checkpoint_dir=d)
+        state = runner.train()
+    big = runner.agent.model.head.layers[1].weight
+    if type(big).__name__ != "DTensor" or \
+            tuple(big.to_local().shape) != (256, 256):
+        fail(f"17f: the 512 x 256 weight is a {type(big).__name__} of "
+             f"local shape {tuple(big.to_local().shape)}")
+    if not runner.report["ranks_equal"]:
+        fail("17f: the mp ranks' whole parameters differ")
+    want = make(MinibatchRl).train()
+    if not all("EvalTrajs" in row for row in runner.logger.rows):
+        fail("17f: an interval without its evaluation row")
+    err = 0.0
+    for k, v in want["model"].items():
+        if not torch.allclose(state["model"][k], v, **P17_TOL):
+            fail(f"17f: {k} off MinibatchRl")
+        err = max(err, (state["model"][k] - v).abs().max().item())
+    return {"max_abs_err": err, "local": list(big.to_local().shape)}
+
+
+def p17_rates() -> dict:
+    """17g: r2d1's env-steps/s (no evaluation) under SyncRl(dp=1) and
+    MinibatchRl in turns S, M, M, S: each run's median of its iterations
+    after the first."""
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+
+    out = []
+    for kind in "SMMS":
+        kwargs = dict(mesh=MeshSpec(dp=1)) if kind == "S" else {}
+        runner = p17_r2d1_runner(SyncRl if kind == "S" else None,
+                                 P17_RATE_ITR, eval_cut=False, **kwargs)
+        runner.train()
+        sps = sorted(r["StepsPerSecond"] for r in runner.logger.rows[1:])
+        out.append((kind, round(sps[len(sps) // 2], 1)))
+    return out
+
+
+def run_phase17(dev, launches14=None):
+    t0 = t1 = time.time()
+
+    def took() -> str:
+        nonlocal t1
+        t1, t = time.time(), t1
+        return f" ({t1 - t:.1f} s)"
+
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "phase17.json"
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--phase17-child", str(out)],
+            env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stderr[-8000:], file=sys.stderr)
+            fail(f"17a: the deterministic child exited {proc.returncode}")
+        a = json.loads(out.read_text())
+    if launches14 is not None and a["launches"] != {
+            k: launches14[k] for k in a["launches"]}:
+        fail(f"17a: SyncRl's LSTM launches {a['launches']}, 14b's "
+             f"{launches14}")
+    print(f"phase 17a: r2d1 under SyncRl(dp=1) on NCCL equals MinibatchRl "
+          f"bit for bit ({a['leaves']} state leaves, {a['rows']} rows), "
+          f"resumed after 2 of 4 intervals likewise; LSTM launches "
+          f"{a['launches']}" + (" = 14b's" if launches14 else "") + took())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = p17_updates_against_single(dev)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 17b/17d: one flagship update and one ppo optimize by two "
+          f"gloo ranks, each with its lanes of a common replay, against "
+          f"one process: ranks bit for bit, max abs err "
+          f"{errs['flagship']:.3g} / {errs['ppo']:.3g}" + took())
+    b = p17_flagship_dp2(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 17b: flagship DQN at dp = 2 (gloo, two ranks on one "
+          f"card) {P17_ITR} iterations: ring per rank {b['ring']}, "
+          f"parameters equal over ranks" + took())
+    c = p17_r2d1_dp2()
+    print("phase 17c: r2d1 at dp = 2 (gloo): parameters and priority "
+          "tables equal over ranks, losses and priorities finite" + took())
+    d = p17_ppo_dp2()
+    print(f"phase 17d: ppo at dp = 2 (gloo) {P17_PG_ITR} iterations, "
+          f"parameters equal over ranks" + took())
+    e = p17_example4()
+    print(f"phase 17e: example 4 (NCCL, a world of one), "
+          f"{P17_EX4_ITR} iterations, {e['updates']} updates" + took())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f = p17_mp()
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 17f: MeshSpec(dp=1, mp=2) over gloo: the 512 x 256 "
+          f"weight is a DTensor on mp (local {f['local']}); the run "
+          f"against MinibatchRl: max abs err {f['max_abs_err']:.3g}"
+          + took())
+    print("phase 17: launches per rank under SyncRl: "
+          + json.dumps({"17b": [{k: int(r[k]) for k in
+                                 ("frame_gather", "updates")}
+                                for r in b["per_rank"]],
+                        "17c": [{k: int(r[k]) for k in P17_KEYS[1:6]}
+                                for r in c["per_rank"]]}))
+    g = p17_rates()
+    print(f"phase 17g (readings): r2d1 env-steps/s, turns {g}; host ms of "
+          f"one gradient all-reduce per rank: 17b {b['reduce_ms']}, 17c "
+          f"{c['reduce_ms']}, 17d {d['reduce_ms']}; env-steps/s at dp = 2 "
+          f"(two ranks on one card, not scaling): 17b {b['sps']}, 17c "
+          f"{c['sps']}, 17d {d['sps']}" + took())
+    print(f"phase 17: {time.time() - t0:.1f} s")
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3199,6 +3775,8 @@ def main():
 
     if sys.argv[1:2] == ["--phase16-child"]:
         return phase16_child(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--phase17-child"]:
+        return phase17_child(Path(sys.argv[2]))
     kernels_only = "--kernels-only" in sys.argv[1:]
     dev = torch.device("cuda")
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
@@ -3206,6 +3784,10 @@ def main():
     fg, L, ug = build_kernels()
     if "--phase16" in sys.argv[1:]:
         run_phase16(fg, L, torch.Generator(device=dev).manual_seed(0), dev)
+        print(nvidia_smi_line())
+        return 0
+    if "--phase17" in sys.argv[1:]:
+        run_phase17(dev)
         print(nvidia_smi_line())
         return 0
 
@@ -3387,6 +3969,7 @@ def main():
                       f"{per_itr}; in all {md}")
                 check_windows_against_cpu(runner, dev)
                 check_snapshot(runner, Path(log_root) / key, dev)
+                md14 = md
                 launches.update({
                     "lstm_input_proj_minatar_r2d1": md["lstm_input_proj"],
                     "lstm_fwd_minatar_r2d1":
@@ -3407,6 +3990,7 @@ def main():
 
     run_host_path(fg, L, g, dev, errs, times, launches, tf32)
     run_phase16(fg, L, g, dev)
+    run_phase17(dev, md14)
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

@@ -45,6 +45,13 @@ class EpsilonGreedyMixin:
                 finals, dtype=torch.float32, device=self.device)
         return self._eps_finals[batch_B]
 
+    def bind_lanes(self, B: int, lanes: slice):
+        """Act on ``lanes`` of a B-lane batch (one rank's, under
+        ``SyncRl``): their per-lane finals are those lanes' of B."""
+        if self.eps_final_min is not None:
+            self._eps_finals[lanes.stop - lanes.start] = \
+                self._finals(B)[lanes]
+
     def epsilon(self, cum_steps: int, is_eval: bool = False,
                 batch_B: int = 1):
         """Linear decay from eps_init over eps_steps: to eps_final (a

@@ -16,13 +16,16 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
-from rlpyt_tpu_torch.struct import load_state, state_of
+from rlpyt_tpu_torch.parallel.mesh import is_sharded, shard_like, \
+    vector_norm
+from rlpyt_tpu_torch.struct import load_state, state_of, valid_mean
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, as a device scalar."""
+    """sqrt of the sum of squares over all tensors (each whole, when split
+    over 'mp'), as a device scalar."""
     return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+        torch.stack([vector_norm(t) for t in tensors]))
 
 
 @torch.no_grad()
@@ -36,6 +39,7 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
     norm = global_norm(grads)
     keep = norm < max_norm
     for g in grads:
+        g = g.to_local() if is_sharded(g) else g
         g.copy_(torch.where(keep, g, g / norm * max_norm))
     return norm
 
@@ -81,25 +85,31 @@ class RMSprop(torch.optim.Optimizer):
 class Optimizer:
     """The optax chain of the JAX package's ``make_optimizer`` over a
     model's parameters.  ``step()`` reads the parameters' ``.grad``,
-    clips them (if ``clip_grad_norm``), sets the learning rate of this
-    update and steps; it returns the gradients' global norm before
-    clipping, as a device scalar."""
+    sums them over the data-parallel ranks (with ``shard``, a
+    ``parallel.mesh.DpShard``), clips them (if ``clip_grad_norm``), sets
+    the learning rate of this update and steps; it returns the gradients'
+    global norm before clipping, as a device scalar."""
 
     def __init__(self, params, learning_rate: float,
                  clip_grad_norm: Optional[float] = None, optim: str = "adam",
-                 schedule_steps: Optional[int] = None, **optim_kwargs):
+                 schedule_steps: Optional[int] = None, shard=None,
+                 **optim_kwargs):
         self.params = list(params)
         self.learning_rate = learning_rate
         self.clip_grad_norm = clip_grad_norm
         self.schedule_steps = schedule_steps
+        self.shard = shard
         self.count = 0
+        # Parameters split over 'mp' (DTensors) step in a group of their
+        # own: the multi-tensor kernels take no mix of the two kinds.
+        groups = [{"params": g} for g in (
+            [p for p in self.params if not is_sharded(p)],
+            [p for p in self.params if is_sharded(p)]) if g]
         if optim == "adam":
             self.inner = torch.optim.Adam(
-                self.params, lr=learning_rate,
-                **{"eps": 1e-8, **optim_kwargs})
+                groups, lr=learning_rate, **{"eps": 1e-8, **optim_kwargs})
         elif optim == "rmsprop":
-            self.inner = RMSprop(self.params, lr=learning_rate,
-                                 **optim_kwargs)
+            self.inner = RMSprop(groups, lr=learning_rate, **optim_kwargs)
         else:
             raise ValueError(f"unknown optimizer {optim!r}")
 
@@ -116,8 +126,15 @@ class Optimizer:
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=False)
 
+    def reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        """Sum ``grads`` over the data-parallel ranks, in place (before
+        the clip, so that it sees the global norm)."""
+        if self.shard is not None:
+            self.shard.all_reduce_grads_(grads)
+
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params]
+        self.reduce_grads(grads)
         if self.clip_grad_norm is not None:
             norm = clip_by_global_norm_(grads, self.clip_grad_norm)
         else:
@@ -134,19 +151,29 @@ class Optimizer:
         return {"count": self.count, "inner": self.inner.state_dict()}
 
     def load_state_dict(self, state: dict):
+        """Load ``state_dict()``; the moments of a parameter split over
+        'mp', saved whole, are cut to this rank's shard."""
         self.count = int(state["count"])
         self.inner.load_state_dict(state["inner"])
+        for p in self.params:
+            if is_sharded(p):
+                moments = self.inner.state[p]
+                for k, v in moments.items():
+                    if not is_sharded(v) and tuple(v.shape) == tuple(p.shape):
+                        moments[k] = shard_like(v, p)
 
 
 def make_optimizer(params, learning_rate: float,
                    clip_grad_norm: Optional[float] = None,
                    optim: str = "adam", schedule_steps: Optional[int] = None,
-                   **optim_kwargs) -> Optimizer:
+                   shard=None, **optim_kwargs) -> Optimizer:
     """Adam or RMSprop after optional clip-by-global-norm; with
     ``schedule_steps``, the rate falls linearly from ``learning_rate`` at
-    update 0 to 0 at update ``schedule_steps`` and stays there."""
+    update 0 to 0 at update ``schedule_steps`` and stays there; with
+    ``shard``, the gradients are summed over the data-parallel ranks
+    first."""
     return Optimizer(params, learning_rate, clip_grad_norm, optim,
-                     schedule_steps, **optim_kwargs)
+                     schedule_steps, shard, **optim_kwargs)
 
 
 class RlAlgorithm:
@@ -157,7 +184,17 @@ class RlAlgorithm:
     (``cum_steps`` for schedules; the last observation and carry for a
     bootstrap value).  ``state_dict()`` / ``load_state_dict()`` after
     ``initialize`` hold everything an update reads besides the agent's
-    model and the generator (which the runner keeps)."""
+    model and the generator (which the runner keeps).
+
+    ``shard`` (a ``parallel.mesh.DpShard``, set by ``SyncRl`` before
+    ``initialize`` when the data-parallel axis has more than one rank):
+    the batch spec is the global one, the collected batches hold this
+    rank's lanes, replay draws are made over all lanes and each rank
+    takes the loss over its own rows, with every mean over all ranks'
+    rows (``_mean``); the diagnostics an update returns are whole
+    (``_whole``)."""
+
+    shard = None
 
     # What state_dict() holds (struct.py:state_of): each algorithm names
     # its target networks, optimizers, update counter and replay.
@@ -166,6 +203,34 @@ class RlAlgorithm:
     def initialize(self, agent, batch_spec, example_obs,
                    generator: torch.Generator, n_itr: int = 1):
         raise NotImplementedError
+
+    def _mean(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
+              n: Optional[int] = None) -> torch.Tensor:
+        """``valid_mean(x, valid)``; under a data-parallel shard, this
+        rank's share of the mean over every rank's entries (``n`` of them
+        in all when ``valid`` is None)."""
+        if self.shard is None:
+            return valid_mean(x, valid)
+        return self.shard.mean(x, valid, n)
+
+    def _global_mean(self, x: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None,
+                     n: Optional[int] = None) -> torch.Tensor:
+        """``valid_mean(x, valid)``; under a shard, the mean over every
+        rank's entries on every rank (no gradient flows through it)."""
+        if self.shard is None:
+            return valid_mean(x, valid)
+        return self.shard.all_reduce_(self.shard.mean(x, valid, n).detach())
+
+    def _whole(self, *shares: torch.Tensor) -> tuple:
+        """The means of which ``shares`` (detached 0-dim tensors from
+        ``_mean``) are this rank's shares, summed over the data-parallel
+        ranks in one all-reduce, so that the diagnostics an update
+        reports are whole on every rank; without a shard, ``shares`` as
+        they are."""
+        if self.shard is None:
+            return shares
+        return tuple(self.shard.all_reduce_(torch.stack(shares)).unbind())
 
     def optimize(self, samples, rollout_state):
         raise NotImplementedError

@@ -14,7 +14,6 @@ import torch
 from rlpyt_tpu_torch.algos.dqn import DQN
 from rlpyt_tpu_torch.ops.value import categorical_projection
 from rlpyt_tpu_torch.replay.base import SamplesFromReplay
-from rlpyt_tpu_torch.struct import valid_mean
 
 
 class CategoricalDQN(DQN):
@@ -59,4 +58,4 @@ class CategoricalDQN(DQN):
         # Time-limit truncations have no valid bootstrap obs: mask them.
         valid = 1.0 - batch.timeout_n.to(torch.float32)
         losses = ce * batch.is_weights * valid
-        return valid_mean(losses, valid), kl.abs() * valid
+        return self._mean(losses, valid), kl.abs() * valid

@@ -26,7 +26,7 @@ from rlpyt_tpu_torch.replay.frame import (
 )
 from rlpyt_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
-from rlpyt_tpu_torch.struct import select_at_indexes, tree_map, valid_mean
+from rlpyt_tpu_torch.struct import select_at_indexes, tree_map
 
 
 class OptInfo(NamedTuple):
@@ -97,12 +97,13 @@ class DQN(RlAlgorithm):
             okw.setdefault("eps", 0.01 / self.batch_size)
         self.optimizer = make_optimizer(
             self.model.parameters(), self.learning_rate,
-            self.clip_grad_norm, self.optim, **okw)
+            self.clip_grad_norm, self.optim, shard=self.shard, **okw)
         self.update_counter = 0
         # The reference's table: (uniform | prioritized) x (flat | frame).
         kwargs = dict(size=self.replay_size, B=batch_spec.B,
                       sample_T=batch_spec.T, discount=self.discount,
-                      n_step_return=self.n_step, device=agent.device)
+                      n_step_return=self.n_step, device=agent.device,
+                      shard=self.shard)
         if self.prioritized_replay:
             kwargs.update(alpha=self.pri_alpha, beta=self.pri_beta)
         if self.frame_buffer:
@@ -150,7 +151,7 @@ class DQN(RlAlgorithm):
         valid = 1.0 - batch.timeout_n.to(torch.float32)
         losses = losses * batch.is_weights * valid
         td_abs = delta.detach().abs() * valid
-        return valid_mean(losses, valid), td_abs
+        return self._mean(losses, valid), td_abs
 
     def update(self, batch: SamplesFromReplay) -> OptInfo:
         """One gradient step on ``batch``, the target rule and, under
@@ -167,7 +168,9 @@ class DQN(RlAlgorithm):
             polyak_update(self.target_model, self.model, 1.0)
         if self.prioritized_replay:
             self.replay.update_priorities(batch.indices, td_abs)
-        return OptInfo(loss.detach(), grad_norm, td_abs.mean())
+        loss, td_abs_err = self._whole(
+            loss.detach(), self._mean(td_abs, n=self.batch_size))
+        return OptInfo(loss, grad_norm, td_abs_err)
 
     def optimize(self, samples, rollout_state) -> OptInfo:
         """Append, then maybe ``updates_per_optimize`` updates.  Returns

@@ -31,7 +31,7 @@ from rlpyt_tpu_torch.ops.returns import (
     generalized_advantage_estimation,
     valid_from_done,
 )
-from rlpyt_tpu_torch.struct import tree_map, valid_mean
+from rlpyt_tpu_torch.struct import tree_map
 
 
 class PgOptInfo(NamedTuple):
@@ -59,7 +59,8 @@ class PolicyGradientAlgo(RlAlgorithm):
 
     def _make_optimizer(self, n_itr: int):
         return make_optimizer(self.agent.model.parameters(),
-                              self.learning_rate, self.clip_grad_norm)
+                              self.learning_rate, self.clip_grad_norm,
+                              shard=self.shard)
 
     def initialize(self, agent, batch_spec, example_obs, generator,
                    n_itr: int = 1):
@@ -98,10 +99,16 @@ class PolicyGradientAlgo(RlAlgorithm):
                 self.gae_lambda)
         valid = None if mid_batch_reset else valid_from_done(done)
         if self.normalize_advantage:
-            m = valid_mean(advantage, valid)
-            v = valid_mean((advantage - m) ** 2, valid)
+            n = self._batch_entries(advantage)
+            m = self._global_mean(advantage, valid, n)
+            v = self._global_mean((advantage - m) ** 2, valid, n)
             advantage = (advantage - m) * torch.rsqrt(v + 1e-8)
         return return_, advantage, valid
+
+    def _batch_entries(self, x: torch.Tensor) -> int:
+        """The entries of a [T, lanes] ``x`` of the batch on every rank
+        together (each rank holds as many lanes)."""
+        return x.numel() * (1 if self.shard is None else self.shard.size)
 
     @staticmethod
     def shifted_done(done: torch.Tensor) -> torch.Tensor:
@@ -109,15 +116,17 @@ class PolicyGradientAlgo(RlAlgorithm):
         training window is replayed."""
         return torch.cat([torch.zeros_like(done[:1]), done[:-1]], dim=0)
 
-    def _total_loss(self, pi_loss, dist_info, value, return_, valid=None):
-        """pi_loss plus the value and entropy terms, means over ``valid``;
-        returns (loss, entropy, mean perplexity)."""
+    def _total_loss(self, pi_loss, dist_info, value, return_, valid=None,
+                    n=None):
+        """pi_loss plus the value and entropy terms, means over ``valid``
+        (under a shard, over ``n`` entries of all ranks without it);
+        returns (loss, entropy, mean perplexity), this rank's shares."""
         dist = self.agent.distribution
-        value_loss = self.value_loss_coeff * valid_mean(
-            0.5 * (value - return_) ** 2, valid)
-        entropy = dist.mean_entropy(dist_info, valid)
+        value_loss = self.value_loss_coeff * self._mean(
+            0.5 * (value - return_) ** 2, valid, n)
+        entropy = self._mean(dist.entropy(dist_info), valid, n)
         loss = pi_loss + value_loss - self.entropy_loss_coeff * entropy
-        return loss, entropy, dist.perplexity(dist_info).mean()
+        return loss, entropy, self._mean(dist.perplexity(dist_info), n=n)
 
     def _step(self, loss) -> torch.Tensor:
         self.optimizer.zero_grad()
@@ -136,7 +145,7 @@ class A2C(PolicyGradientAlgo):
     def _make_optimizer(self, n_itr: int):
         return make_optimizer(self.agent.model.parameters(),
                               self.learning_rate, self.clip_grad_norm,
-                              optim=self.optim)
+                              optim=self.optim, shard=self.shard)
 
     def loss(self, samples, bootstrap_value, init_rnn_state=None):
         """(loss, entropy, perplexity) over the whole [T, B] batch."""
@@ -153,8 +162,10 @@ class A2C(PolicyGradientAlgo):
                                                          bootstrap_value)
         logli = self.agent.distribution.log_likelihood(samples.action,
                                                         dist_info)
-        pi_loss = -valid_mean(logli * advantage.detach(), valid)
-        return self._total_loss(pi_loss, dist_info, value, return_, valid)
+        n = self._batch_entries(advantage)
+        pi_loss = -self._mean(logli * advantage.detach(), valid, n)
+        return self._total_loss(pi_loss, dist_info, value, return_, valid,
+                                n)
 
     def optimize(self, samples, rollout_state) -> PgOptInfo:
         bootstrap_value = self.bootstrap(rollout_state)
@@ -164,8 +175,9 @@ class A2C(PolicyGradientAlgo):
         loss, entropy, perplexity = self.loss(samples, bootstrap_value,
                                               init_rnn_state)
         grad_norm = self._step(loss)
-        return PgOptInfo(loss.detach(), grad_norm, entropy.detach(),
-                         perplexity.detach())
+        loss, entropy, perplexity = self._whole(
+            loss.detach(), entropy.detach(), perplexity.detach())
+        return PgOptInfo(loss, grad_norm, entropy, perplexity)
 
 
 class PPO(PolicyGradientAlgo):
@@ -186,12 +198,13 @@ class PPO(PolicyGradientAlgo):
                  if self.linear_lr_schedule else None)
         return make_optimizer(self.agent.model.parameters(),
                               self.learning_rate, self.clip_grad_norm,
-                              schedule_steps=steps)
+                              schedule_steps=steps, shard=self.shard)
 
-    def surrogate_loss(self, mb: dict):
+    def surrogate_loss(self, mb: dict, n: Optional[int] = None):
         """Clipped surrogate + value + entropy on one minibatch; ``mb``
         leaves are [T, b, ...] (recurrent) or [n, ...] (feedforward), and
-        its optional "valid" weights the means."""
+        its optional "valid" weights the means (under a shard, ``n``: the
+        entries of every rank's minibatch without it)."""
         if self.agent.recurrent:
             dist_info, value, _ = self.agent(
                 mb["observation"], mb["prev_action"], mb["prev_reward"],
@@ -206,10 +219,10 @@ class PPO(PolicyGradientAlgo):
                               1.0 + self.ratio_clip)
         adv = mb["advantage"]
         valid = mb.get("valid")
-        pi_loss = -valid_mean(torch.minimum(ratio * adv, clipped * adv),
-                              valid)
+        pi_loss = -self._mean(torch.minimum(ratio * adv, clipped * adv),
+                              valid, n)
         return self._total_loss(pi_loss, dist_info, value, mb["return_"],
-                                valid)
+                                valid, n)
 
     def optimize(self, samples, rollout_state,
                  permutations: Optional[torch.Tensor] = None) -> PgOptInfo:
@@ -233,10 +246,10 @@ class PPO(PolicyGradientAlgo):
                                    samples.agent_info["prev_rnn_state"])
             n_items = B
         else:
-            data = tree_map(lambda x: x.reshape((T * B,) + x.shape[2:]),
-                            data)
+            data = tree_map(lambda x: x.reshape((-1,) + x.shape[2:]), data)
             n_items = T * B
         mb_size = n_items // self.minibatches
+        mb_entries = mb_size * T if recurrent else mb_size
         dev = samples.reward.device
         infos = []
         for epoch in range(self.epochs):
@@ -246,14 +259,32 @@ class PPO(PolicyGradientAlgo):
             perm = perm.to(dev)
             for m in range(self.minibatches):
                 idxs = perm[m * mb_size:(m + 1) * mb_size]
+                if self.shard is not None:
+                    idxs = self._local_items(idxs, recurrent)
                 if recurrent:
                     mb = tree_map(lambda x: x[:, idxs], data)
                     mb["init_rnn_state"] = tuple(x[idxs]
                                                  for x in init_rnn_state)
                 else:
                     mb = tree_map(lambda x: x[idxs], data)
-                loss, entropy, perplexity = self.surrogate_loss(mb)
+                loss, entropy, perplexity = self.surrogate_loss(mb,
+                                                                mb_entries)
                 grad_norm = self._step(loss)
                 infos.append((loss.detach(), grad_norm, entropy.detach(),
                               perplexity.detach()))
-        return PgOptInfo(*(torch.stack(x).mean() for x in zip(*infos)))
+        loss, grad_norm, entropy, perplexity = (torch.stack(x).mean()
+                                                for x in zip(*infos))
+        loss, entropy, perplexity = self._whole(loss, entropy, perplexity)
+        return PgOptInfo(loss, grad_norm, entropy, perplexity)
+
+    def _local_items(self, idxs: torch.Tensor, recurrent: bool
+                     ) -> torch.Tensor:
+        """A minibatch of the permutation over every rank's items (lanes
+        if recurrent, else T*B samples, t-major) as indices into this
+        rank's."""
+        T, B = self.batch_spec
+        lanes = self.shard.lanes(B)
+        if recurrent:
+            return self.shard.local_rows(idxs, lanes)[1]
+        pos, b_local = self.shard.local_rows(idxs % B, lanes)
+        return (idxs[pos] // B) * (lanes.stop - lanes.start) + b_local

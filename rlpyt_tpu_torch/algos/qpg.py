@@ -35,7 +35,6 @@ from rlpyt_tpu_torch.distributions.gaussian import DistInfoStd
 from rlpyt_tpu_torch.ops.value import polyak_update
 from rlpyt_tpu_torch.replay.base import SamplesFromReplay, SamplesToBuffer
 from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
-from rlpyt_tpu_torch.struct import valid_mean
 
 
 class QpgOptInfo(NamedTuple):
@@ -99,16 +98,17 @@ class QpgBase(RlAlgorithm):
         nets = agent.nets
         self.optimizers = {self.policy_name: make_optimizer(
             nets[self.policy_name].parameters(), self.learning_rate,
-            self.clip_grad_norm)}
+            self.clip_grad_norm, shard=self.shard)}
         for name in agent.q_names:
             self.optimizers[name] = make_optimizer(
                 nets[name].parameters(), self.q_learning_rate,
-                self.clip_grad_norm)
+                self.clip_grad_norm, shard=self.shard)
         self.update_counter = 0
         dev = agent.device
         self.replay = UniformReplayBuffer(
             size=self.replay_size, B=batch_spec.B, sample_T=batch_spec.T,
-            discount=self.discount, n_step_return=self.n_step, device=dev)
+            discount=self.discount, n_step_return=self.n_step, device=dev,
+            shard=self.shard)
         self.replay.init(SamplesToBuffer(
             observation=example_obs[0],
             action=agent.env_spaces.action.null_value(dev),
@@ -151,6 +151,17 @@ class QpgBase(RlAlgorithm):
     def _valid(batch: SamplesFromReplay) -> torch.Tensor:
         return 1.0 - batch.timeout_n.to(torch.float32)
 
+    def _normals(self, batch: SamplesFromReplay) -> torch.Tensor:
+        """Under a shard: the [batch, A] standard normals that the
+        single-process update draws from the generator, at this rank's
+        rows of the draw (every rank draws them all, so the generators
+        stay in step)."""
+        draw = batch.indices
+        z = torch.randn((draw.t_idx.shape[0], self.agent.action_size),
+                        generator=self.generator,
+                        device=self.generator.device)
+        return z[draw.rows.to(z.device)]
+
     def _group(self, name: str):
         return self.optimizers[name], list(self.agent.nets[name].parameters())
 
@@ -159,7 +170,7 @@ class QpgBase(RlAlgorithm):
         returns (loss, global norm over all critics' grads)."""
         nets, names = self.agent.nets, self.agent.q_names
         obs, valid = batch.agent_inputs.observation, self._valid(batch)
-        loss = sum(valid_mean(0.5 * (y - nets[name](obs, batch.action))
+        loss = sum(self._mean(0.5 * (y - nets[name](obs, batch.action))
                               ** 2, valid) for name in names)
         norms = _step(loss, [self._group(name) for name in names])
         return loss.detach(), torch.linalg.vector_norm(torch.stack(norms))
@@ -190,7 +201,7 @@ class DDPG(QpgBase):
         nets = self.agent.nets
         obs = batch.agent_inputs.observation
         q = nets[self.agent.q_names[0]](obs, nets["mu"](obs))
-        return -valid_mean(q, self._valid(batch))
+        return -self._mean(q, self._valid(batch))
 
     def _policy_step(self) -> bool:
         return True
@@ -208,11 +219,12 @@ class DDPG(QpgBase):
             mu_norm, = _step(mu_loss, [self._group("mu")])
             self._polyak(("mu",) + agent.q_names)
         else:
-            mu_norm = global_norm(torch.autograd.grad(
-                mu_loss, self._group("mu")[1]))
+            grads = list(torch.autograd.grad(mu_loss, self._group("mu")[1]))
+            self.optimizers["mu"].reduce_grads(grads)
+            mu_norm = global_norm(grads)
             self._polyak(agent.q_names)
-        return QpgOptInfo(q_loss, mu_loss.detach(), q_norm, mu_norm,
-                          self._alpha())
+        q_loss, mu_loss = self._whole(q_loss, mu_loss.detach())
+        return QpgOptInfo(q_loss, mu_loss, q_norm, mu_norm, self._alpha())
 
 
 class TD3(DDPG):
@@ -229,6 +241,8 @@ class TD3(DDPG):
     def _next_q(self, batch, noise):
         nets = self.agent.nets
         next_obs = batch.target_inputs.observation
+        if noise is None and self.shard is not None:
+            noise = self._normals(batch)
         mu = nets["target_mu"](next_obs)
         action = self.agent.target_distribution.sample(
             DistInfoStd(mu, torch.zeros_like(mu)), self.generator, noise)
@@ -267,7 +281,8 @@ class SAC(QpgBase):
         self.log_alpha = torch.zeros((), device=agent.device,
                                      requires_grad=True)
         self.alpha_optimizer = make_optimizer([self.log_alpha],
-                                              self.learning_rate)
+                                              self.learning_rate,
+                                              shard=self.shard)
 
     def _alpha(self) -> torch.Tensor:
         """exp(log alpha), as reported (also under ``fixed_alpha``, where
@@ -282,13 +297,15 @@ class SAC(QpgBase):
         obs = batch.agent_inputs.observation
         a, logp = agent.pi(obs, self.generator, noise)
         q = torch.minimum(agent.nets["q1"](obs, a), agent.nets["q2"](obs, a))
-        return valid_mean(alpha * logp - q, self._valid(batch)), logp
+        return self._mean(alpha * logp - q, self._valid(batch)), logp
 
     def update(self, batch: SamplesFromReplay, noise=None) -> QpgOptInfo:
         """One update on ``batch``; ``noise`` = (normals of the target's
         next action, normals of the policy loss's sample), each
         [batch, A], drawn from the generator if None."""
         agent = self.agent
+        if noise is None and self.shard is not None:
+            noise = (self._normals(batch), self._normals(batch))
         next_noise, pi_noise = (None, None) if noise is None else noise
         alpha = (self._alpha() if self.fixed_alpha is None else
                  torch.full((), self.fixed_alpha, device=agent.device))
@@ -304,10 +321,10 @@ class SAC(QpgBase):
         pi_loss, logp = self.pi_loss(batch, alpha, pi_noise)
         pi_norm, = _step(pi_loss, [self._group("pi")])
         if self.fixed_alpha is None:
-            self.log_alpha.grad = -(logp.detach()
-                                    + self._target_entropy).mean()
+            self.log_alpha.grad = -self._mean(
+                logp.detach() + self._target_entropy, n=self.batch_size)
             self.alpha_optimizer.step()
         self._polyak(agent.q_names)
         self.update_counter += 1
-        return QpgOptInfo(q_loss, pi_loss.detach(), q_norm, pi_norm,
-                          self._alpha())
+        q_loss, pi_loss = self._whole(q_loss, pi_loss.detach())
+        return QpgOptInfo(q_loss, pi_loss, q_norm, pi_norm, self._alpha())

@@ -35,7 +35,7 @@ from rlpyt_tpu_torch.replay.sequence import (
     UniformSequenceFrameReplayBuffer,
     UniformSequenceReplayBuffer,
 )
-from rlpyt_tpu_torch.struct import select_at_indexes, tree_map, valid_mean
+from rlpyt_tpu_torch.struct import select_at_indexes, tree_map
 
 
 class R2D1(RlAlgorithm):
@@ -119,7 +119,7 @@ class R2D1(RlAlgorithm):
             / (self.batch_b * self.batch_T)))
         self.optimizer = make_optimizer(
             self.model.parameters(), self.learning_rate,
-            self.clip_grad_norm, "adam", eps=1e-3)
+            self.clip_grad_norm, "adam", shard=self.shard, eps=1e-3)
         self.update_counter = 0
         if self.frame_compress:
             Cls = (PrioritizedSequenceFrameReplayBuffer
@@ -132,7 +132,8 @@ class R2D1(RlAlgorithm):
         kwargs = dict(size=self.replay_size, B=batch_spec.B,
                       sample_T=batch_spec.T, warmup_T=self.warmup_T,
                       batch_T=self.batch_T, n_step_return=self.n_step,
-                      discount=self.discount, device=agent.device)
+                      discount=self.discount, device=agent.device,
+                      shard=self.shard)
         if self.frame_compress:
             kwargs.update(frames_per_obs=self.frames_per_obs)
         if self.prioritized_replay:
@@ -223,7 +224,7 @@ class R2D1(RlAlgorithm):
             losses = huber_loss(delta, self.delta_clip)
         else:
             losses = 0.5 * delta ** 2
-        loss = valid_mean(losses * batch.is_weights[None, :], valid)
+        loss = self._mean(losses * batch.is_weights[None, :], valid)
         abs_delta = delta.detach().abs() * valid
         denom = torch.clamp(valid.sum(dim=0), min=1.0)
         priorities = (self.pri_eta * abs_delta.max(dim=0).values
@@ -240,7 +241,9 @@ class R2D1(RlAlgorithm):
         if self.update_counter % self.target_update_interval == 0:
             polyak_update(self.target_model, self.model, 1.0)
         self.replay.update_priorities(batch.slots, priorities)
-        return OptInfo(loss.detach(), grad_norm, priorities.mean())
+        loss, mean_priority = self._whole(
+            loss.detach(), self._mean(priorities, n=self.batch_b))
+        return OptInfo(loss, grad_norm, mean_priority)
 
     def optimize(self, samples, rollout_state) -> OptInfo:
         """Append (with input priorities), then maybe

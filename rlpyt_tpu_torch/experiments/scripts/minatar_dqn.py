@@ -27,6 +27,7 @@ from rlpyt_tpu_torch.models.dqn import (
     AtariDqnModel,
     AtariR2d1Model,
 )
+from rlpyt_tpu_torch.runners.sync import SyncRl
 from rlpyt_tpu_torch.runners.train import MinibatchRl
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec
 from rlpyt_tpu_torch.utils.logging import logger_context
@@ -49,12 +50,14 @@ def _eval_kwargs(config, device):
 
 
 def build_runner(config_key: str = "dqn", seed: int = 0, variant=None,
-                 config_overrides=None, device="cuda"):
+                 config_overrides=None, device="cuda", mesh=None,
+                 backend=None):
     """The ``config_key`` trainer, not yet started: (runner, config).
     ``variant`` and then ``config_overrides`` are merged into the
     config.  The agent, algorithm and model follow the config: R2D1 for
     ``r2d1``, categorical DQN where the agent names ``n_atoms``, else
-    DQN."""
+    DQN.  With ``mesh`` (a ``MeshSpec``) the runner is SyncRl over its
+    ranks, with ``backend`` (runners/sync.py)."""
     config = copy.deepcopy(configs[config_key])
     if variant is not None:
         config = update_config(config, variant)
@@ -83,27 +86,25 @@ def build_runner(config_key: str = "dqn", seed: int = 0, variant=None,
                          **config["agent"])
         algo = DQN(**config["algo"])
     sampler = config["sampler"]
-    runner = MinibatchRl(
+    kwargs = dict(
         algo=algo, agent=agent, env=env,
         batch_spec=BatchSpec(sampler["batch_T"], sampler["batch_B"]),
         max_decorrelation_steps=sampler.get("max_decorrelation_steps", 100),
         seed=seed, device=device,
         **_eval_kwargs(config, device), **config["runner"])
-    return runner, config
+    if mesh is None:
+        return MinibatchRl(**kwargs), config
+    return SyncRl(mesh=mesh, backend=backend, **kwargs), config
 
 
 def build_and_train(config_key: str = "dqn", log_dir=None, run_id: int = 0,
                     mesh=None, seed: int = 0, variant=None,
-                    config_overrides=None, device="cuda"):
+                    config_overrides=None, device="cuda", backend=None):
     """Build the ``config_key`` trainer and train it; returns the runner.
     With ``log_dir``, the run's files go to ``log_dir/run_<run_id>/`` and
     its rows to the console as well."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port has no SyncRl yet: build_and_train runs on one device "
-            "(pass mesh=None)")
     runner, config = build_runner(config_key, seed, variant,
-                                  config_overrides, device)
+                                  config_overrides, device, mesh, backend)
     if log_dir is None:
         runner.train()
         return runner

@@ -22,6 +22,7 @@ from rlpyt_tpu_torch.algos.pg import A2C, PPO
 from rlpyt_tpu_torch.envs.minatar import make_minatar
 from rlpyt_tpu_torch.experiments.configs.minatar_pg import configs
 from rlpyt_tpu_torch.models.pg import AtariFfModel, AtariLstmModel
+from rlpyt_tpu_torch.runners.sync import SyncRl
 from rlpyt_tpu_torch.runners.train import MinibatchRl
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec
 from rlpyt_tpu_torch.utils.logging import logger_context
@@ -44,10 +45,12 @@ def _eval_kwargs(config, device):
 
 
 def build_runner(config_key: str = "ppo", seed: int = 0, variant=None,
-                 config_overrides=None, device="cuda"):
+                 config_overrides=None, device="cuda", mesh=None,
+                 backend=None):
     """The ``config_key`` trainer, not yet started: (runner, config).
     ``variant`` and then ``config_overrides`` are merged into the
-    config."""
+    config.  With ``mesh`` (a ``MeshSpec``) the runner is SyncRl over its
+    ranks, with ``backend`` (runners/sync.py)."""
     config = copy.deepcopy(configs[config_key])
     if variant is not None:
         config = update_config(config, variant)
@@ -67,27 +70,25 @@ def build_runner(config_key: str = "ppo", seed: int = 0, variant=None,
                                    device=device, **config["agent"])
     AlgoCls = PPO if config_key.endswith("ppo") else A2C
     sampler = config["sampler"]
-    runner = MinibatchRl(
+    kwargs = dict(
         algo=AlgoCls(**config["algo"]), agent=agent, env=env,
         batch_spec=BatchSpec(sampler["batch_T"], sampler["batch_B"]),
         max_decorrelation_steps=sampler.get("max_decorrelation_steps", 100),
         seed=seed, device=device,
         **_eval_kwargs(config, device), **config["runner"])
-    return runner, config
+    if mesh is None:
+        return MinibatchRl(**kwargs), config
+    return SyncRl(mesh=mesh, backend=backend, **kwargs), config
 
 
 def build_and_train(config_key: str = "ppo", log_dir=None, run_id: int = 0,
                     mesh=None, seed: int = 0, variant=None,
-                    config_overrides=None, device="cuda"):
+                    config_overrides=None, device="cuda", backend=None):
     """Build the ``config_key`` trainer and train it; returns the runner.
     With ``log_dir``, the rows go to ``log_dir/run_<run_id>/progress.csv``
     as well as to the console."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port has no SyncRl yet: build_and_train runs on one device "
-            "(pass mesh=None)")
     runner, config = build_runner(config_key, seed, variant,
-                                  config_overrides, device)
+                                  config_overrides, device, mesh, backend)
     if log_dir is None:
         runner.train()
         return runner

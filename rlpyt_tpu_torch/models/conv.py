@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rlpyt_tpu_torch.models.mlp import lecun_normal_
+from rlpyt_tpu_torch.parallel.mesh import layer_apply
 
 
 class Conv2dModel(nn.Module):
@@ -50,8 +51,9 @@ class Conv2dModel(nn.Module):
         if self.input_scale != 1.0:
             x = x * self.input_scale
         for conv in self.convs:
-            x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt),
-                         stride=conv.stride, padding=conv.padding)
+            x = layer_apply(conv, lambda x, w, b: F.conv2d(
+                x, w.to(dt), b.to(dt), stride=conv.stride,
+                padding=conv.padding), x)
             x = F.relu(x)
         return x
 

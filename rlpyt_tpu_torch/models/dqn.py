@@ -102,7 +102,7 @@ class AtariDqnModel(nn.Module):
     def forward(self, observation, prev_action=None, prev_reward=None):
         lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
         x = self.conv(observation.reshape((T * B,) + img_shape))
-        q = self.head(x.reshape(T * B, -1))
+        q = self.head(x.flatten(1))
         return restore_leading_dims(q, lead_dim, T, B)
 
 
@@ -140,7 +140,7 @@ class AtariCatDqnModel(nn.Module):
     def forward(self, observation, prev_action=None, prev_reward=None):
         lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
         x = self.conv(observation.reshape((T * B,) + img_shape))
-        logits = self.head(x.reshape(T * B, -1))
+        logits = self.head(x.flatten(1))
         logits = logits.reshape(T * B, self.n_actions, self.n_atoms)
         return restore_leading_dims(F.softmax(logits, dim=-1), lead_dim, T, B)
 
@@ -184,7 +184,7 @@ class AtariR2d1Model(nn.Module):
                 rnn_state: RnnState, done=None):
         lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
         x = self.conv(observation.reshape((T * B,) + img_shape))
-        x = x.reshape(T, B, -1)
+        x = x.flatten(1).unflatten(0, (T, B))
         pa = F.one_hot(prev_action.reshape(T, B).long(),
                        self.n_actions).to(x.dtype)
         pr = prev_reward.reshape(T, B, 1).to(x.dtype)
@@ -192,7 +192,7 @@ class AtariR2d1Model(nn.Module):
         done_tb = (torch.zeros((T, B), dtype=torch.bool, device=x.device)
                    if done is None else done.reshape(T, B))
         y, next_state = self.lstm(lstm_in, done_tb, rnn_state)
-        q = self.head(y.reshape(T * B, -1))
+        q = self.head(y.flatten(0, 1))
         return restore_leading_dims(q, lead_dim, T, B), next_state
 
 
@@ -254,5 +254,5 @@ class R2d1MlpModel(nn.Module):
                    if done is None else done.reshape(T, B))
         y, next_state = self.lstm(torch.cat([x, pa, pr], dim=-1), done_tb,
                                   rnn_state)
-        q = self.head(y.reshape(T * B, -1))
+        q = self.head(y.flatten(0, 1))
         return restore_leading_dims(q, lead_dim, T, B), next_state

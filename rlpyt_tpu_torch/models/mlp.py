@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rlpyt_tpu_torch.parallel.mesh import layer_apply
+
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
     """flax's default kernel init: a normal truncated at two standard
@@ -43,7 +45,8 @@ class MlpModel(nn.Module):
         dt = self.compute_dtype
         x = x.to(dt)
         for i, layer in enumerate(self.layers):
-            x = F.linear(x, layer.weight.to(dt), layer.bias.to(dt))
+            x = layer_apply(layer, lambda x, w, b: F.linear(
+                x, w.to(dt), b.to(dt)), x)
             if i < self.n_hidden:
                 x = F.relu(x)
         return x.to(torch.float32)

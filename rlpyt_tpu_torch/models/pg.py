@@ -63,7 +63,7 @@ class _AtariTrunk(nn.Module):
         """(lead_dim, T, B, [T*B, n_out] float32 features)."""
         lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
         x = self.conv(observation.reshape((T * B,) + img_shape))
-        return lead_dim, T, B, self.fc(x.reshape(T * B, -1))
+        return lead_dim, T, B, self.fc(x.flatten(1))
 
 
 class AtariFfModel(_AtariTrunk):
@@ -114,7 +114,7 @@ class AtariLstmModel(_AtariTrunk):
     def forward(self, observation, prev_action, prev_reward,
                 rnn_state: RnnState, done=None):
         lead_dim, T, B, x = self.features(observation)
-        x = x.reshape(T, B, -1)
+        x = x.flatten(1).unflatten(0, (T, B))
         pa = F.one_hot(prev_action.reshape(T, B).long(),
                        self.n_actions).to(x.dtype)
         pr = prev_reward.reshape(T, B, 1).to(x.dtype)
@@ -122,7 +122,7 @@ class AtariLstmModel(_AtariTrunk):
                    if done is None else done.reshape(T, B))
         y, next_state = self.lstm(torch.cat([x, pa, pr], dim=-1), done_tb,
                                   rnn_state)
-        y = y.reshape(T * B, -1)
+        y = y.flatten(0, 1)
         pi, v = restore_leading_dims((self.pi(y), self.value(y)[..., 0]),
                                      lead_dim, T, B)
         return pi, v, next_state
@@ -160,7 +160,7 @@ class MujocoFfModel(nn.Module):
 
     def forward(self, observation, prev_action=None, prev_reward=None):
         lead_dim, T, B, _ = infer_leading_dims(observation, 1)
-        obs = observation.reshape(T * B, -1)
+        obs = observation.reshape(T * B, observation.shape[-1])
         if self.obs_norm is not None:
             obs = self.obs_norm(obs)
         obs = obs.to(torch.float32)
@@ -194,14 +194,15 @@ class MujocoLstmModel(nn.Module):
     def forward(self, observation, prev_action, prev_reward,
                 rnn_state: RnnState, done=None):
         lead_dim, T, B, _ = infer_leading_dims(observation, 1)
-        x = self.fc(observation.reshape(T, B, -1).to(torch.float32))
-        pa = prev_action.reshape(T, B, -1).to(x.dtype)
+        x = self.fc(observation.reshape(T, B, observation.shape[-1])
+                    .to(torch.float32))
+        pa = prev_action.reshape(T, B, prev_action.shape[-1]).to(x.dtype)
         pr = prev_reward.reshape(T, B, 1).to(x.dtype)
         done_tb = (torch.zeros((T, B), dtype=torch.bool, device=x.device)
                    if done is None else done.reshape(T, B))
         y, next_state = self.lstm(torch.cat([x, pa, pr], dim=-1), done_tb,
                                   rnn_state)
-        y = y.reshape(T * B, -1)
+        y = y.flatten(0, 1)
         mu = self.pi(y)
         v = self.value(y)[..., 0]
         mu, log_std, v = restore_leading_dims(

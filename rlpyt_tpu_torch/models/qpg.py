@@ -18,7 +18,8 @@ from rlpyt_tpu_torch.struct import infer_leading_dims, restore_leading_dims
 
 def _flat_obs(observation: torch.Tensor):
     lead_dim, T, B, _ = infer_leading_dims(observation, 1)
-    return lead_dim, T, B, observation.reshape(T * B, -1).to(torch.float32)
+    return lead_dim, T, B, observation.reshape(
+        T * B, observation.shape[-1]).to(torch.float32)
 
 
 class MuMlpModel(nn.Module):
@@ -53,7 +54,7 @@ class QofMuMlpModel(nn.Module):
     def forward(self, observation, action, prev_action=None,
                 prev_reward=None):
         lead_dim, T, B, obs = _flat_obs(observation)
-        act = action.reshape(T * B, -1).to(torch.float32)
+        act = action.reshape(T * B, action.shape[-1]).to(torch.float32)
         q = self.mlp(torch.cat([obs, act], dim=-1))[..., 0]
         return restore_leading_dims(q, lead_dim, T, B)
 

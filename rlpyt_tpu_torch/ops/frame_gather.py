@@ -129,9 +129,11 @@ def gather_frame_stacks(ring, start_rows, b_idx, mask_a, mask_t,
     if dev.type == "cpu":
         return gather_frame_stacks_plain(ring, start_rows, b_idx, mask_a,
                                          mask_t, K, n_step)
-    lib = _lib or load()
     rows_a, rows_t = torch.empty((2, batch, K, F), dtype=torch.uint8,
                                  device=dev).unbind(0)
+    if batch == 0:   # a data-parallel rank that holds no drawn row
+        return rows_a, rows_t
+    lib = _lib or load()
     err = lib.frame_gather_launch(
         ring.data_ptr(), start_rows.data_ptr(), b_idx.data_ptr(),
         mask_a.data_ptr(), mask_t.data_ptr(), rows_a.data_ptr(),

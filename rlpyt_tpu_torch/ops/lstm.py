@@ -223,6 +223,8 @@ def input_proj(x, wx, b):
     for name, t, shape in (("x", x, (M, K)), ("wx", wx, (K, N)),
                            ("b", b, (N,))):
         _check(name, t, shape, x.device)
+    if M == 0:   # a data-parallel rank that holds no drawn row
+        return torch.empty((0, N), dtype=torch.float32, device=x.device)
     lib = load()
     tile_m, k_chunk, splits = proj_plan(M, N, K, _n_sm(x.device))
     if wx.data_ptr() % 16 != 0 or b.data_ptr() % 16 != 0:
@@ -307,6 +309,11 @@ def lstm_fwd(xg, wh, mask, h0, c0):
                            ("mask", mask, (T, B)), ("h0", h0, (B, H)),
                            ("c0", c0, (B, H))):
         _check(name, t, shape, dev)
+    if B == 0:   # a data-parallel rank that holds no drawn row
+        y = torch.empty((T, 0, H), dtype=torch.float32, device=dev)
+        return (y, torch.empty((T, 0, 4 * H), dtype=torch.float32,
+                               device=dev), y.clone(), h0.clone(),
+                c0.clone())
     plan = recurrence_plan(B, H, _n_sm(dev))
     y = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(y)
@@ -340,6 +347,8 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
                            ("mask", mask, (T, B)), ("wh", wh, (H, 4 * H)),
                            ("dy", dy, (T, B, H)), ("dcT", dcT, (B, H))):
         _check(name, t, shape, dev)
+    if B == 0:   # a data-parallel rank that holds no drawn row
+        return torch.empty_like(gates), dcT.clone(), dcT.clone()
     plan = recurrence_plan(B, H, _n_sm(dev))
     dgates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -379,7 +388,8 @@ class LstmFunction(torch.autograd.Function):
         h0, c0 = h0.contiguous(), c0.contiguous()
         wh = wh.contiguous()
         xg = input_proj(x.view(T * B, F), wx.contiguous(), b.contiguous())
-        y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, -1), wh, mask, h0, c0)
+        y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, wx.shape[1]), wh, mask,
+                                        h0, c0)
         ctx.save_for_backward(wx, wh, x, mask, h0, c0, y, gates, cs)
         return y, hT, cT
 

@@ -218,14 +218,16 @@ def s2d_stride_of(model) -> Optional[int]:
     return s if s > 1 and k % s == 0 and p == 0 else None
 
 
-def agent_params_to_jax(agent) -> dict:
+def agent_params_to_jax(agent, state_dict=None) -> dict:
     """The agent's weights as the JAX agent's parameter tree, numpy
     leaves: a model's flax variables, or a Q-value policy-gradient
-    agent's dict of them.  What a snapshot stores."""
+    agent's dict of them.  What a snapshot stores.  ``state_dict``: the
+    model's, if not its live one (a split model's gathered whole)."""
+    if state_dict is None:
+        state_dict = agent.model.state_dict()
     if hasattr(agent, "nets"):
-        return to_jax_qpg_params(agent.nets.state_dict())
-    return to_jax_params(agent.model.state_dict(),
-                         s2d_stride_of(agent.model))
+        return to_jax_qpg_params(state_dict)
+    return to_jax_params(state_dict, s2d_stride_of(agent.model))
 
 
 def from_jax_qpg_params(tree) -> Dict[str, np.ndarray]:

@@ -11,6 +11,12 @@ the buffer object owns its ring and cursor and ``append`` writes in
 place: nothing outside the buffer holds an older ring, so the functional
 copy has nothing to protect.  The cursor and fill level are Python
 integers, so deciding what is valid costs no device sync.
+
+With ``shard`` (a ``parallel.mesh.DpShard``: one rank of a data-parallel
+run) the ring holds only the rank's lanes of the B, and draws are made
+over all B lanes, the same on every rank; ``sample`` gives the drawn rows
+of the rank's lanes, and their ``indices`` are a ``ShardRows`` naming the
+whole draw.
 """
 from __future__ import annotations
 
@@ -48,16 +54,38 @@ class SamplesFromReplay(NamedTuple):
     indices: Tuple[torch.Tensor, torch.Tensor]   # (t_idx, b_idx)
 
 
+class ShardRows(NamedTuple):
+    """A draw over all lanes of a data-parallel run: (t or slot, lane) of
+    every drawn row, and the positions in the draw of this rank's rows."""
+    t_idx: torch.Tensor
+    b_idx: torch.Tensor
+    rows: torch.Tensor
+
+
+def local_draw(shard, lanes: slice, t_idx, b_idx, *cols):
+    """The rows of a whole draw that lie in ``lanes``: (t_idx, lanes' own
+    b_idx, each of ``cols``, the ShardRows of the draw); the draw as it
+    is, with (t_idx, b_idx) for its indices, without a shard."""
+    if shard is None:
+        return (t_idx, b_idx) + cols + ((t_idx, b_idx),)
+    pos, b_local = shard.local_rows(b_idx, lanes)
+    return ((t_idx[pos], b_local) + tuple(c[pos] for c in cols)
+            + (ShardRows(t_idx, b_idx, pos),))
+
+
 class BaseReplayBuffer:
     # What state_dict() holds: the cursors and the ring.
     state_attrs: tuple = ("t", "filled_t", "data")
 
     def __init__(self, size: int, B: int, sample_T: int,
                  discount: float = 0.99, n_step_return: int = 1,
-                 device="cuda"):
+                 device="cuda", shard=None):
         """``size``: total transitions, rounded up so that size_T is a
-        multiple of ``sample_T`` (the sampler's T)."""
+        multiple of ``sample_T`` (the sampler's T).  ``B``: all lanes
+        (of every rank, with ``shard``)."""
         self.B = B
+        self.shard = shard
+        self.lanes = shard.lanes(B) if shard is not None else slice(0, B)
         self.sample_T = sample_T
         size_T = -(-size // B)
         self.size_T = -(-size_T // sample_T) * sample_T
@@ -75,8 +103,9 @@ class BaseReplayBuffer:
                                     example.observation)
         example = example._replace(
             observation=self._flatten_obs(example.observation, lead=0))
-        self.data = buffer_from_example(example, (self.size_T, self.B),
-                                        self.device)
+        self.data = buffer_from_example(
+            example, (self.size_T, self.lanes.stop - self.lanes.start),
+            self.device)
 
     def state_dict(self) -> dict:
         return state_of(self, self.state_attrs)
@@ -138,10 +167,11 @@ class BaseReplayBuffer:
                 self._obs_at(t_idx, b_idx, self.n_step))
 
     def extract_batch(self, t_idx: torch.Tensor, b_idx: torch.Tensor,
-                      is_weights: Optional[torch.Tensor] = None
-                      ) -> SamplesFromReplay:
-        """Gather transitions and n-step targets at (t_idx, b_idx);
-        ``is_weights`` defaults to ones (uniform replay)."""
+                      is_weights: Optional[torch.Tensor] = None,
+                      indices=None) -> SamplesFromReplay:
+        """Gather transitions and n-step targets at (t_idx, b_idx), lanes
+        of the ring; ``is_weights`` defaults to ones (uniform replay),
+        ``indices`` to (t_idx, b_idx)."""
         d = self.data
 
         def at(leaf, k=0):
@@ -168,5 +198,5 @@ class BaseReplayBuffer:
                                       at(d.reward, self.n_step - 1)),
             is_weights=(torch.ones(t_idx.shape, device=t_idx.device)
                         if is_weights is None else is_weights),
-            indices=(t_idx, b_idx),
+            indices=(t_idx, b_idx) if indices is None else indices,
         )

@@ -1,11 +1,12 @@
 """Prioritized replay (port of rlpyt_tpu/replay/prioritized.py).
 
 Priorities live as a dense [size_T, B] float32 tensor of p^alpha on the
-buffer's device (0 = unsampleable).  Sampling is stratified inverse-CDF
-over their prefix sum (``cumsum`` + right-sided ``searchsorted``), one
-uniform per stratum; importance weights are (1 / (N P))^beta normalised
-by their max.  New rows take the largest priority seen so far; updates
-clip at 1e-6.
+buffer's device (0 = unsampleable); under a data-parallel shard every
+rank keeps the whole table (it is small) and only the ring is split.
+Sampling is stratified inverse-CDF over their prefix sum (``cumsum`` +
+right-sided ``searchsorted``), one uniform per stratum; importance
+weights are (1 / (N P))^beta normalised by their max.  New rows take the
+largest priority seen so far; updates clip at 1e-6.
 
 ``stratified_idxs`` and ``importance_weights`` are shared with the
 sequence buffers (replay/sequence.py).  As there, sampling is split into
@@ -19,7 +20,7 @@ from typing import Tuple
 import torch
 
 from rlpyt_tpu_torch.replay.base import BaseReplayBuffer, SamplesFromReplay, \
-    SamplesToBuffer
+    SamplesToBuffer, ShardRows, local_draw
 
 
 def stratified_idxs(flat: torch.Tensor, u: torch.Tensor
@@ -92,12 +93,19 @@ class PrioritizedReplayBuffer(BaseReplayBuffer):
 
     def sample(self, batch_size: int, generator: torch.Generator
                ) -> SamplesFromReplay:
-        return self.extract_batch(*self.sample_idxs(batch_size, generator))
+        t_idx, b_idx, w, indices = local_draw(
+            self.shard, self.lanes, *self.sample_idxs(batch_size, generator))
+        return self.extract_batch(t_idx, b_idx, w, indices)
 
     def update_priorities(self, indices, priorities: torch.Tensor):
         """Write back the update's priorities (|TD error| or KL) at the
-        sampled ``indices`` = (t_idx, b_idx)."""
-        t_idx, b_idx = indices
+        sampled ``indices`` = (t_idx, b_idx).  Under a shard
+        (``ShardRows``), every rank's priorities of its rows are gathered
+        first, so each rank's copy of the table takes the whole draw's."""
+        if isinstance(indices, ShardRows):
+            priorities = self.shard.gather_rows(priorities, indices.rows,
+                                                indices.t_idx.shape[0])
+        t_idx, b_idx = indices[:2]
         p = torch.clamp(priorities, min=1e-6)
         self.priorities[t_idx, b_idx] = p ** self.alpha
         self.max_priority = torch.maximum(self.max_priority, p.max())

@@ -15,6 +15,10 @@ into ``sample_idxs`` (stratified inverse-CDF draws and importance
 weights) and ``extract_window`` (plain indexing; the JAX package has no
 Pallas kernel for it), so tests can inject the draws.  Observations are
 single tensors ([size_T, B, prod(obs_shape)] rows).
+
+Under a data-parallel ``shard`` (replay/base.py) the ring and the stored
+rnn states hold the rank's lanes; the priorities stay whole on every
+rank, and new input priorities are gathered from every rank at append.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from rlpyt_tpu_torch.replay.base import SamplesToBuffer
+from rlpyt_tpu_torch.replay.base import SamplesToBuffer, ShardRows, \
+    local_draw
 from rlpyt_tpu_torch.replay.prioritized import importance_weights, \
     stratified_idxs
 from rlpyt_tpu_torch.struct import buffer_from_example, load_state, \
@@ -54,8 +59,10 @@ class PrioritizedSequenceReplayBuffer:
                  n_step_return: int = 1, discount: float = 0.99,
                  interval: Optional[int] = None, alpha: float = 0.6,
                  beta: float = 0.4, prioritized: bool = True,
-                 device="cuda"):
+                 device="cuda", shard=None):
         self.B = B
+        self.shard = shard
+        self.lanes = shard.lanes(B) if shard is not None else slice(0, B)
         self.sample_T = sample_T
         self.warmup_T = warmup_T
         self.batch_T = batch_T
@@ -86,10 +93,11 @@ class PrioritizedSequenceReplayBuffer:
         self._obs_shape = tuple(example.observation.shape)
         example = example._replace(
             observation=example.observation.reshape(-1))
-        self.data = buffer_from_example(example, (self.size_T, self.B),
+        B_local = self.lanes.stop - self.lanes.start
+        self.data = buffer_from_example(example, (self.size_T, B_local),
                                         self.device)
         self.rnn_state = buffer_from_example(rnn_example,
-                                             (self.n_slots, self.B),
+                                             (self.n_slots, B_local),
                                              self.device)
         self.priorities = torch.zeros((self.n_slots, self.B),
                                       device=self.device)
@@ -120,6 +128,9 @@ class PrioritizedSequenceReplayBuffer:
         if input_priorities is None:
             new_p = (self.max_priority ** self.alpha).expand(n_new, self.B)
         else:
+            if self.shard is not None:
+                input_priorities = self.shard.gather_lanes(input_priorities,
+                                                           self.B)
             new_p = torch.clamp(input_priorities, min=1e-6) ** self.alpha
         self.priorities[slot0:slot0 + n_new].copy_(new_p)
         self.t = (t0 + T) % self.size_T
@@ -182,8 +193,9 @@ class PrioritizedSequenceReplayBuffer:
 
     def sample(self, batch_b: int, generator: torch.Generator
                ) -> SequenceSamples:
-        slot_idx, b_idx, w = self.sample_idxs(batch_b, generator)
-        return self.extract_window(slot_idx, b_idx, w)
+        slot_idx, b_idx, w, slots = local_draw(
+            self.shard, self.lanes, *self.sample_idxs(batch_b, generator))
+        return self.extract_window(slot_idx, b_idx, w)._replace(slots=slots)
 
     def _obs_window(self, rows, b):
         """[W, b, *obs_shape] observations at ``rows`` of lanes ``b``."""
@@ -191,9 +203,14 @@ class PrioritizedSequenceReplayBuffer:
             tuple(rows.shape) + self._obs_shape)
 
     def update_priorities(self, slots, priorities: torch.Tensor):
+        """Write back at ``slots``; under a shard (``ShardRows``) every
+        rank's priorities of its rows are gathered first."""
         if not self.prioritized:
             return
-        slot_idx, b_idx = slots
+        if isinstance(slots, ShardRows):
+            priorities = self.shard.gather_rows(priorities, slots.rows,
+                                                slots.t_idx.shape[0])
+        slot_idx, b_idx = slots[:2]
         p = torch.clamp(priorities, min=1e-6)
         self.priorities[slot_idx, b_idx] = p ** self.alpha
         self.max_priority = torch.maximum(self.max_priority, p.max())

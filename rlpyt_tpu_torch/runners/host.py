@@ -502,7 +502,15 @@ class HostMinibatchRl:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def train(self):
+    def state_dict(self) -> dict:
+        """The agent's model and the algorithm's state, replay included
+        (live tensors): the counterpart of the JAX runner's
+        ``(train_state, replay_state)``."""
+        return {"model": self.agent.model.state_dict(),
+                "algo": self.algo.state_dict()}
+
+    def train(self) -> dict:
+        """Run to ``n_steps``; returns ``state_dict()``."""
         self.startup()
         t_start = time.time()
         interval_itrs = 0
@@ -521,6 +529,7 @@ class HostMinibatchRl:
                           eval_eps)
                 interval_itrs = 0
                 t0 = time.time()
+        return self.state_dict()
 
     def _log(self, itr, dt, total, opt_info, eval_eps=None):
         rec = self.logger.record_tabular
@@ -658,7 +667,9 @@ class AsyncHostRl(HostMinibatchRl):
                      if isinstance(x, torch.Tensor) else None, tree)
         return tree
 
-    def train(self):
+    def train(self) -> dict:
+        """Run to ``n_steps``; returns ``state_dict()`` after the
+        learner's last optimize."""
         self.startup()
         batch_q: queue.Queue = queue.Queue(maxsize=1)
         err: list = []
@@ -732,6 +743,7 @@ class AsyncHostRl(HostMinibatchRl):
                 thread.join(timeout=60)
         self._raise(err)
         self._sync()
+        return self.state_dict()
 
     @staticmethod
     def _raise(err):

@@ -74,12 +74,15 @@ class MinibatchRl:
         """Seed, build the model, collector and algorithm state, then
         decorrelate the lanes' start states."""
         torch.manual_seed(self.seed)   # model weights, drawn on the CPU
-        gens = [torch.Generator(device=self.device).manual_seed(self.seed + i)
-                for i in range(2)]
-        self.env_generator, algo_generator = gens
-        self.agent.initialize(self.env.spaces)
-        self.collector = Collector(self.env, self.agent, self.batch_spec,
-                                   discount=float(self.algo.discount))
+        self.env_generator = torch.Generator(
+            device=self.device).manual_seed(self._collection_seed())
+        algo_generator = torch.Generator(
+            device=self.device).manual_seed(self.seed + 1)
+        self._initialize_agent()
+        self.collector = Collector(self.env, self.agent,
+                                   self._collection_spec(),
+                                   discount=float(self.algo.discount),
+                                   lanes_total=self.batch_spec.B)
         self.rollout_state = self.collector.init_state(self.env_generator)
         self.n_itr = max(1, math.ceil(self.n_steps / self.batch_spec.size))
         self.itrs_per_interval = max(
@@ -98,6 +101,26 @@ class MinibatchRl:
                 discount=float(self.algo.discount))
             self.eval_generator = torch.Generator(
                 device=self.device).manual_seed(self.seed + 1)
+
+    def _collection_seed(self) -> int:
+        """Seed of the collection's generator (the env steps, exploration
+        and decorrelation draws)."""
+        return self.seed
+
+    def _collection_spec(self) -> BatchSpec:
+        """The [T, B] this process collects."""
+        return self.batch_spec
+
+    def _initialize_agent(self):
+        self.agent.initialize(self.env.spaces)
+
+    def _save_snapshot(self, itr: int, cum_steps: int):
+        """The logger's parameter snapshot of iteration ``itr``, if it
+        keeps one."""
+        if self.logger.snapshot_path(itr) is not None:
+            self.logger.save_itr_params(itr, {
+                "params": agent_params_to_jax(self.agent), "itr": itr,
+                "cum_steps": cum_steps})
 
     def run_interval(self):
         """``itrs_per_interval`` iterations; returns (list of OptInfo,
@@ -184,10 +207,7 @@ class MinibatchRl:
             itr = (interval + 1) * self.itrs_per_interval
             self._log_diagnostics(itr, cum_steps, opt_infos, traj_stats,
                                   t1 - t0, t1 - t_start)
-            if self.logger.snapshot_path(itr) is not None:
-                self.logger.save_itr_params(itr, {
-                    "params": agent_params_to_jax(self.agent), "itr": itr,
-                    "cum_steps": cum_steps})
+            self._save_snapshot(itr, cum_steps)
             if self.eval_env is not None:
                 self._log_traj_stats("Eval", self.run_eval())
             # After the evaluation, whose generator state it holds.

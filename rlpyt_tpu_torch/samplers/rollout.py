@@ -85,11 +85,18 @@ class RolloutState(NamedTuple):
 
 
 class Collector:
+    """Steps ``batch_spec.B`` lanes.  ``lanes_total``: the lanes of all
+    ranks when these are one rank's of a data-parallel run (``cum_steps``
+    counts them all, as the epsilon schedule and ``min_steps_learn``
+    read it); ``batch_spec.B`` by default."""
+
     def __init__(self, env, agent, batch_spec: BatchSpec,
-                 discount: float = 1.0, mid_batch_reset: bool = True):
+                 discount: float = 1.0, mid_batch_reset: bool = True,
+                 lanes_total: Optional[int] = None):
         self.env = env
         self.agent = agent
         self.batch_spec = batch_spec
+        self.lanes_total = lanes_total or batch_spec.B
         self.mid_batch_reset = mid_batch_reset
         # Discount of the DiscountedReturn trajectory stat.
         self.discount = float(discount)
@@ -263,7 +270,7 @@ class Collector:
             prev_action=tree_select(done, torch.zeros_like(action), action),
             prev_reward=torch.where(done, 0.0, reward),
             agent_carry=agent_carry,
-            cum_steps=carry.cum_steps + B,
+            cum_steps=carry.cum_steps + self.lanes_total,
             ep_return=ep_return * finished, ep_length=ep_length * finished,
             ep_nonzero=ep_nonzero * finished,
             ep_discounted=ep_discounted * finished, ep_gamma=ep_gamma,

@@ -5,6 +5,7 @@ A "tree" is a nest of NamedTuples, tuples, lists and dicts with tensors
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -78,7 +79,8 @@ def infer_leading_dims_tree(observation, dim: int = 1):
     Returns (lead_dim, T, B, x [T*B, F_total])."""
     leaves = tree_leaves(observation)
     lead_dim, T, B, _ = infer_leading_dims(leaves[0], dim)
-    flat = [leaf.reshape(T * B, -1).to(torch.float32) for leaf in leaves]
+    flat = [leaf.reshape(T * B, math.prod(leaf.shape[lead_dim:]))
+            .to(torch.float32) for leaf in leaves]
     return lead_dim, T, B, torch.cat(flat, dim=-1)
 
 

@@ -1,8 +1,9 @@
-"""The torch forms of examples 1, 2, 3, 5, 6 and 8 (the twins of
-tests/test_examples.py): each imports and names its entry point;
-example 1 trains at a tiny budget on the CPU; example 5's AsyncRl run
-equals its MinibatchRl run and resumes bit for bit on the CPU at a
-small depth; example 6 points the launcher at the port's script."""
+"""The torch forms of examples 1-9 (the twins of tests/test_examples.py):
+each imports and names its entry point; example 1 trains at a tiny
+budget on the CPU, and example 4 at dp = 2 (two spawned ranks over
+gloo); example 5's AsyncRl run equals its MinibatchRl run and resumes
+bit for bit on the CPU at a small depth; example 6 points the launcher
+at the port's script."""
 import importlib
 import os
 
@@ -13,7 +14,7 @@ from test_torch_checkpoint import assert_states_equal
 from rlpyt_tpu_torch.runners.train import MinibatchRl
 
 torch.set_num_threads(2)
-EXAMPLES = (1, 2, 3, 5, 6, 8)
+EXAMPLES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 
 
 @pytest.mark.parametrize("n", EXAMPLES)
@@ -31,6 +32,24 @@ def test_example_1_trains(tmp_path):
     assert runner.algo.update_counter > 0
     assert state["algo"]["update_counter"] == runner.algo.update_counter
     assert (tmp_path / "run_0" / "progress.csv").exists()
+
+
+def test_example_4_trains_at_dp2_on_the_cpu():
+    """Example 4's DQN config at 64 lanes over two ranks: each collects
+    32 lanes, learning starts in the second iteration."""
+    from rlpyt_tpu_torch.examples import example_4
+    from rlpyt_tpu_torch.parallel.mesh import MeshSpec
+    from rlpyt_tpu_torch.runners.sync import SyncRl
+
+    runner = example_4.build_and_train(
+        n_steps=3 * 2_048, log_interval_steps=2_048, mesh=MeshSpec(dp=2),
+        device="cpu", config_overrides=dict(
+            algo=dict(min_steps_learn=4_096, replay_size=20_000),
+            sampler=dict(eval_n_envs=0, max_decorrelation_steps=10)))
+    assert isinstance(runner, SyncRl) and runner.dp == 2
+    assert runner.rollout_state.observation.shape[0] == 32
+    assert runner.rollout_state.cum_steps == 3 * 2_048
+    assert runner.algo.update_counter == 2 * 64
 
 
 def test_example_5_async_and_resume_on_the_cpu(tmp_path):

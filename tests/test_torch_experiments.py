@@ -287,5 +287,7 @@ def test_jax_snapshot_loads_into_the_port(run, key, game):
 
 
 def test_script_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
+    """``mesh`` builds SyncRl (tests/test_torch_parallel.py), which takes
+    a MeshSpec only."""
+    with pytest.raises(TypeError, match="MeshSpec"):
         build_and_train("dqn", mesh=object(), device="cpu")

@@ -17,7 +17,8 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
                  ROOT / "tests" / "test_torch_qpg_learning.py",
                  ROOT / "tests" / "test_torch_dqn_learning.py",
                  ROOT / "tests" / "test_torch_atari_learning.py",
-                 ROOT / "tests" / "test_torch_checkpoint.py"])
+                 ROOT / "tests" / "test_torch_checkpoint.py",
+                 ROOT / "tests" / "_torch_multihost_worker.py"])
 
 
 def imported_modules(path: Path):
@@ -63,7 +64,13 @@ def test_scan_covers_the_port():
                  "runners/async_rl.py", "examples/example_1.py",
                  "examples/example_2.py", "examples/example_3.py",
                  "examples/example_5.py", "examples/example_6.py",
-                 "examples/example_8.py"):
+                 "examples/example_8.py", "parallel/mesh.py",
+                 "runners/sync.py", "experiments/configs/mujoco_pg.py",
+                 "experiments/configs/mujoco_qpg.py",
+                 "experiments/scripts/mujoco_pg.py",
+                 "experiments/scripts/mujoco_qpg.py",
+                 "examples/example_4.py", "examples/example_7.py",
+                 "examples/example_9.py"):
         assert f"rlpyt_tpu_torch/{name}" in names
     assert "bench_torch_gather_formulations.py" in names
     assert "bench_torch_minatar.py" in names
@@ -71,4 +78,5 @@ def test_scan_covers_the_port():
     assert "tests/test_torch_dqn_learning.py" in names
     assert "tests/test_torch_atari_learning.py" in names
     assert "tests/test_torch_checkpoint.py" in names
+    assert "tests/_torch_multihost_worker.py" in names
     assert "chip_smoke.py" in names and len(names) > 20

@@ -660,7 +660,9 @@ def test_build_and_train_smoke(config_key, tmp_path):
 
 
 def test_build_and_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="SyncRl"):
+    """``mesh`` builds SyncRl (tests/test_torch_parallel.py), which takes
+    a MeshSpec only."""
+    with pytest.raises(TypeError, match="SyncRl takes a MeshSpec"):
         build_and_train("ppo", mesh=object(), device="cpu")
 
 
