@@ -179,6 +179,18 @@ Phases, each fatal on failure:
      rank; (g) readings: r2d1 env-steps/s under SyncRl(dp=1) and
      MinibatchRl in turns (S, M, M, S), the host ms of one gradient
      all-reduce, and the dp = 2 rates (two ranks on one card).
+ 18. the last gaps against the JAX package: (a) Conv2dHeadModel at
+     MinAtar widths (conv 16 3x3 on [4, 10, 10], head 128, 6 outputs),
+     ReLU and tanh, forward and backward on the card against the CPU from
+     the same weights and inputs, TF32 off; (b) the R2D1 twin of
+     tests/test_learning_coverage.py:54 (LSTM 128, B=32, T=40, 32 windows
+     of 10 + 20 + 3 rows, prioritized sequence replay, replay ratio 1)
+     through MinibatchRl for 4 iterations, the last 3 learning (cuts:
+     n_steps, the log interval): finite losses and priorities, the update count, and K3a,
+     K3 (with its one-step launches) and K4 launches equal to the count
+     the config predicts; (c) K3a, K3 and K4 against their plain versions
+     and timed at the twin's shapes (F=1031, H=128; burn-in T=10,
+     training T=23, collection T=1 at B=32, evaluation T=1 at B=8).
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -200,6 +212,11 @@ line.
     python3 chip_smoke.py --phase17
 
 builds the kernels and runs phase 17 alone, with no result line.
+
+    python3 chip_smoke.py --phase18
+
+builds the kernels and runs phase 18 alone (its ``kernels`` line, no
+result line).
 """
 from __future__ import annotations
 
@@ -2119,38 +2136,39 @@ def check_minatar_dqn_against_cpu(dev):
               f"{tiny_diff:.3g})")
 
 
-def time_lstm_minatar_r2d1(L, g, dev):
-    """Phase 14d: K3a, K3 and K4 at the r2d1 config's shapes (F=1031,
-    H=128) beside their plain versions, bounds and library calls.
-    Entries: K3a at the training window's 1440 rows, K3 and K4 at that
-    window (T=45, B=32), K3 at a collection step (T=1, B=64).  Printed:
-    K3a at 640 (burn-in), 64 (collection) and 32 rows (evaluation), K3 at
-    the burn-in (T=20, B=32) and an evaluation step (T=1, B=32)."""
+def time_lstm_h128(L, g, dev, tag: str, suffix: str, win_T: int,
+                   burn_T: int, batch_b: int, collect_B: int, eval_B: int):
+    """K3a, K3 and K4 at an R2D1 config's shapes on MinAtar Breakout
+    (F=1031, H=128) beside their plain versions, bounds and library
+    calls.  Entries (each name followed by ``suffix``): K3a at the
+    training window's win_T * batch_b rows, K3 and K4 at that window, K3
+    at a collection step (T=1, collect_B lanes).  Printed: K3a at the
+    burn-in's rows, a collection step's and an evaluation step's, K3 at
+    the burn-in (burn_T) and an evaluation step (T=1, eval_B lanes)."""
     F, H = MD_F, MD_H
-    win = lstm_case(g, MD_WINDOW - MD_WARMUP, MD_BATCH_B, F, H, dev)
-    burn = lstm_case(g, MD_WARMUP, MD_BATCH_B, F, H, dev)
+    win = lstm_case(g, win_T, batch_b, F, H, dev)
+    burn = lstm_case(g, burn_T, batch_b, F, H, dev)
     wx, b = win["wx"], win["b"]
     entries = add_bounds({
-        "lstm_input_proj_minatar_r2d1": proj_times(
+        "lstm_input_proj" + suffix: proj_times(
             L, win["x"].view(-1, F), [wx], b, 50),
-        "lstm_fwd_minatar_r2d1": fwd_times(L, win, dev, 50, 10),
-        "lstm_fwd_t1_minatar_r2d1": fwd_times(
-            L, lstm_case(g, 1, MD_B, F, H, dev), dev, 50, 20),
-        "lstm_bwd_minatar_r2d1": bwd_times(L, win, g, dev, 50, 10),
+        "lstm_fwd" + suffix: fwd_times(L, win, dev, 50, 10),
+        "lstm_fwd_t1" + suffix: fwd_times(
+            L, lstm_case(g, 1, collect_B, F, H, dev), dev, 50, 20),
+        "lstm_bwd" + suffix: bwd_times(L, win, g, dev, 50, 10),
     })
     printed = add_bounds({
-        f"lstm_input_proj M={MD_WARMUP * MD_BATCH_B}": proj_times(
+        f"lstm_input_proj M={burn_T * batch_b}": proj_times(
             L, burn["x"].view(-1, F), [wx], b, 50),
         **{f"lstm_input_proj M={M}": proj_times(
             L, torch.randn((M, F), generator=g, device=dev), [wx], b, 50)
-           for M in (MD_B, MD_EVAL_B)},
-        f"lstm_fwd T={MD_WARMUP} B={MD_BATCH_B}": fwd_times(
-            L, burn, dev, 50, 10),
-        f"lstm_fwd T=1 B={MD_EVAL_B}": fwd_times(
-            L, lstm_case(g, 1, MD_EVAL_B, F, H, dev), dev, 50, 20),
+           for M in (collect_B, eval_B)},
+        f"lstm_fwd T={burn_T} B={batch_b}": fwd_times(L, burn, dev, 50, 10),
+        f"lstm_fwd T=1 B={eval_B}": fwd_times(
+            L, lstm_case(g, 1, eval_B, F, H, dev), dev, 50, 20),
     })
     for name, t in list(entries.items()) + list(printed.items()):
-        print(f"phase 14d: {name} call {t['ms']:.4f} ms, device "
+        print(f"{tag}: {name} call {t['ms']:.4f} ms, device "
               f"{t['device_ms']:.4f} ms; library call "
               f"{t['library_ms']:.4f} ms"
               + (f", device {t['library_device_ms']:.4f} ms"
@@ -2159,6 +2177,15 @@ def time_lstm_minatar_r2d1(L, g, dev):
               f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['ops']} "
               f"operations, {t['bytes']} bytes)")
     return entries
+
+
+def time_lstm_minatar_r2d1(L, g, dev):
+    """Phase 14d: the r2d1 config's shapes: the training window (T=45,
+    B=32, 1440 rows), the burn-in (T=20), a collection step (T=1, B=64)
+    and an evaluation step (T=1, B=32)."""
+    return time_lstm_h128(L, g, dev, "phase 14d", "_minatar_r2d1",
+                          MD_WINDOW - MD_WARMUP, MD_WARMUP, MD_BATCH_B, MD_B,
+                          MD_EVAL_B)
 
 
 def check_snapshot(runner, log_dir: Path, dev):
@@ -3659,6 +3686,172 @@ def run_phase17(dev, launches14=None):
           f"{c['sps']}, 17d {d['sps']}" + took())
     print(f"phase 17: {time.time() - t0:.1f} s")
 
+# Phase 18: the R2D1 twin of tests/test_learning_coverage.py:54 (the
+# port's tests/test_torch_learning_coverage.py): MinAtar Breakout, conv
+# 16, LSTM 128 on [conv 16 x 8 x 8, 6 actions, the reward]; sampler
+# T=40, B=32; 32 windows of burn-in 10 + training 20 + n-step 3 rows;
+# evaluation (the test's, after training) on 8 lanes.  Cuts: n_steps and
+# the log interval (the runner runs whole intervals), to 4 iterations of
+# 1280 steps, learning from the second (min_steps_learn 2000).
+TW_T, TW_B, TW_EVAL_B, TW_ITR = 40, 32, 8, 4
+TW_BATCH_B, TW_WARMUP, TW_BATCH_T, TW_NSTEP = 32, 10, 20, 3
+TW_CASES = [(TW_BATCH_T + TW_NSTEP, TW_BATCH_B, MD_F, MD_H),
+            (TW_WARMUP, TW_BATCH_B, MD_F, MD_H), (1, TW_B, MD_F, MD_H),
+            (1, TW_EVAL_B, MD_F, MD_H)]
+
+
+def check_conv_head(dev):
+    """Phase 18a: Conv2dHeadModel at MinAtar widths, ReLU and tanh,
+    forward and backward (grads of the input and every weight) on the
+    card against the CPU from the same weights and 0/1 frames, TF32 off,
+    each to 1e-4 of the largest reference value.  Returns the largest
+    abs error."""
+    from rlpyt_tpu_torch.models import Conv2dHeadModel
+
+    g = torch.Generator().manual_seed(18)
+    x = torch.randint(0, 2, (256, 4, 10, 10), generator=g).float()
+    cot = torch.randn((256, 6), generator=g)
+    worst = 0.0
+    for act_name, act in (("relu", torch.relu), ("tanh", torch.tanh)):
+        torch.manual_seed(18)
+        cpu = Conv2dHeadModel(4, (10, 10), channels=(16,),
+                              kernel_sizes=(3,), strides=(1,), paddings=(0,),
+                              hidden_sizes=(128,), output_size=6,
+                              nonlinearity=act)
+        card = copy.deepcopy(cpu).to(dev)
+        results = []
+        for model, d in ((cpu, "cpu"), (card, dev)):
+            xi = x.to(d).requires_grad_(True)
+            y = model(xi)
+            grads = torch.autograd.grad((y * cot.to(d)).sum(),
+                                        [xi] + list(model.parameters()))
+            results.append([y.detach().cpu()] + [t.cpu() for t in grads])
+        names = ["y", "dx"] + [f"d{n}" for n, _ in cpu.named_parameters()]
+        for what, ref, out in zip(names, *results):
+            err, rel = rel_err(out, ref)
+            if not rel <= 1e-4 or out.shape != ref.shape:
+                fail(f"phase 18a: Conv2dHeadModel ({act_name}) {what} on "
+                     f"the card differs from the CPU: max err {err:.3g} = "
+                     f"{rel:.3g} of max|ref|")
+            worst = max(worst, err)
+        print(f"phase 18a: Conv2dHeadModel {act_name} forward and backward "
+              f"on the card agree with the CPU ({len(names)} tensors)")
+    print(f"phase 18a: max abs err {worst:.3g}")
+    return worst
+
+
+def twin_r2d1_runner(dev):
+    """tests/test_torch_learning_coverage.py's R2D1 twin at its settings
+    and seed, cut to TW_ITR iterations in one log interval."""
+    from rlpyt_tpu_torch.agents.dqn import R2d1Agent
+    from rlpyt_tpu_torch.algos.r2d1 import R2D1
+    from rlpyt_tpu_torch.envs.minatar import Breakout
+    from rlpyt_tpu_torch.models.dqn import AtariR2d1Model
+    from rlpyt_tpu_torch.runners.train import MinibatchRl
+    from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+
+    agent = R2d1Agent(
+        ModelCls=AtariR2d1Model,
+        model_kwargs=dict(channels=(16,), kernel_sizes=(3,), strides=(1,),
+                          paddings=(0,), lstm_size=MD_H),
+        lstm_size=MD_H, eps_steps=100_000, eps_final=0.1, device=dev)
+    algo = R2D1(discount=0.99, batch_b=TW_BATCH_B, batch_T=TW_BATCH_T,
+                warmup_T=TW_WARMUP, min_steps_learn=2_000,
+                replay_size=100_000, replay_ratio=1.0,
+                target_update_interval=500, n_step_return=TW_NSTEP,
+                learning_rate=3e-4, double_dqn=True,
+                prioritized_replay=True, pri_alpha=0.6, pri_beta=0.9)
+    return MinibatchRl(algo, agent, Breakout(device=dev),
+                       BatchSpec(T=TW_T, B=TW_B),
+                       n_steps=TW_ITR * TW_T * TW_B, seed=6,
+                       log_interval_steps=TW_ITR * TW_T * TW_B,
+                       logger=row_logger(),
+                       device=dev)
+
+
+def run_twin_r2d1(L, dev) -> dict:
+    """Phase 18b: the twin's R2D1 for TW_ITR iterations; fails unless
+    the losses and priorities are finite, the updates are those of the
+    learning iterations, and the LSTM launches are those the config
+    predicts: per collection step one K3a and one K3 at T=1; per update
+    four of each (online and target burn-in at T=10, online and target
+    training window at T=23) and one K4 (the online window's backward).
+    Returns the launches."""
+    runner = twin_r2d1_runner(dev)
+    zero_launches()
+    t0 = time.time()
+    runner.train()
+    seconds = time.time() - t0
+    got = md_launches(L)
+    algo = runner.algo
+    steps = TW_T * TW_B
+    first = -(-algo.min_steps_learn // steps)   # first learning iteration
+    updates = (TW_ITR - first + 1) * algo.updates_per_optimize
+    want = {"lstm_input_proj": TW_ITR * TW_T + 4 * updates,
+            "lstm_fwd": TW_ITR * TW_T + 4 * updates,
+            "lstm_fwd_t1": TW_ITR * TW_T, "lstm_bwd": updates}
+    if algo.update_counter != updates:
+        fail(f"phase 18b: {algo.update_counter} updates, predicted "
+             f"{updates}")
+    for name, n in want.items():
+        if got[name] != n:
+            fail(f"phase 18b: {name} launched {got[name]} times, predicted "
+                 f"{n} ({got})")
+    rows = runner.logger.rows
+    for key in ("loss", "td_abs_err"):
+        vals = [float(r[key]) for r in rows]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"phase 18b: {key} not finite: {vals}")
+    pri = algo.replay.priorities
+    if not bool(torch.isfinite(pri).all()):
+        fail("phase 18b: priorities not finite")
+    print(f"phase 18b: R2D1 twin {TW_ITR} iterations in {seconds:.1f} s, "
+          f"{algo.update_counter} updates ({algo.updates_per_optimize} an "
+          f"iteration from iteration {first}), LSTM launches {got} as "
+          f"predicted; last row loss {float(rows[-1]['loss']):.4f}, "
+          f"StepsPerSecond {float(rows[-1]['StepsPerSecond']):.1f}")
+    return got
+
+
+def time_lstm_twin(L, g, dev):
+    """Phase 18c: the R2D1 twin's shapes: the training window (T=23,
+    B=32, 736 rows), the burn-in (T=10), a collection step (T=1, B=32)
+    and an evaluation step (T=1, B=8)."""
+    return time_lstm_h128(L, g, dev, "phase 18c", "_minatar_twin",
+                          TW_BATCH_T + TW_NSTEP, TW_WARMUP, TW_BATCH_B, TW_B,
+                          TW_EVAL_B)
+
+
+def run_phase18(L, g, dev):
+    """Phase 18; returns (times, errors, launches) of its kernels-line
+    entries."""
+    t0 = time.time()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_conv_head(dev)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    got = run_twin_r2d1(L, dev)
+    launches = {
+        "lstm_input_proj_minatar_twin": got["lstm_input_proj"],
+        "lstm_fwd_minatar_twin": got["lstm_fwd"] - got["lstm_fwd_t1"],
+        "lstm_fwd_t1_minatar_twin": got["lstm_fwd_t1"],
+        "lstm_bwd_minatar_twin": got["lstm_bwd"]}
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = check_lstm(L, g, dev, TW_CASES, "_minatar_twin")
+    print(f"phase 18c: K3a, K3, K4 agree with their plain versions at the "
+          f"twin's shapes (max abs err {errs})")
+    times = time_lstm_twin(L, g, dev)
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 18: {time.time() - t0:.1f} s")
+    return times, errs, launches
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3704,7 +3897,9 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # H=512) with the launches of phase 15d's run, K3a timed at the training
 # window's 2720 rows; the "_atari_cfg" gathers: batch 32 on the 1M-frame
 # ring of the dqn (U=5) and ernbw (U=7) configs, with their runs'
-# launches.
+# launches.  The "_minatar_twin" entries: the R2D1 learning twin of
+# phase 18 (F=1031, H=128, batch 32 windows of 10 + 20 + 3 rows), with
+# the launches of 18b's run, K3a timed at the training window's 736 rows.
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
@@ -3729,6 +3924,10 @@ KERNELS = {
     "lstm_fwd_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_fwd_t1_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
     "lstm_bwd_atari_r2d1": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
+    "lstm_input_proj_minatar_twin": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_minatar_twin": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_fwd_t1_minatar_twin": (_LSTM_SRC, f"{_PALLAS}lstm.py:109"),
+    "lstm_bwd_minatar_twin": (_LSTM_SRC, f"{_PALLAS}lstm.py:214"),
     "frame_gather_atari_cfg": _GATHER,
     "frame_gather_u7_atari_cfg": _GATHER,
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
@@ -3789,6 +3988,12 @@ def main():
     if "--phase17" in sys.argv[1:]:
         run_phase17(dev)
         print(nvidia_smi_line())
+        return 0
+    if "--phase18" in sys.argv[1:]:
+        times, errs, launches = run_phase18(
+            L, torch.Generator(device=dev).manual_seed(0), dev)
+        print(nvidia_smi_line())
+        print(kernels_line(times, errs, launches))
         return 0
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -3991,6 +4196,8 @@ def main():
     run_host_path(fg, L, g, dev, errs, times, launches, tf32)
     run_phase16(fg, L, g, dev)
     run_phase17(dev, md14)
+    for part, new in zip((times, errs, launches), run_phase18(L, g, dev)):
+        part.update(new)
 
     print(nvidia_smi_line())
     print(kernels_line(times, errs, launches))

@@ -165,14 +165,21 @@ class QpgBase(RlAlgorithm):
     def _group(self, name: str):
         return self.optimizers[name], list(self.agent.nets[name].parameters())
 
-    def _critic_step(self, batch: SamplesFromReplay, y: torch.Tensor):
-        """One step of every critic on sum_i valid_mean(0.5 (y - Q_i)^2);
-        returns (loss, global norm over all critics' grads)."""
-        nets, names = self.agent.nets, self.agent.q_names
+    def q_loss(self, batch: SamplesFromReplay, y: torch.Tensor
+               ) -> torch.Tensor:
+        """sum_i valid_mean(0.5 (y - Q_i(s, a))^2) over the critics, for
+        targets ``y`` (``_targets``)."""
+        nets = self.agent.nets
         obs, valid = batch.agent_inputs.observation, self._valid(batch)
-        loss = sum(self._mean(0.5 * (y - nets[name](obs, batch.action))
-                              ** 2, valid) for name in names)
-        norms = _step(loss, [self._group(name) for name in names])
+        return sum(self._mean(0.5 * (y - nets[name](obs, batch.action))
+                              ** 2, valid) for name in self.agent.q_names)
+
+    def _critic_step(self, batch: SamplesFromReplay, y: torch.Tensor):
+        """One step of every critic on ``q_loss``; returns (loss, global
+        norm over all critics' grads)."""
+        loss = self.q_loss(batch, y)
+        norms = _step(loss, [self._group(name)
+                             for name in self.agent.q_names])
         return loss.detach(), torch.linalg.vector_norm(torch.stack(norms))
 
     def _polyak(self, names):

@@ -42,6 +42,11 @@ class Env:
     def spaces(self) -> EnvSpaces:
         return EnvSpaces(self.observation_space, self.action_space)
 
+    @property
+    def horizon(self):
+        """The episode cap the env enforces itself; None for none."""
+        return None
+
     def reset_batch(self, n: int, generator: torch.Generator
                     ) -> Tuple[Any, Any]:
         """Fresh state and observation for ``n`` lanes."""

@@ -1,4 +1,5 @@
-"""Conv trunk (port of rlpyt_tpu/models/conv.py:Conv2dModel), in NCHW.
+"""Conv trunk and conv-plus-MLP model (port of
+rlpyt_tpu/models/conv.py:Conv2dModel, Conv2dHeadModel), in NCHW.
 
 The JAX package folds the first stride-s layer into a space-to-depth 3D
 conv and runs the trunk batch-minor, both to suit XLA:TPU's conv
@@ -10,13 +11,13 @@ convolutions, so none is written here either.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rlpyt_tpu_torch.models.mlp import lecun_normal_
+from rlpyt_tpu_torch.models.mlp import MlpModel, lecun_normal_
 from rlpyt_tpu_torch.parallel.mesh import layer_apply
 
 
@@ -24,6 +25,7 @@ class Conv2dModel(nn.Module):
     def __init__(self, in_channels: int, channels: Sequence[int],
                  kernel_sizes: Sequence[int], strides: Sequence[int],
                  paddings: Optional[Sequence[int]] = None,
+                 nonlinearity: Callable = F.relu,
                  compute_dtype: torch.dtype = torch.float32,
                  input_scale: float = 1.0):
         super().__init__()
@@ -36,6 +38,7 @@ class Conv2dModel(nn.Module):
             lecun_normal_(conv.weight, c_in * k * k)
             nn.init.zeros_(conv.bias)
             self.convs.append(conv)
+        self.nonlinearity = nonlinearity
         self.compute_dtype = compute_dtype
         # The scale rounded to the compute dtype, as a Python float so the
         # multiply launches no host-to-device copy.
@@ -54,7 +57,7 @@ class Conv2dModel(nn.Module):
             x = layer_apply(conv, lambda x, w, b: F.conv2d(
                 x, w.to(dt), b.to(dt), stride=conv.stride,
                 padding=conv.padding), x)
-            x = F.relu(x)
+            x = self.nonlinearity(x)
         return x
 
     @staticmethod
@@ -65,3 +68,35 @@ class Conv2dModel(nn.Module):
             h = (h + 2 * p - k) // s + 1
             w = (w + 2 * p - k) // s + 1
         return channels[-1] * h * w
+
+
+class Conv2dHeadModel(nn.Module):
+    """Conv trunk, flattened in NCHW order, then an MLP of
+    ``hidden_sizes`` (and a linear ``output_size`` layer when given),
+    with ``nonlinearity`` after every conv and hidden layer.  flax sizes
+    the head from the first input; here ``in_channels`` and
+    ``image_shape`` (h, w) size it.  The JAX module's trunk is the plain
+    one (no space-to-depth), so its tree maps onto this state_dict
+    without re-blocking (params.py)."""
+
+    space_to_depth = False
+
+    def __init__(self, in_channels: int, image_shape: Tuple[int, int],
+                 channels: Sequence[int], kernel_sizes: Sequence[int],
+                 strides: Sequence[int], hidden_sizes: Sequence[int],
+                 paddings: Optional[Sequence[int]] = None,
+                 output_size: Optional[int] = None,
+                 nonlinearity: Callable = F.relu,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2dModel(in_channels, channels, kernel_sizes, strides,
+                                paddings, nonlinearity, compute_dtype)
+        n_feat = Conv2dModel.conv_out_size(channels, kernel_sizes, strides,
+                                           paddings, *image_shape)
+        self.head = MlpModel(n_feat, hidden_sizes, output_size, nonlinearity,
+                             compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[N, C, H, W] -> [N, output_size or hidden_sizes[-1]], float32."""
+        x = self.conv(x)
+        return self.head(x.reshape(x.shape[0], -1))

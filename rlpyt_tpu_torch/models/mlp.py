@@ -7,7 +7,7 @@ to float32 so losses and targets accumulate at full precision.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -25,8 +25,13 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 
 class MlpModel(nn.Module):
+    """Dense layers of ``hidden_sizes``, each followed by
+    ``nonlinearity`` (a callable on tensors), then a linear output layer
+    of ``output_size`` when it is given."""
+
     def __init__(self, input_size: int, hidden_sizes: Sequence[int],
                  output_size: Optional[int] = None,
+                 nonlinearity: Callable = F.relu,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         sizes = list(hidden_sizes)
@@ -39,6 +44,7 @@ class MlpModel(nn.Module):
             nn.init.zeros_(layer.bias)
             self.layers.append(layer)
         self.n_hidden = len(hidden_sizes)
+        self.nonlinearity = nonlinearity
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -48,5 +54,5 @@ class MlpModel(nn.Module):
             x = layer_apply(layer, lambda x, w, b: F.linear(
                 x, w.to(dt), b.to(dt)), x)
             if i < self.n_hidden:
-                x = F.relu(x)
+                x = self.nonlinearity(x)
         return x.to(torch.float32)

@@ -2,7 +2,8 @@
 port's ``state_dict``s.  It takes and returns numpy arrays only.
 
 Tree paths read (AtariDqnModel, AtariCatDqnModel, AtariR2d1Model,
-DqnMlpModel, R2d1MlpModel and the policy-gradient models)::
+DqnMlpModel, R2d1MlpModel, Conv2dHeadModel and the policy-gradient
+models)::
 
     params/Conv2dModel_0/Conv_{i}/{kernel,bias}  <->  conv.convs.{i}.{weight,bias}
     params/MlpModel_0/Dense_{j}/{kernel,bias}    <->  head.layers.{j}.{weight,bias}
@@ -209,9 +210,11 @@ def to_jax_params(state_dict, s2d_stride: Optional[int]) -> dict:
 def s2d_stride_of(model) -> Optional[int]:
     """The first conv's stride where the JAX model (``space_to_depth``
     at its default, True) stores ``Conv_0`` blocked: stride above 1,
-    kernel a multiple of it, no padding.  None for any other model."""
+    kernel a multiple of it, no padding.  None for any other model, and
+    for one whose JAX counterpart never blocks (``space_to_depth`` False
+    on the class: Conv2dHeadModel)."""
     conv = getattr(model, "conv", None)
-    if conv is None:
+    if conv is None or not getattr(model, "space_to_depth", True):
         return None
     c0 = conv.convs[0]
     k, s, p = c0.kernel_size[0], c0.stride[0], c0.padding[0]

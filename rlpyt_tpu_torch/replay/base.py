@@ -97,6 +97,11 @@ class BaseReplayBuffer:
         self.t = 0          # next write row
         self.filled_t = 0   # rows holding data (<= size_T)
 
+    @property
+    def size(self) -> int:
+        """Capacity in transitions over all lanes (size_T * B)."""
+        return self.size_T * self.B
+
     def init(self, example: SamplesToBuffer):
         """Allocate the ring from one single-step example (no lead dims)."""
         self._obs_shapes = tree_map(lambda o: tuple(o.shape),

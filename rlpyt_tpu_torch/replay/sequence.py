@@ -87,6 +87,11 @@ class PrioritizedSequenceReplayBuffer:
         self.t = 0          # next write row
         self.filled_t = 0   # rows holding data (<= size_T)
 
+    @property
+    def size(self) -> int:
+        """Capacity in transitions over all lanes (size_T * B)."""
+        return self.size_T * self.B
+
     def init(self, example: SamplesToBuffer, rnn_example):
         """Allocate from one single-step example (no lead dims);
         ``rnn_example``: the per-lane rnn state, leaves [H]."""

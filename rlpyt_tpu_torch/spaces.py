@@ -1,15 +1,31 @@
-"""Action/observation spaces (port of rlpyt_tpu/spaces.py: IntBox,
-FloatBox, Composite)."""
+"""Action/observation spaces (port of rlpyt_tpu/spaces.py: Space,
+IntBox, FloatBox, Composite)."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 import torch
 
 
-class IntBox:
+class Space:
+    """Interface: ``sample`` draws from a ``torch.Generator`` on its
+    device, ``null_value`` is the zero element used to prefill buffers
+    (prev_action at reset)."""
+
+    shape: Optional[Tuple[int, ...]]
+    dtype: Any
+
+    def sample(self, generator: torch.Generator,
+               batch_shape: Tuple[int, ...] = ()):
+        raise NotImplementedError
+
+    def null_value(self, device="cuda"):
+        raise NotImplementedError
+
+
+class IntBox(Space):
     """Discrete range [low, high)."""
 
     def __init__(self, low: int, high: int, shape: Tuple[int, ...] = (),
@@ -42,7 +58,7 @@ class IntBox:
         return f"IntBox({self.low}, {self.high}, shape={self.shape})"
 
 
-class FloatBox:
+class FloatBox(Space):
     """Continuous box [low, high] of float32 (bounds broadcast to
     ``shape``)."""
 
@@ -75,7 +91,7 @@ class FloatBox:
         return f"FloatBox(shape={self.shape})"
 
 
-class Composite:
+class Composite(Space):
     """A dict of spaces, mapped onto a dict observation.  ``sample``
     draws each subspace in the dict's order from the one generator."""
 

@@ -35,12 +35,56 @@ def tree_select(pred: torch.Tensor, on_true, on_false):
     return tree_map(_sel, on_true, on_false)
 
 
+def tree_index(tree, idx):
+    """Index every leaf: ``tree_index(s, (t, b))`` is rlpyt's ``s[t, b]``."""
+    return tree_map(lambda x: x[idx], tree)
+
+
+def tree_take(tree, indices: torch.Tensor, axis: int = 0):
+    """Gather ``indices`` (any shape) along ``axis`` of every leaf, as
+    ``jnp.take`` does."""
+    indices = torch.as_tensor(indices)
+
+    def _take(x):
+        idx = indices.to(x.device, torch.int64)
+        out = torch.index_select(x, axis, idx.reshape(-1))
+        return out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
+                           + tuple(x.shape[axis + 1:]))
+
+    return tree_map(_take, tree)
+
+
+def tree_concat(trees, axis: int = 0):
+    return tree_map(lambda *xs: torch.cat(xs, dim=axis), *trees)
+
+
+def tree_stack(trees, axis: int = 0):
+    return tree_map(lambda *xs: torch.stack(xs, dim=axis), *trees)
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
 def buffer_from_example(example, leading_dims, device) -> Any:
     """Zeroed tree with ``leading_dims`` prepended to every leaf."""
     lead = tuple(leading_dims)
     return tree_map(lambda x: torch.zeros(lead + tuple(x.shape),
                                           dtype=x.dtype, device=device),
                     example)
+
+
+def get_leading_dims(tree, n_dims: int = 1) -> tuple:
+    """The first ``n_dims`` dims, which every leaf must share."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return ()
+    lead = tuple(leaves[0].shape[:n_dims])
+    for leaf in leaves[1:]:
+        if tuple(leaf.shape[:n_dims]) != lead:
+            raise ValueError(f"mismatched leading dims: "
+                             f"{tuple(leaf.shape[:n_dims])} vs {lead}")
+    return lead
 
 
 def infer_leading_dims(x: torch.Tensor, dim: int):
@@ -102,6 +146,19 @@ def select_at_indexes(indexes: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -1, indexes.long().unsqueeze(-1)).squeeze(-1)
 
 
+def to_onehot(indexes: torch.Tensor, num: int, dtype=torch.float32
+              ) -> torch.Tensor:
+    """[...] integer indexes -> [..., num]; an index outside [0, num)
+    gives a row of zeros, as ``jax.nn.one_hot`` does."""
+    arange = torch.arange(num, device=indexes.device)
+    return (indexes.unsqueeze(-1) == arange).to(dtype)
+
+
+def from_onehot(onehot: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    """The index of the largest entry (the first of equal ones)."""
+    return torch.argmax(onehot, dim=-1).to(dtype)
+
+
 def valid_mean(x: torch.Tensor, valid: torch.Tensor | None = None
                ) -> torch.Tensor:
     """Mean over valid entries."""
@@ -109,6 +166,37 @@ def valid_mean(x: torch.Tensor, valid: torch.Tensor | None = None
         return x.mean()
     valid = valid.to(x.dtype)
     return (x * valid).sum() / torch.clamp(valid.sum(), min=1e-8)
+
+
+def tree_to_numpy(tree):
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def tree_map_with_path_names(fn: Callable[[str, Any], Any], tree):
+    """Map ``fn(name, leaf)``, the name the leaf's path joined by '/':
+    a NamedTuple field by its name, a sequence item by its index, a dict
+    entry as ``['key']``, as the JAX package names ``jax.tree_util`` key
+    paths."""
+
+    def walk(path, t):
+        if t is None:
+            return None
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(path + (f,), x)
+                             for f, x in zip(t._fields, t)))
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(path + (str(i),), x)
+                           for i, x in enumerate(t))
+        if isinstance(t, dict):
+            return {k: walk(path + (f"[{k!r}]",), v) for k, v in t.items()}
+        return fn("/".join(path), t)
+
+    return walk((), tree)
+
+
+def tree_copy(tree):
+    """A fresh tensor for every leaf."""
+    return tree_map(torch.clone, tree)
 
 
 def state_of(obj, names) -> dict:

@@ -3,6 +3,8 @@ its learning tests (which run where only PyTorch is installed) import
 nothing of JAX (jax, flax, optax) and nothing of the JAX package
 (rlpyt_tpu)."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -18,6 +20,9 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
                  ROOT / "tests" / "test_torch_dqn_learning.py",
                  ROOT / "tests" / "test_torch_atari_learning.py",
                  ROOT / "tests" / "test_torch_checkpoint.py",
+                 ROOT / "tests" / "test_torch_learning_coverage.py",
+                 ROOT / "tests" / "test_torch_host_learning.py",
+                 ROOT / "tests" / "test_torch_surface.py",
                  ROOT / "tests" / "_torch_multihost_worker.py"])
 
 
@@ -79,4 +84,35 @@ def test_scan_covers_the_port():
     assert "tests/test_torch_atari_learning.py" in names
     assert "tests/test_torch_checkpoint.py" in names
     assert "tests/_torch_multihost_worker.py" in names
+    assert "tests/test_torch_learning_coverage.py" in names
+    assert "tests/test_torch_host_learning.py" in names
     assert "chip_smoke.py" in names and len(names) > 20
+
+
+def test_package_imports_build_and_load_nothing():
+    """Importing the re-exporting packages (models, distributions, ops)
+    and every kernel wrapper neither runs nvcc nor loads a library: in a
+    fresh interpreter whose ``ctypes.CDLL`` and ``subprocess`` raise once
+    torch is imported, the imports succeed, no wrapper holds a library,
+    and no JAX module was imported."""
+    code = """
+import ctypes, subprocess, sys
+import torch
+def refuse(*args, **kwargs):
+    raise AssertionError(f"called at import: {args[:1]}")
+ctypes.CDLL = subprocess.run = subprocess.Popen = refuse
+import rlpyt_tpu_torch.models as models
+import rlpyt_tpu_torch.distributions as distributions
+import rlpyt_tpu_torch.ops as ops
+from rlpyt_tpu_torch.ops import frame_gather, lstm, union_gather
+assert models.Conv2dHeadModel and distributions.Categorical
+assert ops.polyak_update
+assert frame_gather._lib is lstm._lib is union_gather._lib is None
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "rlpyt_tpu")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -484,3 +484,35 @@ def test_sac_fixed_alpha_matches_jax():
     assert_info_close(info, jinfo)
     assert float(info.alpha) == 1.0
     assert_nets_close(algo.agent, new_state.params, **CLOSE)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_q_loss_matches_jax(kind):
+    """``q_loss`` at the JAX targets equals the JAX ``q_loss`` at the
+    same weights, batch and target noise."""
+    jalgo, algo, state = make_algos(kind)
+    jb, tb = make_batch()
+    params, key = state.params, jax.random.key(11)
+    noise = update_noise(kind, key)
+    nets = algo.agent.nets
+    with torch.no_grad():
+        if kind == "sac":
+            _, k_next, _ = jax.random.split(key, 3)
+            alpha = jnp.exp(state.log_alpha)
+            want = jalgo.q_loss((params["q1"], params["q2"]), params, alpha,
+                                jb, k_next)
+            obs = tb.target_inputs.observation
+            a, logp = algo.agent.pi(obs, algo.generator, noise[0])
+            next_q = torch.minimum(nets["target_q1"](obs, a),
+                                   nets["target_q2"](obs, a))
+            y = algo._targets(tb, next_q - float(alpha) * logp)
+        elif kind == "td3":
+            _, k_noise = jax.random.split(key)
+            want = jalgo.q_loss((params["q1"], params["q2"]), params, jb,
+                                k_noise)
+            y = algo._targets(tb, algo._next_q(tb, noise))
+        else:
+            want = jalgo.q_loss(params["q"], params, jb)
+            y = algo._targets(tb, algo._next_q(tb, None))
+        got = algo.q_loss(tb, y)
+    np.testing.assert_allclose(float(got), float(want), **CLOSE)
