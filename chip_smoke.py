@@ -191,6 +191,15 @@ Phases, each fatal on failure:
      the config predicts; (c) K3a, K3 and K4 against their plain versions
      and timed at the twin's shapes (F=1031, H=128; burn-in T=10,
      training T=23, collection T=1 at B=32, evaluation T=1 at B=8).
+ 19. K3a at the shapes of every LSTM config the script drives
+     (P19_SHAPES: the MinAtar PG LSTM, MujocoLstmModel, MinAtar R2D1, the
+     R2D1 twin, Atari R2D1 on the host path and bench_r2d1.py's; M = T * B
+     rows, K = 135-6919): the plan taken, the largest error against the
+     plain version (1e-4 of the largest value, TF32 off), the same bits
+     over two launches, the device time beside addmm's and the bound,
+     and the main paths' launches at that shape.  The phases that drive
+     K3a (7, 12b, 12c, 13d, 14b, 15d, 16b, 18b) check its launches by
+     (M, N, K) and the count that the plan splits over a cluster.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -217,6 +226,11 @@ builds the kernels and runs phase 17 alone, with no result line.
 
 builds the kernels and runs phase 18 alone (its ``kernels`` line, no
 result line).
+
+    python3 chip_smoke.py --phase19
+
+builds the kernels and runs phase 19 alone (its ``kernels`` line with
+null launches, no result line).
 """
 from __future__ import annotations
 
@@ -674,7 +688,54 @@ def zero_launches():
                ug.gather_union_rows, ug.gather_union_window):
         fn.launches = 0
     L.input_proj.split_launches = 0
+    L.input_proj.shape_launches = {}
     L.lstm_fwd.step_launches = 0
+
+
+# K3a's launches on the main paths by (M, N, K), summed over the paths
+# this process drove and checked (phases 7, 12b, 12c, 13d, 14b, 15d,
+# 18b): the launches of phase 19's entries.
+PROJ_PATH_LAUNCHES: dict = {}
+
+
+def proj_shapes(N: int, K: int, counts) -> dict:
+    """K3a's launches by (M, N, K) from (M, launches) pairs, those of
+    equal M added, none of 0 kept."""
+    out = {}
+    for M, n in counts:
+        if n:
+            out[M, N, K] = out.get((M, N, K), 0) + n
+    return out
+
+
+def r2d1_proj_shapes(algo, H: int, F: int, steps) -> dict:
+    """K3a's launches by shape on an R2D1 path: ``steps`` (lanes, env
+    steps) pairs for collection and evaluation, one launch of ``lanes``
+    rows a step, and for each update the online and the target network's
+    burn-in and training windows of ``batch_b`` sequences."""
+    u = algo.update_counter
+    return proj_shapes(4 * H, F, list(steps) + [
+        (algo.warmup_T * algo.batch_b, 2 * u),
+        ((algo.batch_T + algo.n_step) * algo.batch_b, 2 * u)])
+
+
+def hold_proj_shapes(L, what: str, want: dict) -> int:
+    """The main path just driven launched K3a exactly ``want[(M, N, K)]``
+    times at each shape and at no other; ``input_proj.split_launches``
+    equals the launches that the plan splits over a cluster.  Adds them to
+    PROJ_PATH_LAUNCHES; returns the split launches."""
+    got = L.input_proj.shape_launches
+    if got != want:
+        fail(f"{what}: K3a launches by (M, N, K) {got}, expected {want}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split = sum(n for (M, N, K), n in want.items()
+                if L.proj_plan(M, N, K, n_sm).splits > 1)
+    if L.input_proj.split_launches != split:
+        fail(f"{what}: {L.input_proj.split_launches} K3a launches split K "
+             f"over a cluster, the plan predicts {split}")
+    for shape, n in want.items():
+        PROJ_PATH_LAUNCHES[shape] = PROJ_PATH_LAUNCHES.get(shape, 0) + n
+    return split
 
 
 def flagship_agent_algo(dev):
@@ -790,7 +851,9 @@ def run_r2d1(L, dev):
     losses and priorities and that every LSTM call of the run went
     through the kernels: per iteration T collection steps (one K3a and
     one K3 launch each, K3 at T=1), per update 4 forward calls (online
-    and target, burn-in and training window) and one backward (K4)."""
+    and target, burn-in and training window) and one backward (K4); K3a
+    by shape, and those of its launches that the plan splits over a
+    cluster (the collection's)."""
     from rlpyt_tpu_torch.ops import frame_gather as fg
 
     logger = row_logger()
@@ -811,7 +874,9 @@ def run_r2d1(L, dev):
         fail(f"R2D1 ran {updates} updates, expected "
              f"{learning_itrs * algo.updates_per_optimize}")
     want = {"lstm_input_proj": R2D1_ITR * R2D1_T + 4 * updates,
-            "lstm_input_proj_split": R2D1_ITR * R2D1_T,
+            "lstm_input_proj_split": hold_proj_shapes(
+                L, "phase 7", r2d1_proj_shapes(
+                    algo, LSTM_H, LSTM_F, [(R2D1_B, R2D1_ITR * R2D1_T)])),
             "lstm_fwd": R2D1_ITR * R2D1_T + 4 * updates,
             "lstm_fwd_step": R2D1_ITR * R2D1_T,
             "lstm_bwd": updates}
@@ -1331,7 +1396,8 @@ def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
     T collection steps and one bootstrap (K3a and K3 at T=1 each), then
     lstm_ppo's 16 minibatch windows (K3a, K3, K4 each) or lstm_a2c's one
     window; each evaluation step one K3a and one K3 at T=1; none for the
-    feedforward configs.  Evaluation steps are counted at the env (its
+    feedforward configs; K3a's by shape, and those of them that the plan
+    splits over a cluster.  Evaluation steps are counted at the env (its
     lanes are 32, the trainer's 128).  Returns the LSTM launch counts."""
     import contextlib
     import csv
@@ -1374,12 +1440,20 @@ def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
     algo, n_eval = runner.algo, eval_steps[0]
     if not key.startswith("lstm"):
         want = dict.fromkeys(launches, 0)
+        shapes = {}
     else:
         windows = algo.updates_per_optimize    # 16 for PPO, 1 for A2C
-        t1 = n_itr * (cfg["sampler"]["batch_T"] + 1) + n_eval
+        T, B = cfg["sampler"]["batch_T"], cfg["sampler"]["batch_B"]
+        t1 = n_itr * (T + 1) + n_eval
         want = {"lstm_input_proj": t1 + n_itr * windows,
                 "lstm_fwd": t1 + n_itr * windows, "lstm_fwd_t1": t1,
                 "lstm_bwd": n_itr * windows}
+        # Recurrent PPO's minibatches take whole lanes.
+        shapes = proj_shapes(4 * PG_H, PG_F, [
+            (B, n_itr * (T + 1)), (cfg["sampler"]["eval_n_envs"], n_eval),
+            (T * B // getattr(algo, "minibatches", 1), n_itr * windows)])
+    launches["lstm_input_proj_split"] = L.input_proj.split_launches
+    want["lstm_input_proj_split"] = hold_proj_shapes(L, key, shapes)
     if launches != want:
         fail(f"{key}: LSTM launches {launches}, expected {want} "
              f"({n_eval} evaluation steps)")
@@ -1803,7 +1877,8 @@ def check_gaussian_ppo_against_cpu(L, dev):
     as ``hold_update`` says.  The card's launches must be exactly the
     path's:
     one K3a and one one-step K3 for the bootstrap value, then a K3a, a
-    K3 and a K4 for each of the 10 x 2 minibatch windows.  Returns the
+    K3 and a K4 for each of the 10 x 2 minibatch windows (K3a by shape,
+    and those of them that the plan splits over a cluster).  Returns the
     launch counts."""
     from rlpyt_tpu_torch.agents.pg import RecurrentGaussianPgAgent
     from rlpyt_tpu_torch.algos.pg import PPO
@@ -1844,14 +1919,18 @@ def check_gaussian_ppo_against_cpu(L, dev):
                  for k, v in agent.model.state_dict().items()}
         out[d] = (info, before, after, grads, {
             "lstm_input_proj": L.input_proj.launches,
+            "lstm_input_proj_split": L.input_proj.split_launches,
             "lstm_fwd": L.lstm_fwd.launches,
             "lstm_fwd_t1": L.lstm_fwd.step_launches,
             "lstm_bwd": L.lstm_bwd.launches})
     (info_c, before, after_c, grads_c, _), \
         (info_g, _, after_g, grads_g, launches) = out["cpu"], out[dev]
     windows = MJ_PPO["epochs"] * MJ_MINIBATCHES
-    want = {"lstm_input_proj": windows + 1, "lstm_fwd": windows + 1,
-            "lstm_fwd_t1": 1, "lstm_bwd": windows}
+    want = {"lstm_input_proj": windows + 1,
+            "lstm_input_proj_split": hold_proj_shapes(
+                L, "phase 13d", proj_shapes(4 * MJ_H, MJ_F, [
+                    (MJ_B, 1), (MJ_T * MJ_B // MJ_MINIBATCHES, windows)])),
+            "lstm_fwd": windows + 1, "lstm_fwd_t1": 1, "lstm_bwd": windows}
     if launches != want:
         fail(f"phase 13d: LSTM launches {launches}, expected {want}")
     for field in info_c._fields:
@@ -1955,8 +2034,10 @@ def run_minatar_dqn(L, key: str, log_root: Path):
     LSTM launches of every iteration: T collection steps (one K3a and one
     one-step K3 each), per update four forward windows (K3a, K3) and one
     backward (K4), and one K3a and one-step K3 per evaluation step
-    (counted at the env: 32 lanes); for the others no LSTM launch.
-    Returns (runner, rows, per-iteration launch counts)."""
+    (counted at the env: 32 lanes), and over the run K3a's launches by
+    shape and those of them that the plan splits over a cluster; for the
+    others no LSTM launch.  Returns (runner, rows, per-iteration launch
+    counts)."""
     import contextlib
     import csv
     import io
@@ -2024,6 +2105,11 @@ def run_minatar_dqn(L, key: str, log_root: Path):
         if got != want:
             fail(f"14b {key} iteration {i + 1}: LSTM launches {got}, "
                  f"expected {want} ({n_eval} evaluation steps)")
+    n_eval = sum(it["eval_steps"] for it in per_itr)
+    hold_proj_shapes(L, f"14b {key}", r2d1_proj_shapes(
+        algo, MD_H, MD_F, [(MD_B, MD_T * n_itr), (MD_EVAL_B, n_eval)])
+        if key == "r2d1" else {})
+    for i, row in enumerate(rows):
         fields = ["StepsPerSecond", "EvalReturnAverage"] + (
             ["loss", "grad_norm", "td_abs_err"] if learning[i] else [])
         for field in fields:
@@ -2503,6 +2589,10 @@ def run_atari(fg, L, key: str, log_root: Path, asynchronous=False):
         lags = runner.actor_lags
         if not all(0 <= lag <= 2 for lag in lags):
             fail(f"15e: actor parameter lags {lags}, not within 2 batches")
+    hold_proj_shapes(L, f"15 {name}", r2d1_proj_shapes(
+        algo, AT_H, AT_F, [(AT_B, T * len(rows)), (
+            AT_EVAL_B, sum(it["eval_steps"] for it in per_itr))])
+        if key == "r2d1" else {})
     return runner, rows, per_itr, tm
 
 
@@ -2885,6 +2975,10 @@ def example5_equal_and_resume(L, dev, tmp: Path) -> dict:
     steps = EX5_N_STEPS // runner.batch_spec.B   # collection steps
     want = {"lstm_input_proj": steps + 4 * updates, "lstm_fwd_t1": steps,
             "lstm_fwd_window": 4 * updates, "lstm_bwd": updates}
+    launches["lstm_input_proj_split"] = L.input_proj.split_launches
+    want["lstm_input_proj_split"] = hold_proj_shapes(
+        L, "16b", r2d1_proj_shapes(runner.algo, MD_H, MD_F,
+                                   [(runner.batch_spec.B, steps)]))
     if updates <= 0 or launches != want:
         fail(f"16b: LSTM launches {launches} with {updates} updates, "
              f"expected {want}")
@@ -3699,6 +3793,35 @@ TW_CASES = [(TW_BATCH_T + TW_NSTEP, TW_BATCH_B, MD_F, MD_H),
             (TW_WARMUP, TW_BATCH_B, MD_F, MD_H), (1, TW_B, MD_F, MD_H),
             (1, TW_EVAL_B, MD_F, MD_H)]
 
+# Phase 19: K3a at the shapes of every LSTM config the script drives,
+# (config, call, M = T * B rows, N = 4H, K = F).
+P19_SHAPES = tuple(
+    (cfg, call, M, 4 * H, F) for cfg, H, F, calls in (
+        ("minatar_pg", PG_H, PG_F, (
+            ("lstm_a2c window", PG_T * PG_B),
+            ("lstm_ppo minibatch", PG_T * PG_B // 4),
+            ("collection", PG_B), ("evaluation", PG_EVAL_B))),
+        ("mujoco_lstm", MJ_H, MJ_F, (
+            ("batch", MJ_T * MJ_B),
+            ("ppo minibatch", MJ_T * MJ_B // MJ_MINIBATCHES),
+            ("collection", MJ_B))),
+        ("minatar_dqn r2d1", MD_H, MD_F, (
+            ("training window", (MD_WINDOW - MD_WARMUP) * MD_BATCH_B),
+            ("burn-in", MD_WARMUP * MD_BATCH_B), ("collection", MD_B),
+            ("evaluation", MD_EVAL_B))),
+        ("r2d1 twin", MD_H, MD_F, (
+            ("training window", (TW_BATCH_T + TW_NSTEP) * TW_BATCH_B),
+            ("burn-in", TW_WARMUP * TW_BATCH_B), ("collection", TW_B),
+            ("evaluation", TW_EVAL_B))),
+        ("atari_dqn r2d1", AT_H, AT_F, (
+            ("training window", AT_WINDOW * AT_B),
+            ("burn-in", AT_WARMUP * AT_B), ("collection", AT_B),
+            ("evaluation", AT_EVAL_B))),
+        ("bench_r2d1", LSTM_H, LSTM_F, (
+            ("training window", 45 * 32), ("burn-in", 20 * 32),
+            ("collection", R2D1_B))))
+    for call, M in calls)
+
 
 def check_conv_head(dev):
     """Phase 18a: Conv2dHeadModel at MinAtar widths, ReLU and tanh,
@@ -3788,6 +3911,9 @@ def run_twin_r2d1(L, dev) -> dict:
     first = -(-algo.min_steps_learn // steps)   # first learning iteration
     updates = (TW_ITR - first + 1) * algo.updates_per_optimize
     want = {"lstm_input_proj": TW_ITR * TW_T + 4 * updates,
+            "lstm_input_proj_split": hold_proj_shapes(
+                L, "phase 18b", r2d1_proj_shapes(
+                    algo, MD_H, MD_F, [(TW_B, TW_ITR * TW_T)])),
             "lstm_fwd": TW_ITR * TW_T + 4 * updates,
             "lstm_fwd_t1": TW_ITR * TW_T, "lstm_bwd": updates}
     if algo.update_counter != updates:
@@ -3852,6 +3978,62 @@ def run_phase18(L, g, dev):
     return times, errs, launches
 
 
+def p19_name(cfg: str, call: str) -> str:
+    """The kernels-line name of phase 19's entry for one config shape."""
+    return "lstm_input_proj_p19_" + "_".join((cfg + " " + call).split())
+
+
+def run_phase19(L, g, dev):
+    """Phase 19: K3a at the shapes of every LSTM config (P19_SHAPES).  At
+    each: the plan taken, the largest error against the plain version
+    (TF32 off; fails above 1e-4 of the largest value, the K3a gate of
+    phase 5), two launches with the same bits (fails otherwise), and the
+    device time beside ``addmm``'s and the bound.  Returns (times,
+    errors, launches) of its kernels-line entries; the launches are the
+    main paths' at that shape (PROJ_PATH_LAUNCHES: none when no path
+    was driven in this process)."""
+    t0 = time.time()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    times, errs, launches, weights = {}, {}, {}, {}
+    for cfg, call, M, N, K in P19_SHAPES:
+        if (N, K) not in weights:
+            weights[N, K] = (
+                torch.randn((K, N), generator=g, device=dev) * K ** -0.5,
+                torch.randn((N,), generator=g, device=dev) * 0.1)
+        w, b = weights[N, K]
+        x = torch.randn((M, K), generator=g, device=dev)
+        plan = L.proj_plan(M, N, K, n_sm)
+        out, again = L.input_proj(x, w, b), L.input_proj(x, w, b)
+        err, rel = rel_err(out, L.input_proj_plain(x, w, b))
+        if not rel <= 1e-4:
+            fail(f"phase 19: K3a {tuple(plan)} at M={M} N={N} K={K} "
+                 f"differs from plain: max err {err:.3g} = {rel:.3g} of "
+                 "max|ref|, tolerance 1e-4")
+        if not torch.equal(out, again):
+            fail(f"phase 19: K3a {tuple(plan)} at M={M} N={N} K={K} gave "
+                 "other bits on a second launch")
+        name = p19_name(cfg, call)
+        times[name] = add_bounds({"lstm_input_proj": proj_times(
+            L, x, [w], b, 20)})["lstm_input_proj"]
+        errs[name] = err
+        launches[name] = PROJ_PATH_LAUNCHES.get((M, N, K), 0) \
+            if PROJ_PATH_LAUNCHES else None
+        t = times[name]
+        print(f"phase 19: {cfg} {call} M={M} N={N} K={K}: plan (tile_m, "
+              f"tile_n, k_chunk, splits) {tuple(plan)}, max abs err "
+              f"{err:.3g}, same bits over two launches; device "
+              f"{t['device_ms']:.4f} ms, addmm {t['library_device_ms']:.4f}"
+              f" ms ({t['device_ms'] / t['library_device_ms']:.2f} x), "
+              f"bound {t['bound_ms']:.5f} ms by {t['bound_by']} "
+              f"({t['device_ms'] / t['bound_ms']:.1f} x); launches on the "
+              f"main paths {launches[name]}")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"phase 19: {time.time() - t0:.1f} s")
+    return times, errs, launches
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3900,6 +4082,8 @@ _UNION_SRC = "rlpyt_tpu_torch/csrc/union_gather.cu"
 # launches.  The "_minatar_twin" entries: the R2D1 learning twin of
 # phase 18 (F=1031, H=128, batch 32 windows of 10 + 20 + 3 rows), with
 # the launches of 18b's run, K3a timed at the training window's 736 rows.
+# The "_p19_" entries: K3a at each config shape of phase 19, with the
+# launches of the main paths at that shape (M, N, K).
 KERNELS = {
     "frame_gather": _GATHER,
     "frame_gather_u7": _GATHER,
@@ -3933,6 +4117,8 @@ KERNELS = {
     "union_rows": (_UNION_SRC, "bench_gather_formulations.py:106"),
     "union_window": (_UNION_SRC, "bench_gather_formulations.py:138"),
 }
+KERNELS.update({p19_name(cfg, call): (_LSTM_SRC, f"{_PALLAS}lstm.py:109")
+                for cfg, call, *_ in P19_SHAPES})
 
 
 def kernels_line(times: dict, errs: dict, launches: dict) -> str:
@@ -3992,6 +4178,12 @@ def main():
     if "--phase18" in sys.argv[1:]:
         times, errs, launches = run_phase18(
             L, torch.Generator(device=dev).manual_seed(0), dev)
+        print(nvidia_smi_line())
+        print(kernels_line(times, errs, launches))
+        return 0
+    if "--phase19" in sys.argv[1:]:
+        times, errs, launches = run_phase19(
+            L, torch.Generator(device=dev).manual_seed(19), dev)
         print(nvidia_smi_line())
         print(kernels_line(times, errs, launches))
         return 0
@@ -4197,6 +4389,8 @@ def main():
     run_phase16(fg, L, g, dev)
     run_phase17(dev, md14)
     for part, new in zip((times, errs, launches), run_phase18(L, g, dev)):
+        part.update(new)
+    for part, new in zip((times, errs, launches), run_phase19(L, g, dev)):
         part.update(new)
 
     print(nvidia_smi_line())

@@ -36,29 +36,50 @@
 //       one producer warpgroup and up to three consumer warpgroups:
 //       - the producer brings raw tiles of x ([BM][32], 4-byte cp.async:
 //         rows of K = 6919 floats are only 4-byte aligned) and of W_x
-//         ([32][128], 16-byte cp.async) into a ring, zero-filled past M, N
+//         ([32][BN], 16-byte cp.async) into a ring, zero-filled past M, N
 //         and the K range, and rewrites each raw W_x tile as two operand
 //         tiles (hi and lo) of K-major 8 x 16-byte core matrices, in a
 //         second ring of two stages;
 //       - a consumer (64 rows) takes x as wgmma's register operand: it
 //         reads its fragments from the raw tile (row stride 36 floats:
-//         32 different banks), splits them, and issues m64n64k8 products
-//         against the operand tiles' descriptors, one 64-column half at
-//         a time so that the stage's sum is 32 registers.
+//         32 different banks), splits them, and issues m64nNk8 products
+//         against the operand tiles' descriptors: one of all 128 columns
+//         (N = 128) or 64 (N = 64), or under three consumers two 64-column
+//         halves, so that the stage's sum fits setmaxnreg's 152 registers.
 //       Four mbarrier arrays (raw full / empty, operand full / empty)
 //       are all that joins them; a wait that never ends traps.
-//       Three shapes of the same kernel:
-//       - 192 rows, three consumers (setmaxnreg gives them 152 registers
-//         each): T*B = 1440 is 8 row tiles, 128 CTAs, one wave;
-//       - 128 rows, two consumers, a deeper raw ring: T*B = 640;
-//       - few rows (collection: T*B = 64): the product is a stream over
-//         W_x, which does not fit the 50 MB L2.  One consumer, a raw ring
-//         of 5 stages, K split over the 8 CTAs of a thread-block cluster.
-//         The partial tiles never go to device memory: each CTA leaves
-//         its tile in shared memory, and after a cluster barrier CTA r
-//         sums rows [8r, 8r+8) of all eight over distributed shared
-//         memory, in a fixed order, adds the bias and writes.  One
-//         launch, no scratch tensor, no atomics: the same bits every run.
+//       Shapes of the same kernel, rows x columns x splits:
+//       - deep K (R2D1's 6919; PR 4): 192 x 128 x 1 (three consumers,
+//         setmaxnreg 152 registers each; T*B = 1440 is 8 row tiles, 128
+//         CTAs, one wave), 128 x 128 x 1 (T*B = 640), and for few rows
+//         (collection: T*B = 64, a stream over W_x, which does not fit the
+//         50 MB L2) 64 x 128 x 8: one consumer, a raw ring of 5 stages, K
+//         split over the 8 CTAs of a thread-block cluster;
+//       - K up to 2048 (the MinAtar and MuJoCo LSTMs, K = 135-1031):
+//         128 x 128 x 1-2, 128 x 64 x 1, 2, 4 and 64 x 64 x 1-8, of which
+//         ops/lstm.py's plan takes the least time by a cost model fitted
+//         to them on an H100: a CTA's fixed cost (3.45-5.46 us) plus 0.75
+//         (64 x 64), 1.09 (128 x 64) or 1.48 us (128 x 128) a 32-deep
+//         stage, in waves of the SMs.  An SM runs two CTAs' stages no
+//         faster than one after the other, so what shortens a launch is
+//         fewer stages on each SM: the plan splits K until the grid fills
+//         one wave, and no further (at M <= 64, 5-7 splits of 1-5 stages).
+//       A split's partial tiles never go to device memory: each CTA leaves
+//       its tile in shared memory, and after a cluster barrier CTA r sums
+//       its share of the rows of all the splits' tiles over distributed
+//       shared memory, in a fixed order, adds the bias and writes.  One
+//       launch, no scratch tensor, no atomics: the same bits every run.
+//       Without a split the launch is not a cluster launch.
+//       Measured on an H100 (bench_torch_proj_shapes.py --sweep) and not
+//       kept: two m64n64k8 halves in 128-column tiles under two consumers
+//       or fewer (one m64n128k8 is 0-9 % faster); two accumulators a
+//       stage, k-steps 0, 2 and 1, 3 (6-20 % slower); a stage's products
+//       draining while the next stage's issue (1.32 x slower: ptxas
+//       serializes wgmma whose accumulators are read in flight, C7514);
+//       64 x 128 tiles below K = 2048 (within 3 % of 128 x 64 at M = 640
+//       and 736; 15 % faster at M = 320 in 5 splits, a grid of 100 CTAs
+//       that the cost model counts as two waves); the generic FFMA kernel
+//       (2.2-27 x slower than the best shape at every config shape).
 //       W_x not 16-byte aligned or 4H not a multiple of 4 take a plain
 //       shared-memory-tiled FFMA kernel.
 //   K3 / K4 do 2*T*B*H*4H operations in T dependent steps: on paper bound
@@ -116,7 +137,6 @@ namespace {
 
 constexpr int kBK = 32;                // depth of a shared-memory stage
 constexpr int kAStride = kBK + 4;      // floats; x fragments hit 32 banks
-constexpr int kSplit = 8;              // CTAs of a cluster sharing a tile's K
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -155,9 +175,7 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-constexpr int kWgBN = 128;          // tile width: two wgmma of n = 64
 constexpr int kWgOp = 2;            // stages of split, transposed W_x tiles
-constexpr int kOpTile = kBK * kWgBN;   // floats of one hi or lo tile
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -233,38 +251,100 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32],
         "r"(accumulate));
 }
 
-// C[m0.., n0..] = A @ B + bias for a tile of 64 * CW rows by 128 columns.
-// CW consumer warpgroups (64 rows each) and one producer warpgroup, which
-// never meet after the first barrier:
+// d (64 x 128, fp32) = a (64 x 8 TF32, registers) @ b (8 x 128 TF32,
+// shared memory, K-major) + (accumulate ? d : 0).
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b_desc,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc),
+        "r"(accumulate));
+}
+
+// One product of the consumers' loop: WN = 64 or 128 columns.
+template <int WN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[WN / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b_desc, int accumulate) {
+  if constexpr (WN == 64)
+    wgmma_m64n64k8(d, a, b_desc, accumulate);
+  else
+    wgmma_m64n128k8(d, a, b_desc, accumulate);
+}
+
+// One k-step of a K3a consumer: splits the x fragments of k [8 ks, +8)
+// into (ah, al) and issues x_lo@w_hi + x_hi@w_lo + x_hi@w_hi for columns
+// [WN half, +WN) of the stage's operand tiles into d, one commit group.
+template <int BN, int WN>
+__device__ __forceinline__ void proj_kstep(const float* ap, const float* hi,
+                                           int ks, int half,
+                                           float (&d)[WN / 2],
+                                           uint32_t (&ah)[4],
+                                           uint32_t (&al)[4]) {
+  constexpr int kOpTile = kBK * BN;
+  split_tf32(ap[ks * 8], ah[0], al[0]);
+  split_tf32(ap[ks * 8 + 8 * kAStride], ah[1], al[1]);
+  split_tf32(ap[ks * 8 + 4], ah[2], al[2]);
+  split_tf32(ap[ks * 8 + 8 * kAStride + 4], ah[3], al[3]);
+  // W_x^T rows [WN half, +WN), k [8 ks, +8): core matrices of 4 k lie
+  // BN * 16 bytes apart, those of 8 n rows 128 bytes apart.
+  const float* tile = hi + (2 * ks * BN + half * WN) * 4;
+  const uint64_t desc_hi = wgmma_desc(tile, BN * 16, 128);
+  const uint64_t desc_lo = wgmma_desc(tile + kOpTile, BN * 16, 128);
+  wgmma_fence();
+  wgmma_tf32<WN>(d, al, desc_hi, ks > 0);   // small terms first
+  wgmma_tf32<WN>(d, ah, desc_lo, 1);
+  wgmma_tf32<WN>(d, ah, desc_hi, 1);
+  wgmma_commit();
+}
+
+// C[m0.., n0..] = A @ B + bias for a tile of 64 * CW rows by BN (64 or
+// 128) columns.  CW consumer warpgroups (64 rows each) and one producer
+// warpgroup, which never meet after the first barrier:
 // - the producer brings raw tiles of x and W_x into a ring of RAW
-//   stages with cp.async, and turns each raw W_x tile [32 k][128 n] into
+//   stages with cp.async, and turns each raw W_x tile [32 k][BN n] into
 //   the two operands wgmma can read: hi and lo TF32 values, transposed to
 //   K-major core matrices ([k / 4][n][k % 4]), in a ring of kWgOp stages;
 // - a consumer reads its rows of raw x from shared memory as wgmma's
 //   register operand, splits them, and issues x_lo@w_hi + x_hi@w_lo +
-//   x_hi@w_hi for the 4 k-steps of a stage into a zeroed 64 x 64 sum,
-//   which it then adds to the running sum: once for each half of the 128
-//   columns.
+//   x_hi@w_hi for the 4 k-steps of a stage into a zeroed 64-row sum,
+//   which it then adds to the running sum: one wgmma of all BN columns,
+//   or of 64 at a time under three consumers.
 // mbarriers: full_raw / full_op are the producer's "landed" signals,
-// empty_raw / empty_op the consumers' "read" signals.
+// empty_raw / empty_op the consumers' "read" signals.  SPLIT > 1: the
+// SPLIT CTAs of a cluster along blockIdx.z each take k_chunk rows of W_x
+// and sum their tiles over distributed shared memory.
 // Needs N % 4 == 0 and B, bias, C 16-byte aligned.
-template <int CW, int RAW, int SPLIT>
+template <int CW, int BN, int RAW, int SPLIT>
 __global__ void __launch_bounds__((CW + 1) * 128, 1)
 proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                   const float* __restrict__ bias, float* __restrict__ C, int M,
                   int N, int K, int k_chunk) {
   constexpr int BM = 64 * CW;
-  static_assert(SPLIT == 1 || (CW == 1 && BM % SPLIT == 0),
-                "a split tile is one warpgroup's 64 rows");
-  constexpr int kRawA = BM * kAStride, kRawB = kBK * kWgBN;
+  // Columns of one wgmma: all of a 128-column tile, but in 64-column
+  // halves under three consumers (setmaxnreg's 152 registers).
+  constexpr int WN = BN == 128 && CW < 3 ? 128 : 64;
+  constexpr int kHalves = BN / WN;
+  static_assert(BN == 64 || BN == 128, "tiles of 64 or 128 columns");
+  static_assert(SPLIT >= 1 && SPLIT <= 8 && (SPLIT == 1 || CW < 3),
+                "clusters of at most 8 CTAs, of one or two consumers");
+  constexpr int kRawA = BM * kAStride, kRawB = kBK * BN;
+  constexpr int kOpTile = kBK * BN;        // floats of one hi or lo tile
   extern __shared__ __align__(16) float smem[];
   float* rawA = smem;                        // [RAW][BM][kAStride]
-  float* rawB = rawA + RAW * kRawA;       // [RAW][32][128]
-  float* opB = rawB + RAW * kRawB;        // [kWgOp][hi, lo][8][128][4]
+  float* rawB = rawA + RAW * kRawA;       // [RAW][32][BN]
+  float* opB = rawB + RAW * kRawB;        // [kWgOp][hi, lo][8][BN][4]
   __shared__ __align__(8) uint64_t full_raw[RAW], empty_raw[RAW],
       full_op[kWgOp], empty_op[kWgOp];
   const int tid = threadIdx.x, wg = tid / 128;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kWgBN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int kb = blockIdx.z * k_chunk;       // this CTA's K range
   const int ke = min(K, kb + k_chunk);
   const int nk = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
@@ -285,6 +365,9 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     if constexpr (CW == 3)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
     const int p = tid - CW * 128, prow = p / 32, lane = p % 32;
+    // W_x rows of BN / 4 float4 each, 512 / BN rows a pass.
+    constexpr int kVec = BN / 4, kPass = 128 / kVec;
+    const int wrow = p / kVec, wv = p % kVec;
     auto load_raw = [&](int kt) {
       const int slot = kt % RAW, k0 = kb + kt * kBK;
       {
@@ -301,15 +384,15 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
         }
       }
       {
-        float* dst = rawB + slot * kRawB + prow * kWgBN + lane * 4;
-        const float* src = Bm + (int64_t)(k0 + prow) * N + n0 + lane * 4;
-        const int64_t step = (int64_t)4 * N;
-        const bool n_ok = n0 + lane * 4 < N;
+        float* dst = rawB + slot * kRawB + wrow * BN + wv * 4;
+        const float* src = Bm + (int64_t)(k0 + wrow) * N + n0 + wv * 4;
+        const int64_t step = (int64_t)kPass * N;
+        const bool n_ok = n0 + wv * 4 < N;
 #pragma unroll
-        for (int r = 0; r < kBK / 4; ++r) {
-          const bool ok = n_ok && k0 + prow + r * 4 < ke;
+        for (int r = 0; r < kBK / kPass; ++r) {
+          const bool ok = n_ok && k0 + wrow + r * kPass < ke;
           cp_async<16>(dst, ok ? src : Bm, ok);
-          dst += 4 * kWgBN;
+          dst += kPass * BN;
           src += step;
         }
       }
@@ -319,6 +402,10 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       if (kt < nk) load_raw(kt);
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     }
+    // Thread p splits column p % BN of the stage's 4-row groups p / BN,
+    // p / BN + 128 / BN, ...
+    constexpr int kTpc = 128 / BN;
+    const int col = p % BN, kq = p / BN;
     for (int kt = 0; kt < nk; ++kt) {
       cp_async_wait<RAW - 2>();   // this thread's part of tile kt landed
       // ... and every producer's, and every producer is done with the
@@ -326,21 +413,22 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       asm volatile("bar.sync 1, 128;\n" ::: "memory");
       mbar_arrive(&full_raw[kt % RAW]);
 
-      // Split and transpose W_x tile kt: column p of every 4 k-rows.
+      // Split and transpose W_x tile kt.
       const int o = kt % kWgOp;
       if (kt >= kWgOp) mbar_wait(&empty_op[o], (kt / kWgOp - 1) & 1);
-      const float* rb = rawB + (kt % RAW) * kRawB + p;
-      float* hi = opB + o * 2 * kOpTile + p * 4;
+      const float* rb = rawB + (kt % RAW) * kRawB + col;
+      float* hi = opB + o * 2 * kOpTile + col * 4;
       float* lo = hi + kOpTile;
 #pragma unroll
-      for (int kc = 0; kc < kBK / 4; ++kc) {
+      for (int j = 0; j < kBK / 4 / kTpc; ++j) {
+        const int kc = kq + j * kTpc;
         uint32_t h[4], l[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          split_tf32(rb[(kc * 4 + i) * kWgBN], h[i], l[i]);
-        *reinterpret_cast<uint4*>(hi + kc * kWgBN * 4) =
+          split_tf32(rb[(kc * 4 + i) * BN], h[i], l[i]);
+        *reinterpret_cast<uint4*>(hi + kc * BN * 4) =
             make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(lo + kc * kWgBN * 4) =
+        *reinterpret_cast<uint4*>(lo + kc * BN * 4) =
             make_uint4(l[0], l[1], l[2], l[3]);
       }
       // The tensor cores read shared memory through the async proxy.
@@ -361,10 +449,9 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
     const int lane = tid % 32, g = lane >> 2, t = lane & 3;
     const int row = wg * 64 + (tid % 128) / 32 * 16 + g;   // and row + 8
-    float acc[64];
+    float acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < nk; ++kt) {
       const int o = kt % kWgOp;
       mbar_wait(&full_raw[kt % RAW], (kt / RAW) & 1);
@@ -372,10 +459,10 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
       const float* ap = rawA + (kt % RAW) * kRawA + row * kAStride + t;
       const float* hi = opB + o * 2 * kOpTile;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float d[32];
+      for (int half = 0; half < kHalves; ++half) {
+        float d[WN / 2];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) d[i] = 0.f;
+        for (int i = 0; i < WN / 2; ++i) d[i] = 0.f;
         uint32_t ah[2][4], al[2][4];
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks) {
@@ -385,20 +472,7 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 #pragma unroll
             for (int i = 0; i < 4; ++i) { pin(ah[b][i]); pin(al[b][i]); }
           }
-          split_tf32(ap[ks * 8], ah[b][0], al[b][0]);
-          split_tf32(ap[ks * 8 + 8 * kAStride], ah[b][1], al[b][1]);
-          split_tf32(ap[ks * 8 + 4], ah[b][2], al[b][2]);
-          split_tf32(ap[ks * 8 + 8 * kAStride + 4], ah[b][3], al[b][3]);
-          // W_x^T rows [64 half, +64), k [8 ks, +8): core matrices of 4 k
-          // lie 128 * 16 bytes apart, those of 8 n rows 128 bytes apart.
-          const float* tile = hi + (2 * ks * kWgBN + half * 64) * 4;
-          const uint64_t desc_hi = wgmma_desc(tile, kWgBN * 16, 128);
-          const uint64_t desc_lo = wgmma_desc(tile + kOpTile, kWgBN * 16, 128);
-          wgmma_fence();
-          wgmma_m64n64k8(d, al[b], desc_hi, ks > 0);   // small terms first
-          wgmma_m64n64k8(d, ah[b], desc_lo, 1);
-          wgmma_m64n64k8(d, ah[b], desc_hi, 1);
-          wgmma_commit();
+          proj_kstep<BN, WN>(ap, hi, ks, half, d, ah[b], al[b]);
         }
         wgmma_wait<0>();
 #pragma unroll
@@ -406,9 +480,9 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 #pragma unroll
           for (int i = 0; i < 4; ++i) { pin(ah[b][i]); pin(al[b][i]); }
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
+        for (int i = 0; i < WN / 2; ++i) {
           pin(d[i]);
-          acc[half * 32 + i] += d[i];
+          acc[half * (WN / 2) + i] += d[i];
         }
       }
       mbar_arrive(&empty_raw[kt % RAW]);
@@ -419,7 +493,7 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     // 8-column tile.
     if constexpr (SPLIT == 1) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + j * 8 + 2 * t;
         if (n >= N) continue;
         const float2 bv = *reinterpret_cast<const float2*>(bias + n);
@@ -434,22 +508,27 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
     } else {
       // The SPLIT CTAs of this tile (a cluster along blockIdx.z) leave
       // their partial tiles in shared memory; CTA r then sums rows
-      // [r * BM / SPLIT, ...) of all of them over distributed shared
-      // memory, a warp per row, in the order of the splits.
+      // [r * kRows, (r + 1) * kRows) of all of them over distributed
+      // shared memory, a warp per row, in the order of the splits.
       cg::cluster_group cluster = cg::this_cluster();
-      constexpr int kRedStride = kWgBN + 4;
+      constexpr int kRedStride = BN + 4;
       float* red = smem;   // [BM][kRedStride]: the rings are drained
+      // ... once every consumer warpgroup has read its last x tile.
+      if constexpr (CW > 1)
+        asm volatile("bar.sync 2, %0;\n" ::"n"(CW * 128) : "memory");
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
           *reinterpret_cast<float2*>(red + (row + 8 * h) * kRedStride + j * 8 +
                                      2 * t) =
               make_float2(acc[j * 4 + 2 * h], acc[j * 4 + 2 * h + 1]);
       cluster.sync();
-      for (int rr = tid / 32; rr < BM / SPLIT; rr += 4) {
-        const int r = cluster.block_rank() * (BM / SPLIT) + rr;
-        const int col = lane * 4;
+      constexpr int kRows = (BM + SPLIT - 1) / SPLIT;
+      const int col = lane * 4, r0 = cluster.block_rank() * kRows;
+      for (int rr = tid / 32; rr < kRows && r0 + rr < BM && col < BN;
+           rr += CW * 4) {
+        const int r = r0 + rr;
         float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int z = 0; z < SPLIT; ++z) {
@@ -477,15 +556,14 @@ proj_wgmma_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
   }
 }
 
-template <int CW, int RAW, int SPLIT>
+template <int CW, int BN, int RAW, int SPLIT>
 cudaError_t launch_proj_wgmma(const float* A, const float* Bm,
                               const float* bias, float* C, int M, int N, int K,
                               int k_chunk, cudaStream_t stream) {
   constexpr int BM = 64 * CW;
   constexpr size_t smem =
-      sizeof(float) * (RAW * (BM * kAStride + kBK * kWgBN) +
-                       kWgOp * 2 * kOpTile);
-  auto kernel = proj_wgmma_kernel<CW, RAW, SPLIT>;
+      sizeof(float) * (RAW * (BM * kAStride + kBK * BN) + kWgOp * 2 * kBK * BN);
+  auto kernel = proj_wgmma_kernel<CW, BN, RAW, SPLIT>;
   static bool opted_in = false;   // once for each shape of the kernel
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -499,14 +577,43 @@ cudaError_t launch_proj_wgmma(const float* A, const float* Bm,
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = SPLIT;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kWgBN - 1) / kWgBN, (M + BM - 1) / BM, SPLIT);
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, SPLIT);
   cfg.blockDim = dim3((CW + 1) * 128);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = SPLIT > 1 ? 1 : 0;   // no cluster without a split
   return cudaLaunchKernelEx(&cfg, kernel, A, Bm, bias, C, M, N, K, k_chunk);
 }
+
+// K3a's shapes, (tile_m, tile_n, splits) -> the kernel that runs them.
+using ProjLaunch = cudaError_t (*)(const float*, const float*, const float*,
+                                   float*, int, int, int, int, cudaStream_t);
+struct ProjShape {
+  int tile_m, tile_n, splits;
+  ProjLaunch launch;
+};
+// What ops/lstm.py PROJ_SHAPES lists: the deep-K shapes (PR 4), and
+// below ops/lstm.py PROJ_MODEL_K those of PROJ_SPLITS.
+constexpr ProjShape kProjShapes[] = {
+    {192, 128, 1, launch_proj_wgmma<3, 128, 3, 1>},
+    {128, 128, 1, launch_proj_wgmma<2, 128, 4, 1>},
+    {64, 128, 8, launch_proj_wgmma<1, 128, 5, 8>},
+    {128, 128, 2, launch_proj_wgmma<2, 128, 4, 2>},
+    {128, 64, 1, launch_proj_wgmma<2, 64, 4, 1>},
+    {128, 64, 2, launch_proj_wgmma<2, 64, 4, 2>},
+    {128, 64, 4, launch_proj_wgmma<2, 64, 4, 4>},
+    {64, 64, 1, launch_proj_wgmma<1, 64, 4, 1>},
+    {64, 64, 2, launch_proj_wgmma<1, 64, 4, 2>},
+    {64, 64, 3, launch_proj_wgmma<1, 64, 4, 3>},
+    {64, 64, 4, launch_proj_wgmma<1, 64, 4, 4>},
+    {64, 64, 5, launch_proj_wgmma<1, 64, 4, 5>},
+    {64, 64, 6, launch_proj_wgmma<1, 64, 4, 6>},
+    {64, 64, 7, launch_proj_wgmma<1, 64, 4, 7>},
+    {64, 64, 8, launch_proj_wgmma<1, 64, 4, 8>},
+};
+
+constexpr int kNumProjShapes = sizeof(kProjShapes) / sizeof(kProjShapes[0]);
 
 // The path for any alignment and any N: 128x128x8 shared-memory tiles,
 // an 8x8 register block per thread, FFMA.
@@ -1216,19 +1323,27 @@ bool plan_ok(int H, int ctas) {
 
 extern "C" {
 
-int lstm_proj_split() { return kSplit; }
 int lstm_proj_k_step() { return kBK; }
 
-// K3a.  x [M, K], wx [K, N], b [N] -> xg [M, N].  ``tile_m`` picks the
-// path: 192 and 128 are the tensor-core kernel with three and two
-// consumer warpgroups (splits == 1, k_chunk >= K); 64 is its few-row
-// shape, one consumer warpgroup, whose cluster of ``splits`` == 8 CTAs
-// takes K rows [z*k_chunk, (z+1)*k_chunk) each (k_chunk a multiple of 32,
-// k_chunk * 8 >= K).  All need N % 4 == 0 and wx, b, xg 16-byte aligned.
-// 0 is the generic kernel.
+// K3a's tensor-core shapes: how many, and shape ``i`` as (tile_m, tile_n,
+// splits); ``ops/lstm.py`` checks its plan against these.
+int lstm_proj_shape_count() { return kNumProjShapes; }
+void lstm_proj_shape(int i, int* tile_m, int* tile_n, int* splits) {
+  *tile_m = kProjShapes[i].tile_m;
+  *tile_n = kProjShapes[i].tile_n;
+  *splits = kProjShapes[i].splits;
+}
+
+// K3a.  x [M, K], wx [K, N], b [N] -> xg [M, N].  (tile_m, tile_n,
+// splits) picks one of kProjShapes, the tensor-core kernel with tiles of
+// tile_m rows (64 for each consumer warpgroup) by tile_n columns; with
+// splits > 1 a cluster of ``splits`` CTAs takes K rows [z*k_chunk,
+// (z+1)*k_chunk) each (k_chunk a multiple of 32, no split empty), else
+// k_chunk >= K.  All need N % 4 == 0 and wx, b, xg 16-byte aligned.
+// tile_m == 0 is the generic kernel.
 int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
-                     int M, int N, int K, int tile_m, int k_chunk, int splits,
-                     void* stream) {
+                     int M, int N, int K, int tile_m, int tile_n, int k_chunk,
+                     int splits, void* stream) {
   if (M == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* A = static_cast<const float*>(x);
@@ -1244,19 +1359,20 @@ int lstm_proj_launch(const void* x, const void* wx, const void* b, void* xg,
       N % 4 == 0 && (reinterpret_cast<uintptr_t>(wx) & 15u) == 0 &&
       (reinterpret_cast<uintptr_t>(xg) & 15u) == 0 &&
       (reinterpret_cast<uintptr_t>(b) & 15u) == 0;
-  const bool whole = (tile_m == 192 || tile_m == 128) && splits == 1 &&
-                     k_chunk >= K;
-  const bool split = tile_m == 64 && splits == kSplit && k_chunk % kBK == 0 &&
-                     (int64_t)k_chunk * splits >= K;
-  if (!aligned || !(whole || split) || (M + tile_m - 1) / tile_m > 65535)
+  const bool covered =
+      splits == 1 ? k_chunk >= K
+                  : k_chunk > 0 && k_chunk % kBK == 0 &&
+                        (int64_t)k_chunk * splits >= K &&
+                        (int64_t)k_chunk * (splits - 1) < K;
+  ProjLaunch launch = nullptr;
+  for (const ProjShape& shape : kProjShapes)
+    if (shape.tile_m == tile_m && shape.tile_n == tile_n &&
+        shape.splits == splits)
+      launch = shape.launch;
+  if (!aligned || !covered || launch == nullptr ||
+      (M + tile_m - 1) / tile_m > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      tile_m == 192
-          ? launch_proj_wgmma<3, 3, 1>(A, W, bias, C, M, N, K, k_chunk, s)
-          : tile_m == 128
-                ? launch_proj_wgmma<2, 4, 1>(A, W, bias, C, M, N, K, k_chunk, s)
-                : launch_proj_wgmma<1, 5, kSplit>(A, W, bias, C, M, N, K,
-                                                  k_chunk, s);
+  cudaError_t err = launch(A, W, bias, C, M, N, K, k_chunk, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

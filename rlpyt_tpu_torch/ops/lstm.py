@@ -29,7 +29,9 @@ kernels mask ragged edges themselves.
 
 Dispatch follows the tensor: CPU tensors take the plain versions; CUDA
 tensors launch the kernels or raise.  Each wrapper counts its launches
-in ``<wrapper>.launches`` (``lstm_fwd.step_launches``: those at T = 1).
+in ``<wrapper>.launches`` (``lstm_fwd.step_launches``: those at T = 1;
+``input_proj.split_launches``: those with K split over a cluster,
+``input_proj.shape_launches``: by (M, N, K)).
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import ctypes
 import functools
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -58,7 +61,7 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_proj_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        lib.lstm_proj_launch.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.lstm_fwd_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
         lib.lstm_bwd_launch.argtypes = [vp] * 12 + [ci] * 4 + [vp]
         for fn in (lib.lstm_proj_launch, lib.lstm_fwd_launch,
@@ -66,14 +69,21 @@ def load():
             fn.restype = ci
         lib.lstm_error_string.argtypes = [ci]
         lib.lstm_error_string.restype = ctypes.c_char_p
-        for fn in (lib.lstm_proj_split, lib.lstm_proj_k_step,
+        for fn in (lib.lstm_proj_k_step, lib.lstm_proj_shape_count,
                    lib.lstm_rec_units, lib.lstm_rec_cluster):
             fn.argtypes, fn.restype = [], ci
-        if (lib.lstm_proj_split(), lib.lstm_proj_k_step(),
-                lib.lstm_rec_units(), lib.lstm_rec_cluster()) \
-                != (PROJ_SPLITS, PROJ_K_STEP, UNITS, CLUSTER):
+        lib.lstm_proj_shape.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
+        lib.lstm_proj_shape.restype = None
+        shapes = set()
+        for i in range(lib.lstm_proj_shape_count()):
+            tm, tn, sp = ci(), ci(), ci()
+            lib.lstm_proj_shape(i, tm, tn, sp)
+            shapes.add((tm.value, tn.value, sp.value))
+        if (lib.lstm_proj_k_step(), lib.lstm_rec_units(),
+                lib.lstm_rec_cluster()) != (PROJ_K_STEP, UNITS, CLUSTER) \
+                or shapes != PROJ_SHAPES:
             raise RuntimeError("lstm.cu and ops/lstm.py disagree on the "
-                               "projection's split or K step or the "
+                               "projection's shapes or K step or the "
                                "recurrences' CTA shape")
         lib.lstm_fwd_smem.argtypes = [ci] * 3
         lib.lstm_bwd_smem.argtypes = [ci] * 2
@@ -181,37 +191,85 @@ def _n_sm(device) -> int:
 
 
 PROJ_K_STEP = 32    # depth of one shared-memory stage of K3a
-PROJ_SPLITS = 8     # CTAs of a cluster that share the K range of a tile
+# Up to this depth the plan comes from PROJ_COST, fitted at K = 135-1031;
+# deeper K (R2D1's 6917 and 6919) keeps the plan tuned there.
+PROJ_MODEL_K = 2048
+# K3a's shapes below PROJ_MODEL_K, (tile_m, tile_n) -> the cost in us on
+# an H100 of a CTA's fixed part, of each 32-deep stage it carries and of
+# a split's reduction, fitted to `bench_torch_proj_shapes.py --sweep`
+# where every CTA runs at once, and the split counts built for it.
+PROJ_COST = {(64, 64): (3.45, 0.75, 0.43), (128, 64): (3.45, 1.09, 0.83),
+             (128, 128): (5.46, 1.48, 0.0)}
+PROJ_SPLITS = {(64, 64): range(1, 9), (128, 64): (1, 2, 4),
+               (128, 128): (1, 2)}
+# K3a's tensor-core shapes, (tile_m, tile_n, splits): tiles of tile_m rows
+# (64 for each consumer warpgroup) by tile_n columns, K over a cluster of
+# ``splits`` CTAs.  lstm.cu builds exactly these.
+PROJ_SHAPES = frozenset(
+    {(192, 128, 1), (128, 128, 1), (64, 128, 8)}
+    | {tile + (s,) for tile, splits in PROJ_SPLITS.items() for s in splits})
 
 
-def proj_plan(M: int, N: int, K: int, n_sm: int):
-    """Which of K3a's paths takes x [M, K] @ wx [K, N], as (tile_m,
-    k_chunk, splits); split z takes rows [z * k_chunk, (z + 1) * k_chunk)
-    of W_x.
+class ProjPlan(NamedTuple):
+    """How K3a runs x [M, K] @ wx [K, N]: tiles of ``tile_m`` rows by
+    ``tile_n`` columns (``tile_m`` 0: the generic kernel), K split over
+    ``splits`` CTAs of a cluster, split z taking rows [z * k_chunk,
+    (z + 1) * k_chunk) of W_x."""
+    tile_m: int
+    tile_n: int
+    k_chunk: int
+    splits: int
 
-    - (64, k_chunk, 8): the few-row path, 64-row tiles whose K range is
-      split over a cluster of 8 CTAs.  Taken for M <= 64 (a collection
-      step, where the product streams W_x once and 64 rows are one tile
-      without padding) and whenever 128-row tiles would leave more than
-      half of the SMs without one.
-    - (192, K rounded up, 1) or (128, K rounded up, 1): the many-row path,
-      no split: tiles of 192 or 128 rows by 128 columns, whichever takes
-      fewer rows of tiles per SM (the 132 SMs take 1440 rows as one wave
-      of 192-row tiles, 640 rows as one of 128-row tiles).
-    - (0, K, 1): the generic kernel, for N not a multiple of 4.
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def proj_plan(M: int, N: int, K: int, n_sm: int) -> ProjPlan:
+    """Which of K3a's shapes takes x [M, K] @ wx [K, N] on a card of
+    ``n_sm`` SMs.
+
+    - N not a multiple of 4: the generic kernel, (0, 128, K, 1).
+    - K up to PROJ_MODEL_K (the MinAtar and MuJoCo LSTMs, K = 135-1031):
+      the shape of PROJ_COST and split count of PROJ_SPLITS that the cost
+      model gives the least time: waves x (fixed + stages x a stage's
+      cost) + a split's reduction.  A split takes ceil(stages / splits)
+      stages, and a count that would leave a split empty is not taken.
+      Clusters of three CTAs or more may not all fit in the GPCs at once,
+      so their wave is three quarters of the SMs.  One split at M = 2048
+      and N = 512; the most splits at M <= 64, where few tiles must share
+      the depth.
+    - Deeper K (R2D1's K = 6919): 128-column tiles.  M <= 64, or 128-row
+      tiles that would leave more than half of the SMs without one:
+      64-row tiles, K over a cluster of 8.  Otherwise no split: tiles of
+      192 or 128 rows, whichever takes fewer rows of tiles per SM (the
+      132 SMs take 1440 rows as one wave of 192-row tiles, 640 as one of
+      128-row tiles).
     """
-    def cdiv(a, b):
-        return -(-a // b)
-
     if N % 4 != 0:
-        return 0, K, 1
-    cols = cdiv(N, 128)
-    if M <= 64 or 2 * cdiv(M, 128) * cols <= n_sm:
-        return (64, cdiv(cdiv(K, PROJ_SPLITS), PROJ_K_STEP) * PROJ_K_STEP,
-                PROJ_SPLITS)
-    tile_m = min((192, 128),
-                 key=lambda bm: cdiv(cdiv(M, bm) * cols, n_sm) * bm)
-    return tile_m, cdiv(K, PROJ_K_STEP) * PROJ_K_STEP, 1
+        return ProjPlan(0, 128, K, 1)
+    stages = _cdiv(K, PROJ_K_STEP)
+    if K > PROJ_MODEL_K:
+        cols = _cdiv(N, 128)
+        if M <= 64 or 2 * _cdiv(M, 128) * cols <= n_sm:
+            return ProjPlan(64, 128, _cdiv(stages, 8) * PROJ_K_STEP, 8)
+        tile_m = min((192, 128),
+                     key=lambda bm: _cdiv(_cdiv(M, bm) * cols, n_sm) * bm)
+        return ProjPlan(tile_m, 128, stages * PROJ_K_STEP, 1)
+
+    def cost(plan):
+        fixed, stage, split = PROJ_COST[plan.tile_m, plan.tile_n]
+        ctas = _cdiv(M, plan.tile_m) * _cdiv(N, plan.tile_n) * plan.splits
+        wave = n_sm if plan.splits <= 2 else n_sm * 3 // 4
+        chunk = plan.k_chunk // PROJ_K_STEP
+        return (_cdiv(ctas, wave) * (fixed + chunk * stage)
+                + (plan.splits > 1) * split)
+
+    plans = [ProjPlan(bm, bn, _cdiv(stages, s) * PROJ_K_STEP, s)
+             for (bm, bn), splits in PROJ_SPLITS.items() for s in splits
+             if _cdiv(stages, _cdiv(stages, s)) == s]
+    return min(plans, key=cost)
 
 
 def input_proj(x, wx, b):
@@ -226,17 +284,19 @@ def input_proj(x, wx, b):
     if M == 0:   # a data-parallel rank that holds no drawn row
         return torch.empty((0, N), dtype=torch.float32, device=x.device)
     lib = load()
-    tile_m, k_chunk, splits = proj_plan(M, N, K, _n_sm(x.device))
+    plan = proj_plan(M, N, K, _n_sm(x.device))
     if wx.data_ptr() % 16 != 0 or b.data_ptr() % 16 != 0:
-        tile_m, k_chunk, splits = 0, K, 1    # a view into another tensor
+        plan = ProjPlan(0, 128, K, 1)    # a view into another tensor
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.lstm_proj_launch(
             x.data_ptr(), wx.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
-            K, tile_m, k_chunk, splits, _stream(x.device))
+            K, *plan, _stream(x.device))
     _raise_on(err, "lstm input projection")
     input_proj.launches += 1
-    input_proj.split_launches += splits > 1
+    input_proj.split_launches += plan.splits > 1
+    input_proj.shape_launches[M, N, K] = \
+        input_proj.shape_launches.get((M, N, K), 0) + 1
     return out
 
 
@@ -369,7 +429,8 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
 
 
 input_proj.launches = 0   # kernel launches, for chip_smoke.py
-input_proj.split_launches = 0   # those of them on the few-row, split-K path
+input_proj.split_launches = 0   # those of them with K split over a cluster
+input_proj.shape_launches = {}   # the launches by (M, N, K)
 lstm_fwd.launches = 0
 lstm_fwd.step_launches = 0   # those of them with T = 1 (a collection step)
 lstm_bwd.launches = 0

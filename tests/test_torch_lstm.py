@@ -168,31 +168,72 @@ def test_wrappers_raise_on_other_devices():
                    torch.empty((T, B, H), device="meta"), meta["c0"])
 
 
-@pytest.mark.parametrize("M,N,K,tile_m", [
-    (64, 2048, 6919, 64), (1440, 2048, 6919, 192), (21, 400, 130, 64),
-    (640, 2048, 6919, 128), (1, 8, 3, 64), (1, 2048, 6919, 64),
-    (63, 2048, 6919, 64), (65, 2048, 6919, 64), (128, 2048, 6919, 64),
-    (1440, 2050, 6919, 0), (32, 512, 135, 64), (128, 512, 135, 64),
-    (512, 512, 135, 64), (2048, 512, 135, 64)])
-def test_proj_splits_cover_k(M, N, K, tile_m):
+# K3a's plan on 132 SMs at every LSTM config's shapes (M = T * B, N = 4H,
+# K = F), as chip_smoke.py's P19_SHAPES lists them, and at ragged ones:
+# ((M, N, K), (tile_m, tile_n, k_chunk, splits)).  Below K = 2048 each is
+# the shape of those built that bench_torch_proj_shapes.py --sweep timed
+# fastest on an H100, but at M = 320 (64 x 64 tiles in 5 splits, 9 %
+# faster: 200 CTAs, which the cost model counts as more than one wave).
+PLAN_CASES = [
+    # minatar_pg (H = 128, F = 135): the lstm_a2c window, a PPO minibatch,
+    # a collection step, an evaluation step
+    ((2048, 512, 135), (128, 64, 160, 1)), ((512, 512, 135), (64, 64, 96, 2)),
+    ((128, 512, 135), (64, 64, 32, 5)), ((32, 512, 135), (64, 64, 32, 5)),
+    # MujocoLstmModel (H = 256, F = 260): the batch, a PPO minibatch, a
+    # collection step
+    ((2048, 1024, 260), (128, 128, 288, 1)),
+    ((1024, 1024, 260), (128, 128, 160, 2)),
+    ((8, 1024, 260), (64, 64, 64, 5)),
+    # minatar_dqn r2d1 (H = 128, F = 1031): training window, burn-in,
+    # collection, evaluation; the R2D1 twin's training window, burn-in and
+    # evaluation (its collection is the evaluation's 32 rows)
+    ((1440, 512, 1031), (128, 128, 544, 2)),
+    ((640, 512, 1031), (128, 64, 544, 2)), ((64, 512, 1031), (64, 64, 160, 7)),
+    ((32, 512, 1031), (64, 64, 160, 7)), ((736, 512, 1031), (128, 64, 544, 2)),
+    ((320, 512, 1031), (128, 64, 288, 4)), ((8, 512, 1031), (64, 64, 160, 7)),
+    # atari_dqn r2d1 (H = 512, F = 6917) and bench_r2d1 (F = 6919): PR 4's
+    # plan, unchanged
+    ((2720, 2048, 6917), (192, 128, 6944, 1)),
+    ((1280, 2048, 6917), (192, 128, 6944, 1)),
+    ((32, 2048, 6917), (64, 128, 896, 8)), ((4, 2048, 6917), (64, 128, 896, 8)),
+    ((2720, 2048, 6919), (192, 128, 6944, 1)),
+    ((1280, 2048, 6919), (192, 128, 6944, 1)),
+    ((32, 2048, 6919), (64, 128, 896, 8)), ((4, 2048, 6919), (64, 128, 896, 8)),
+    ((1440, 2048, 6919), (192, 128, 6944, 1)),
+    ((640, 2048, 6919), (128, 128, 6944, 1)),
+    ((64, 2048, 6919), (64, 128, 896, 8)), ((1, 2048, 6919), (64, 128, 896, 8)),
+    ((63, 2048, 6919), (64, 128, 896, 8)), ((65, 2048, 6919), (64, 128, 896, 8)),
+    ((128, 2048, 6919), (64, 128, 896, 8)),
+    # ragged: the generic kernel for N not a multiple of 4; shallow K
+    ((1440, 2050, 6919), (0, 128, 6919, 1)), ((21, 400, 130), (64, 64, 32, 5)),
+    ((1, 8, 3), (64, 64, 32, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", PLAN_CASES)
+def test_proj_splits_cover_k(shape, plan):
     """The projection's plan on 132 SMs: every row of W_x in exactly one
-    split, each split a multiple of the kernel's K step; the few-row path
-    (64-row tiles, K over a cluster of 8) for M <= 64 and wherever
-    128-row tiles would leave more than half of the SMs idle; the
-    many-row path (no split) otherwise, in 192-row tiles for 1440 rows
-    (one wave of 128 CTAs) and 128-row tiles for 640 (80 CTAs); the
-    generic kernel when N is not a multiple of 4."""
-    got_tile, k_chunk, splits = L.proj_plan(M, N, K, 132)
-    assert got_tile == tile_m
-    ranges = [range(z * k_chunk, min(K, (z + 1) * k_chunk))
-              for z in range(splits)]
+    split, no split empty, each split a whole number of the kernel's K
+    steps, a shape the library builds; at K = 6919 and 6917 PR 4's plan
+    (64-row tiles, K over a cluster of 8, for M <= 64 and wherever
+    128-row tiles would leave more than half of the SMs idle; 192- or
+    128-row tiles without a split otherwise); at smaller K the cost
+    model's choice, and no plan of more CTAs than SMs; the generic kernel
+    when N is not a multiple of 4."""
+    M, N, K = shape
+    got = L.proj_plan(M, N, K, 132)
+    assert tuple(got) == plan
+    ranges = [range(z * got.k_chunk, min(K, (z + 1) * got.k_chunk))
+              for z in range(got.splits)]
     assert [k for r in ranges for k in r] == list(range(K))
-    if tile_m == 64:
-        assert splits == L.PROJ_SPLITS and k_chunk % L.PROJ_K_STEP == 0
-    elif tile_m in (128, 192):
-        assert splits == 1 and k_chunk % L.PROJ_K_STEP == 0
+    assert all(len(r) > 0 for r in ranges)
+    if got.tile_m:
+        assert (got.tile_m, got.tile_n, got.splits) in L.PROJ_SHAPES
+        assert got.k_chunk % L.PROJ_K_STEP == 0
     else:
-        assert (k_chunk, splits) == (K, 1)
+        assert (got.k_chunk, got.splits) == (K, 1)
+    if got.tile_m and K <= L.PROJ_MODEL_K:
+        assert -(-M // got.tile_m) * -(-N // got.tile_n) * got.splits <= 132
 
 
 def split_tf32(v):
@@ -206,14 +247,17 @@ def split_tf32(v):
     return hi, lo
 
 
-def test_three_tf32_products_reproduce_fp32():
-    """The arithmetic K3a relies on, in plain PyTorch at R2D1's F = 6919:
-    x_lo @ w_hi + x_hi @ w_lo + x_hi @ w_hi is within 1e-5 of the largest
-    value of the float32 product; x_hi @ w_hi alone (plain TF32) is not.
-    A product of two TF32 values is exact in float32, so float32 matrix
-    products of the split operands stand for the tensor core's."""
+@pytest.mark.parametrize("F", [6919, 1031, 260, 135])
+def test_three_tf32_products_reproduce_fp32(F):
+    """The arithmetic K3a relies on, in plain PyTorch at the LSTMs' input
+    widths (R2D1's F = 6919, MinAtar R2D1's 1031, MujocoLstmModel's 260,
+    the MinAtar PG models' 135): x_lo @ w_hi + x_hi @ w_lo + x_hi @ w_hi
+    is within 1e-5 of the largest value of the float32 product; x_hi @
+    w_hi alone (plain TF32) is not.  A product of two TF32 values is
+    exact in float32, so float32 matrix products of the split operands
+    stand for the tensor core's."""
     rng = np.random.default_rng(8)
-    F, N = 6919, 96
+    N = 96
     x = torch.from_numpy(rng.standard_normal((32, F)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((F, N)) * F ** -0.5)
                          .astype(np.float32))
@@ -230,6 +274,41 @@ def test_three_tf32_products_reproduce_fp32():
     assert (fp32 - ref).abs().max() <= 1e-5 * scale
     assert (three - ref).abs().max() <= 1e-5 * scale
     assert (one - ref).abs().max() > 1e-5 * scale
+
+
+# K3a's summation orders at the config shapes: (K, k_chunk, splits).
+ORDERS = sorted({(K, p[2], p[3]) for (_, _, K), p in PLAN_CASES
+                 if p[0] and K > 3})
+
+
+@pytest.mark.parametrize("K,k_chunk,splits", ORDERS)
+def test_proj_plan_order_reproduces_fp32(K, k_chunk, splits):
+    """K3a's arithmetic in its order under each plan of the config shapes,
+    in plain PyTorch: split z sums its 32-deep stages of rows [z * k_chunk,
+    (z + 1) * k_chunk), each stage's three TF32 products summed from zero
+    and added to the split's running float32 sum; the splits' sums are
+    then added in split order, and the bias last.  Within 1e-5 of the
+    largest value of the float64 product, as the unsplit product is."""
+    rng = np.random.default_rng(9)
+    M, N = 32, 64
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) * K ** -0.5)
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal(N) * 0.1).astype(np.float32))
+    xh, xl = split_tf32(x)
+    wh, wl = split_tf32(w)
+    out = torch.zeros((M, N))
+    for z in range(splits):
+        acc = torch.zeros((M, N))
+        for k0 in range(z * k_chunk, min(K, (z + 1) * k_chunk),
+                        L.PROJ_K_STEP):
+            st = slice(k0, min(K, z * k_chunk + k_chunk, k0 + L.PROJ_K_STEP))
+            acc = acc + ((xl[:, st] @ wh[st] + xh[:, st] @ wl[st])
+                         + xh[:, st] @ wh[st])
+        out = out + acc
+    out = out + b
+    ref = x.double() @ w.double() + b.double()
+    assert (out.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 @pytest.mark.cuda
