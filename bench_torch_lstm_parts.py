@@ -14,17 +14,30 @@ included (the results of a variant are wrong; only its time is read):
 - ``no cell``: no cell update and no stores of it (K3 and K4);
 - ``no gather``: K4 reads no partial carries;
 - ``no partial``: K4 forms and stores no partial carry;
-- ``barrier only``: all of the above left out.
+- ``barrier only``: all of the above left out;
+
+and for the cluster path (K3 at T > 1 and K4 where W_h fits one
+cluster, H = 128 and 256):
+
+- ``cl no fma``: no contraction (K3 h @ W_h, K4 the partial carry);
+- ``cl no reduce``: the lanes that split a tile's depth are not added
+  up (no shuffles);
+- ``cl no cell``: no cell update (K3 the gates and the state; K4 the sum
+  of the peers' partials and dgates);
+- ``cl no store``: no stores of y, c, gates (K3) or dgates (K4) to device
+  memory;
+- ``cl exchange only``: all four left out: what is left is the exchange
+  of h (K3) or of the partial carries (K4) and the wait for the peers'.
 
 Each variant is the source with one or more lines rewritten; a rewrite
 that does not find its line stops the script, so an edit of those lines
 of ``lstm.cu`` brings ``CUTS`` in step with it.  The variants go to
 ``rlpyt_tpu_torch/csrc/build/parts/`` (git-ignored) and are built in
 parallel.  For each it prints the device times (launches captured in a
-CUDA graph and replayed) of K3 at (T, B) = (45, 32), (20, 32), (1, 64)
-and of K4 at (45, 32), (20, 32), the card's name and power limit, and
-one JSON line.  A part's cost per step is (whole - variant) / T.  Needs
-one CUDA device.
+CUDA graph and replayed) of K3 at H = 512, (T, B) = (45, 32), (20, 32),
+(1, 64), of K4 at (45, 32), (20, 32), and of both at the cluster path's
+CLUSTER_SHAPES, the card's name and power limit, and one JSON line.  A
+part's cost per step is (whole - variant) / T.  Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -40,8 +53,11 @@ from rlpyt_tpu_torch.ops import lstm as L
 from rlpyt_tpu_torch.ops.cuda_build import BUILD_DIR, build_library
 from rlpyt_tpu_torch.utils.cuda_timing import graph_ms
 
-H = 512
-SHAPES = ((45, 32), (20, 32), (1, 64))
+# (H, T, B): R2D1's LSTM (the step-barrier kernels), then the cluster
+# path's: the MinAtar r2d1 window, the lstm_a2c window, a Gaussian PPO
+# minibatch.
+SHAPES = ((512, 45, 32), (512, 20, 32), (512, 1, 64))
+CLUSTER_SHAPES = ((128, 45, 32), (128, 16, 128), (256, 256, 4))
 
 # part -> (line as in lstm.cu, the line that leaves the part out, count)
 CUTS = {
@@ -68,10 +84,35 @@ CUTS = {
     "no partial": [
         ("if (kg_threads > 0 && tid < kRecThreads / kg_threads * kg_threads)",
          "if (false)", 1)],
+    "cl no reduce": [
+        ("    reduce_rows(acc, ks, KS, gate);",
+         "    for (int g = 0; g < 4; ++g) gate[g] = acc[0][g];", 1),
+        # K4 keeps each lane's row, so that each row is sent once and
+        # the peers' mbarriers count the bytes they expect.
+        ("const int r = rg * 4 + reduce_rows(acc, ks, KS, v);",
+         "const int rr = 2 * ((ks & (KS / 2)) != 0) + "
+         "((ks & (KS / 4)) != 0);\n      const int r = rg * 4 + rr;\n"
+         "      for (int j = 0; j < 4; ++j) v[j] = acc[rr][j];", 1)],
+    "cl no cell": [
+        ("    if (cell) {\n      const float4 x = xs[",
+         "    if (false) {\n      const float4 x = xs[", 1),
+        ("    if (cell) {\n      const float* d =\n",
+         "    if (false) {\n      const float* d =\n", 1)],
+    "cl no fma": [
+        ("for (int k = ks; k < hk; k += KS) {",
+         "for (int k = ks; k < 0; k += KS) {", 1),
+        ("for (int q = ks; q < Q; q += KS) {",
+         "for (int q = ks; q < 0; q += KS) {", 1)],
+    "cl no store": [
+        ("      y[row * H + col] = h;\n      cs[row * H + col] = c;", "", 1),
+        ("for (int g = 0; g < 4; ++g) grow[g * H] = gate[g];", "", 1),
+        ("for (int g = 0; g < 4; ++g) drow[g * H] = dg[g];", "", 1)],
 }
+CL_CUTS = [name for name in CUTS if name.startswith("cl ")]
 VARIANTS = {"whole": []}
 VARIANTS.update({name: [name] for name in CUTS})
-VARIANTS["barrier only"] = list(CUTS)
+VARIANTS["barrier only"] = [n for n in CUTS if n not in CL_CUTS]
+VARIANTS["cl exchange only"] = CL_CUTS
 
 
 def variant_source(src: str, parts) -> str:
@@ -107,15 +148,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    wh = torch.randn((H, 4 * H), generator=g, device=dev) * H ** -0.5
+    whs = {H: torch.randn((H, 4 * H), generator=g, device=dev) * H ** -0.5
+           for H in {s[0] for s in SHAPES + CLUSTER_SHAPES}}
     cases = []
-    for T, B in SHAPES:
+    for H, T, B in SHAPES + CLUSTER_SHAPES:
+        wh = whs[H]
         xg = torch.randn((T, B, 4 * H), generator=g, device=dev)
         mask = (torch.rand((T, B), generator=g, device=dev) > 0.1).float()
         h0, c0, dcT = (torch.randn((B, H), generator=g, device=dev) * 0.5
                        for _ in range(3))
         dy = torch.randn((T, B, H), generator=g, device=dev)
-        cases.append((T, B, xg, mask, h0, c0, dy, dcT))
+        cases.append((H, T, B, wh, xg, mask, h0, c0, dy, dcT))
     warm = torch.randn((4096, 4096), generator=g, device=dev)
     t0 = time.time()
     while time.time() - t0 < 2.0:
@@ -130,13 +173,17 @@ def main():
         L.build = lambda lib=lib: lib
         L.load()
         row = {}
-        for T, B, xg, mask, h0, c0, dy, dcT in cases:
+        # A variant of one path's kernels is timed at that path's shapes.
+        cl = {p.startswith("cl ") for p in VARIANTS[name]}
+        for H, T, B, wh, xg, mask, h0, c0, dy, dcT in cases:
+            if cl and ((H, T, B) in CLUSTER_SHAPES) not in cl:
+                continue
             n = 10 if T > 1 else 40
             _, gates, cs, _, _ = L.lstm_fwd(xg, wh, mask, h0, c0)
-            row[f"K3 T={T} B={B}"] = graph_ms(
+            row[f"K3 H={H} T={T} B={B}"] = graph_ms(
                 [lambda: L.lstm_fwd(xg, wh, mask, h0, c0)] * n)
             if T > 1:
-                row[f"K4 T={T} B={B}"] = graph_ms(
+                row[f"K4 H={H} T={T} B={B}"] = graph_ms(
                     [lambda: L.lstm_bwd(gates, cs, c0, mask, wh, dy, dcT)]
                     * n)
         res[name] = row

@@ -152,8 +152,8 @@ Phases, each fatal on failure:
      on MinAtar Breakout: frozen lanes stay done with reward 0 and their
      observation, none waits after the batch, and
      process_returns(mid_batch_reset=False) card against CPU to 1e-4;
-     (e) utils/profiling.py: trace names lstm_fwd_kernel and the frame
-     gather, time_fn within 20 % of time_ms on one K3 call,
+     (e) utils/profiling.py: trace names lstm_fwd_cluster_kernel and the
+     frame gather, time_fn within 20 % of time_ms on one K3 call,
      device_memory_stats not empty; (f) example 5's env-steps/s under
      MinibatchRl and AsyncRl in turns (M, A, A, M).
  17. data-parallel SyncRl (rlpyt_tpu_torch/runners/sync.py), ranks
@@ -200,6 +200,18 @@ Phases, each fatal on failure:
      and the main paths' launches at that shape.  The phases that drive
      K3a (7, 12b, 12c, 13d, 14b, 15d, 16b, 18b) check its launches by
      (M, N, K) and the count that the plan splits over a cluster.
+ 20. K3 and K4 at the shapes of the narrow LSTMs (P20_SHAPES: H = 128
+     and 256; every T > 1 window of the MinAtar PG, MuJoCo, MinAtar R2D1
+     and R2D1-twin configs, and one-step shapes at B = 128, 64, 32, 8):
+     the plan taken (the cluster path's cluster size, rows a cluster and
+     clusters at T > 1), the largest errors against the plain versions
+     (1e-4 of the largest value for K3, 1e-3 for K4, TF32 off), the same
+     bits over two launches, the device times beside cuDNN's nn.LSTM and
+     the bounds, and the main paths' launches at that shape.  The phases
+     that drive K3 and K4 (7, 12a-c, 13d, 14b, 18b) check that every K3
+     launch at T > 1 and every K4 launch took the cluster path where W_h
+     fits one cluster (H = 128, 256) and the step-barrier kernels at
+     H = 512.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -231,6 +243,10 @@ result line).
 
 builds the kernels and runs phase 19 alone (its ``kernels`` line with
 null launches, no result line).
+
+    python3 chip_smoke.py --phase20
+
+builds the kernels and runs phase 20 alone, likewise.
 """
 from __future__ import annotations
 
@@ -690,12 +706,48 @@ def zero_launches():
     L.input_proj.split_launches = 0
     L.input_proj.shape_launches = {}
     L.lstm_fwd.step_launches = 0
+    for fn in (L.lstm_fwd, L.lstm_bwd):
+        fn.cluster_launches = 0
+        fn.shape_launches = {}
 
 
 # K3a's launches on the main paths by (M, N, K), summed over the paths
 # this process drove and checked (phases 7, 12b, 12c, 13d, 14b, 15d,
 # 18b): the launches of phase 19's entries.
 PROJ_PATH_LAUNCHES: dict = {}
+
+
+# K3's and K4's launches on the main paths by (kernel, T, B, H), summed
+# over the paths this process drove and checked (phases 7, 12a-c, 13d,
+# 14b, 18b): the launches of phase 20's entries.
+REC_PATH_LAUNCHES: dict = {}
+
+
+def hold_cluster_path(L, what: str, need: bool) -> dict:
+    """On the path just driven, every K3 launch at T > 1 and every K4
+    launch took the cluster path where W_h fits one cluster (the plan's
+    ``clustered``: H = 128 and 256) and the step-barrier kernels elsewhere (H =
+    512); with ``need``, the path launched both on the cluster path.
+    Adds the path's K3 and K4 launches by shape to REC_PATH_LAUNCHES;
+    returns the cluster-path launch counts."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    got, want = {}, {}
+    for name, fn in (("lstm_fwd", L.lstm_fwd), ("lstm_bwd", L.lstm_bwd)):
+        if sum(fn.shape_launches.values()) != fn.launches:
+            fail(f"{what}: {name}'s launches by shape "
+                 f"{fn.shape_launches} do not add up to {fn.launches}")
+        got[name + "_cluster"] = fn.cluster_launches
+        want[name + "_cluster"] = sum(
+            n for (T, B, H), n in fn.shape_launches.items()
+            if (T > 1 or name == "lstm_bwd")
+            and L.recurrence_plan(B, H, n_sm).clustered is not None)
+        for shape, n in fn.shape_launches.items():
+            key = (name,) + shape
+            REC_PATH_LAUNCHES[key] = REC_PATH_LAUNCHES.get(key, 0) + n
+    if got != want or (need and not all(got.values())):
+        fail(f"{what}: cluster-path launches {got}, expected {want}"
+             + (" (both launched)" if need else ""))
+    return got
 
 
 def proj_shapes(N: int, K: int, counts) -> dict:
@@ -882,6 +934,7 @@ def run_r2d1(L, dev):
             "lstm_bwd": updates}
     if launches != want:
         fail(f"LSTM launches {launches}, expected {want}")
+    hold_cluster_path(L, "phase 7", need=False)
     if fg.gather_frame_stacks.launches != 0:
         fail("R2D1's sequence replay launched the frame-gather kernel")
     for row in logger.rows[-(learning_itrs):]:
@@ -1364,6 +1417,8 @@ def check_pg_against_cpu(L, dev):
             after = {k: v.detach().cpu()
                      for k, v in agent.model.state_dict().items()}
             out[d] = (info, before, after, L.lstm_bwd.launches)
+            if d != "cpu":
+                hold_cluster_path(L, f"phase 12a {key}", need=True)
         (info_c, before, after_c, _), (info_g, _, after_g, k4_g) = \
             out["cpu"], out[dev]
         if k4_g != k4:
@@ -1454,6 +1509,9 @@ def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
             (T * B // getattr(algo, "minibatches", 1), n_itr * windows)])
     launches["lstm_input_proj_split"] = L.input_proj.split_launches
     want["lstm_input_proj_split"] = hold_proj_shapes(L, key, shapes)
+    launches.update(hold_cluster_path(L, key, need=key.startswith("lstm")))
+    want.update(lstm_fwd_cluster=want["lstm_fwd"] - want["lstm_fwd_t1"],
+                lstm_bwd_cluster=want["lstm_bwd"])
     if launches != want:
         fail(f"{key}: LSTM launches {launches}, expected {want} "
              f"({n_eval} evaluation steps)")
@@ -1931,6 +1989,8 @@ def check_gaussian_ppo_against_cpu(L, dev):
                 L, "phase 13d", proj_shapes(4 * MJ_H, MJ_F, [
                     (MJ_B, 1), (MJ_T * MJ_B // MJ_MINIBATCHES, windows)])),
             "lstm_fwd": windows + 1, "lstm_fwd_t1": 1, "lstm_bwd": windows}
+    launches.update(hold_cluster_path(L, "phase 13d", need=True))
+    want.update(lstm_fwd_cluster=windows, lstm_bwd_cluster=windows)
     if launches != want:
         fail(f"phase 13d: LSTM launches {launches}, expected {want}")
     for field in info_c._fields:
@@ -2109,6 +2169,12 @@ def run_minatar_dqn(L, key: str, log_root: Path):
     hold_proj_shapes(L, f"14b {key}", r2d1_proj_shapes(
         algo, MD_H, MD_F, [(MD_B, MD_T * n_itr), (MD_EVAL_B, n_eval)])
         if key == "r2d1" else {})
+    got = hold_cluster_path(L, f"14b {key}", need=key == "r2d1")
+    if key == "r2d1" and got != {
+            "lstm_fwd_cluster": 4 * algo.update_counter,
+            "lstm_bwd_cluster": algo.update_counter}:
+        fail(f"14b {key}: cluster-path launches {got}, expected four K3 "
+             f"and one K4 an update ({algo.update_counter} updates)")
     for i, row in enumerate(rows):
         fields = ["StepsPerSecond", "EvalReturnAverage"] + (
             ["loss", "grad_norm", "td_abs_err"] if learning[i] else [])
@@ -3179,9 +3245,10 @@ def check_profiling(fg, L, g, dev) -> dict:
             torch.cuda.synchronize()
         files = list(Path(d).glob("trace_*.json"))
         text = files[0].read_text() if len(files) == 1 else ""
-    names = [n for n in ("lstm_fwd_kernel", "gather_bulk_kernel",
+    # At H = 128 and T = 45, K3 runs on the cluster path.
+    names = [n for n in ("lstm_fwd_cluster_kernel", "gather_bulk_kernel",
                          "gather_bytes_kernel") if n in text]
-    if "lstm_fwd_kernel" not in names or len(names) < 2:
+    if "lstm_fwd_cluster_kernel" not in names or len(names) < 2:
         fail(f"16e: the trace names {names} of the port's kernels")
     fn_ms = 1e3 * time_fn(lambda: L.lstm_fwd(*args), iters=50,
                           warmup=3)["mean_s"]
@@ -3823,6 +3890,25 @@ P19_SHAPES = tuple(
     for call, M in calls)
 
 
+# Phase 20: K3 and K4 at the narrow LSTMs' shapes, (call, H, F, T, B):
+# every T > 1 shape of the cluster path's configs, then one-step shapes
+# (the step-barrier kernel).  F is the config's input width (cuDNN's LSTM, the
+# library call, also projects the input).
+P20_SHAPES = (
+    ("lstm_a2c window", PG_H, PG_F, PG_T, PG_B),
+    ("lstm_ppo minibatch", PG_H, PG_F, PG_T, PG_B // 4),
+    ("gaussian ppo minibatch", MJ_H, MJ_F, MJ_T, MJ_B // MJ_MINIBATCHES),
+    ("gaussian ppo batch", MJ_H, MJ_F, MJ_T, MJ_B),
+    ("minatar r2d1 window", MD_H, MD_F, MD_WINDOW - MD_WARMUP, MD_BATCH_B),
+    ("minatar r2d1 burn-in", MD_H, MD_F, MD_WARMUP, MD_BATCH_B),
+    ("r2d1 twin window", MD_H, MD_F, TW_BATCH_T + TW_NSTEP, TW_BATCH_B),
+    ("pg collection", PG_H, PG_F, 1, PG_B),
+    ("minatar r2d1 collection", MD_H, MD_F, 1, MD_B),
+    ("evaluation", MD_H, MD_F, 1, MD_EVAL_B),
+    ("gaussian collection", MJ_H, MJ_F, 1, MJ_B),
+)
+
+
 def check_conv_head(dev):
     """Phase 18a: Conv2dHeadModel at MinAtar widths, ReLU and tanh,
     forward and backward (grads of the input and every weight) on the
@@ -3919,6 +4005,8 @@ def run_twin_r2d1(L, dev) -> dict:
     if algo.update_counter != updates:
         fail(f"phase 18b: {algo.update_counter} updates, predicted "
              f"{updates}")
+    got.update(hold_cluster_path(L, "phase 18b", need=True))
+    want.update(lstm_fwd_cluster=4 * updates, lstm_bwd_cluster=updates)
     for name, n in want.items():
         if got[name] != n:
             fail(f"phase 18b: {name} launched {got[name]} times, predicted "
@@ -4034,6 +4122,97 @@ def run_phase19(L, g, dev):
     return times, errs, launches
 
 
+def p20_name(kernel: str, call: str) -> str:
+    """The kernels-line name of phase 20's entry for one shape."""
+    return f"{kernel}_p20_" + "_".join(call.split())
+
+
+def run_phase20(L, g, dev):
+    """Phase 20: K3 and K4 at P20_SHAPES.  At each: the plan taken (the
+    cluster path's C, rows a cluster and clusters at T > 1), the largest
+    errors against the plain versions (TF32 off; fails above 1e-4 of the
+    largest value for K3 and 1e-3 for K4, the gates of phase 5), two
+    launches with the same bits (fails otherwise), the cluster path taken
+    at T > 1 (fails otherwise), and the device times beside cuDNN's
+    ``nn.LSTM`` (forward device time; backward call time) and the bounds.
+    Returns (times, errors, launches) of its kernels-line entries; the
+    launches are the main paths' at that shape (REC_PATH_LAUNCHES: none
+    when no path was driven in this process)."""
+    t0 = time.time()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    times, errs, launches = {}, {}, {}
+    for call, H, F, T, B in P20_SHAPES:
+        c = lstm_case(g, T, B, F, H, dev)
+        mask = (~c["done"]).float()
+        xg = L.input_proj_plain(c["x"].view(T * B, F), c["wx"],
+                                c["b"]).view(T, B, 4 * H)
+        fa = (xg, c["wh"], mask, c["h0"], c["c0"])
+        ref = L.lstm_fwd_plain(*fa)
+        zero_launches()
+        out, again = L.lstm_fwd(*fa), L.lstm_fwd(*fa)
+        checks = [("lstm_fwd", 1e-4, out, again, ref)]
+        if T > 1:
+            dy = torch.randn((T, B, H), generator=g, device=dev)
+            dcT = torch.randn((B, H), generator=g, device=dev)
+            ba = (ref[1], ref[2], c["c0"], mask, c["wh"], dy, dcT)
+            checks.append(("lstm_bwd", 1e-3, L.lstm_bwd(*ba),
+                           L.lstm_bwd(*ba), L.lstm_bwd_plain(*ba)))
+        plan = L.recurrence_plan(B, H, n_sm)
+        cp = plan.clustered if T > 1 else None
+        taken = (L.lstm_fwd.cluster_launches, L.lstm_bwd.cluster_launches)
+        if T > 1 and (cp is None or taken != (2, 2)):
+            fail(f"phase 20: {call} (H={H} T={T} B={B}) did not take the "
+                 f"cluster path: plan {plan}, cluster launches {taken}")
+        line = []
+        for kernel, tol, o, o2, r in checks:
+            name = p20_name(kernel, call)
+            worst = 0.0
+            for what, a, b in zip(("y", "gates", "c", "hT", "cT")
+                                  if kernel == "lstm_fwd"
+                                  else ("dgates", "dh0", "dc0"), o, r):
+                err, rel = rel_err(a, b)
+                if not rel <= tol or a.shape != b.shape:
+                    fail(f"phase 20: {kernel} at {call} (H={H} T={T} B={B})"
+                         f" differs from plain ({what}): max err {err:.3g} ="
+                         f" {rel:.3g} of max|ref|, tolerance {tol:g}")
+                worst = max(worst, err)
+            if not all(torch.equal(a, b) for a, b in zip(o, o2)):
+                fail(f"phase 20: {kernel} at {call} (H={H} T={T} B={B}) "
+                     "gave other bits on a second launch")
+            iters = 10 if T > 100 else 20
+            graph_len = max(3, min(20, 400 // T))
+            t = fwd_times(L, c, dev, iters, graph_len) \
+                if kernel == "lstm_fwd" \
+                else bwd_times(L, c, g, dev, iters, graph_len)
+            t = add_bounds({kernel: t})[kernel]
+            times[name], errs[name] = t, worst
+            launches[name] = REC_PATH_LAUNCHES.get((kernel, T, B, H), 0) \
+                if REC_PATH_LAUNCHES else None
+            lib = t.get("library_device_ms") or t["library_ms"]
+            line.append(
+                f"{kernel} max abs err {worst:.3g}, device "
+                f"{t['device_ms']:.4f} ms ({t['device_ms'] / T * 1e3:.2f} us"
+                f" a step), cuDNN "
+                f"{'device' if t.get('library_device_ms') else 'call'} "
+                f"{lib:.4f} ms ({t['device_ms'] / lib:.2f} x), bound "
+                f"{t['bound_ms']:.5f} ms by {t['bound_by']} "
+                f"({t['device_ms'] / t['bound_ms']:.1f} x), main-path "
+                f"launches {launches[name]}")
+        shape = (f"cluster path C={cp.cluster} rows={cp.rows} clusters="
+                 f"{cp.clusters}" if cp
+                 else f"step-barrier kernel, {plan.ctas} CTAs")
+        print(f"phase 20: {call} H={H} T={T} B={B}: {shape}; same bits over "
+              f"two launches; " + "; ".join(line))
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 20: {time.time() - t0:.1f} s")
+    return times, errs, launches
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4119,6 +4298,9 @@ KERNELS = {
 }
 KERNELS.update({p19_name(cfg, call): (_LSTM_SRC, f"{_PALLAS}lstm.py:109")
                 for cfg, call, *_ in P19_SHAPES})
+KERNELS.update({p20_name(kernel, call): (_LSTM_SRC, f"{_PALLAS}lstm.py:{line}")
+                for call, *_ in P20_SHAPES
+                for kernel, line in (("lstm_fwd", 109), ("lstm_bwd", 214))})
 
 
 def kernels_line(times: dict, errs: dict, launches: dict) -> str:
@@ -4184,6 +4366,12 @@ def main():
     if "--phase19" in sys.argv[1:]:
         times, errs, launches = run_phase19(
             L, torch.Generator(device=dev).manual_seed(19), dev)
+        print(nvidia_smi_line())
+        print(kernels_line(times, errs, launches))
+        return 0
+    if "--phase20" in sys.argv[1:]:
+        times, errs, launches = run_phase20(
+            L, torch.Generator(device=dev).manual_seed(20), dev)
         print(nvidia_smi_line())
         print(kernels_line(times, errs, launches))
         return 0
@@ -4391,6 +4579,8 @@ def main():
     for part, new in zip((times, errs, launches), run_phase18(L, g, dev)):
         part.update(new)
     for part, new in zip((times, errs, launches), run_phase19(L, g, dev)):
+        part.update(new)
+    for part, new in zip((times, errs, launches), run_phase20(L, g, dev)):
         part.update(new)
 
     print(nvidia_smi_line())

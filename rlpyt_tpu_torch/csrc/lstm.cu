@@ -84,24 +84,64 @@
 //       shared-memory-tiled FFMA kernel.
 //   K3 / K4 do 2*T*B*H*4H operations in T dependent steps: on paper bound
 //       by fp32 operations (1.0 us a step at B = 32, H = 512), in fact by
-//       what each step waits for.  Design: one persistent launch per call
-//       of ceil(H / 4) CTAs in thread-block clusters of 2 (128 CTAs at H =
-//       512; the plan refuses H above 4 x the SMs).  CTA j owns hidden
-//       units [4j, 4j + 4) and all four of their gates, keeps its W_h
-//       slice ws [H][16] (32 KB)
-//       in shared memory for the whole sequence, the Hopper counterpart of
-//       the TPU keeping W_h in VMEM, and its units' c (K3) or dc (K4).
-//       Per step:
+//       what each step waits for.  Two shapes of each; ops/lstm.py's
+//       recurrence_plan picks by whether W_h fits one cluster.
+//     - H <= 256 (the MinAtar and MuJoCo LSTMs, H = 128 and 256):
+//       16 H^2 bytes of W_h fit one thread-block cluster's shared memory,
+//       and the batch rows of an LSTM are independent of each other.  So
+//       one cluster takes a slice of rows and their whole recurrence (K3
+//       at T > 1, and K4): CTA r of its C owns U = H / C units (C * 16
+//       >= H: 8 CTAs at H = 128, 16 at H = 256) and keeps their W_h
+//       columns in shared memory (34 KB at H = 128, 70 KB at H = 256).
+//       Nothing crosses clusters: no device-memory barrier, no
+//       cooperative launch, and clusters that do not fit run in waves.
+//       A tile is 4 rows x a unit's 4 gates (K3) or 4 rows x 4 units
+//       (K4); 4-16 lanes of a warp split its depth one k (or gate column)
+//       at a time, each loading h of 4 rows and one float4 of W a k
+//       without bank conflicts, and add their sums by shuffles in a fixed
+//       tree that leaves each lane one row: no partials in shared memory,
+//       no CTA barrier between the contraction and the cell update.  h
+//       (K3) or the partial carries (K4, a reduce-scatter: CTA r's sums
+//       over its own 4U gate columns for every unit, sent to the unit's
+//       owner and added there in rank order) go to the peers by st.async
+//       into buffers double-buffered by step parity, each counted on the
+//       receiver's mbarrier: a step waits for the bytes it needs, one
+//       way, not for a cluster-wide barrier round trip.  A cell's lane
+//       keeps c (K3) or dc (K4) in a register and stages its own inputs
+//       of a step two steps ahead by cp.async.  Stores to device memory
+//       go after the exchange.  The same bits every run: fixed trees and
+//       orders, no atomics.
+//       Measured on an H100 (bench_torch_lstm_steps.py --sweep and
+//       bench_torch_lstm_parts.py on builds of the variants) and not
+//       kept, K3 at H = 128, T = 45, B = 32 a step (the kept shape: 1.60
+//       us): depth splits of 4-deep groups summed through shared memory
+//       by the cell threads, one cluster barrier a step (arrive.release,
+//       the next inputs loaded, wait.acquire) and scalar stores into the
+//       peers (2.3 us); those split sums with every load issued first,
+//       under two CTAs an SM (3.1 us, 1.3 of them waiting for inputs
+//       loaded one step ahead; K4 spilled); the shuffle tiles with float4
+//       stores into the peers and a cluster barrier a step (1.9 us).
+//       Clusters of 2, 4, 8 and 16 at 1-64 rows each: C * 16 >= H is
+//       fastest at every config shape; at H = 256 two rows a cluster
+//       (each CTA sends to 15 peers).  Not tried: TF32 mma.sync for the
+//       contraction (at H = 256 it is 0.65 us of a 1.97 us step), the
+//       cluster kernel at T = 1.
+//     - H = 512 (R2D1's LSTM): W_h (4 MB) fits no cluster.  One
+//       persistent launch per call of ceil(H / 4) CTAs in thread-block
+//       clusters of 2 (128 CTAs at H = 512; the plan refuses H above 4 x
+//       the SMs).  CTA j owns hidden units [4j, 4j + 4) and all four of
+//       their gates, keeps its W_h slice ws [H][16] (32 KB) in shared
+//       memory for the whole sequence, the Hopper counterpart of the TPU
+//       keeping W_h in VMEM, and its units' c (K3) or dc (K4).  Per step:
 //       - a step barrier of one counter in device memory, arrive (release)
 //         apart from wait (acquire), so that a CTA loads the next step's
 //         own inputs (xg; gates, c, dy) between the two;
 //       - K3 stages the step's input h_prev [B][H] in shared memory (64 KB
 //         at B = 32; at most 64 rows at a time) by bulk copies multicast
 //         over the cluster, so L2 serves 64 copies of h a step, not 128,
-//         and contracts it with FFMA from
-//         shared memory: warp w takes an eighth of k, a lane 4 rows x its
-//         gate's U columns, and the 8 warps' tiles are summed in shared
-//         memory in warp order;
+//         and contracts it with FFMA from shared memory: warp w takes an
+//         eighth of k, a lane 4 rows x its gate's U columns, and the 8
+//         warps' tiles are summed in shared memory in warp order;
 //       - K4 needs dgates[s+1] of all 4H columns for its units' rows of
 //         W_h^T, 256 KB a CTA a step at B = 32; instead the CTAs of a
 //         cluster share their dgates over distributed shared memory, each
@@ -110,16 +150,16 @@
 //         units' columns of the 64 cluster partials in a fixed order
 //         (B x 4 x 64 floats read).
 //       No atomics on data: the same bits every run.  T = 1 (a collection
-//       step) is an ordinary launch of K3 with no barrier.  Ragged H and B
-//       are masked in the kernels; H needs no padding.
-//       The CTAs of a launch with a step barrier spin until every CTA has
-//       arrived, so all must be resident at once.  The launch is
-//       cooperative as well as clustered: CUDA then places every CTA at
-//       once or refuses the launch with an error, before any CTA waits,
-//       when the grid cannot fit the card.  A wait that still outlasts any
-//       real one traps instead of hanging the card.
-//       (Measured on an H100: 8 units a CTA, 64 CTAs, was slower
-//       than 4 units in both kernels; clusters of 1 slower than of 2; 32
+//       step, at every H) is an ordinary launch of this K3 with no
+//       barrier.  Ragged H and B are masked in the kernels; H needs no
+//       padding.  The CTAs of a launch with a step barrier spin until
+//       every CTA has arrived, so all must be resident at once.  The
+//       launch is cooperative as well as clustered: CUDA then places
+//       every CTA at once or refuses the launch with an error, before any
+//       CTA waits, when the grid cannot fit the card.  A wait that still
+//       outlasts any real one traps instead of hanging the card.
+//       (Measured on an H100: 8 units a CTA, 64 CTAs, was slower than 4
+//       units in both kernels; clusters of 1 slower than of 2; 32
 //       clusters of 4 one-SM CTAs are not all resident.  Only the shape
 //       that won is built.)
 
@@ -1256,6 +1296,463 @@ lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cs,
   cluster.sync();   // no CTA leaves while a peer reads it
 }
 
+// ---------------------------------------------------------------------
+// K3 / K4 for narrow LSTMs: one thread-block cluster a slice of rows
+// ---------------------------------------------------------------------
+
+constexpr int kMaxSplits = 16;  // lanes that split one tile's depth
+constexpr int kMaxCluster = 16;
+constexpr int kStages = 3;      // steps of inputs staged, two ahead
+
+// Lanes that split the depth of one tile of 4 rows x 4 outputs, for
+// ``tiles`` tiles: the most, a power of two from 4 up to kMaxSplits, with
+// which the CTA's threads hold every tile at once (4 where they cannot,
+// and the tiles go in passes).  At least 4: the reduction leaves each
+// lane one row.
+__host__ __device__ inline int tile_lanes(int tiles) {
+  int ks = 4;
+  while (2 * ks * tiles <= kRecThreads && 2 * ks <= kMaxSplits) ks *= 2;
+  return ks;
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The address of ``addr`` (this CTA's shared memory) in CTA ``rank`` of
+// the cluster, for st.async.
+__device__ __forceinline__ uint32_t peer_addr(const void* addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(addr)), "r"(rank));
+  return out;
+}
+
+// 16 bytes into a CTA of the cluster, counted on its mbarrier ``bar``.
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the phase's bytes came from
+// the peers' st.async.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (spins > (1u << 24)) __trap();
+  }
+}
+
+// The 4 x 4 tile acc[row][j] of KS lanes (lane ks of the tile at bit
+// positions below KS) summed over the KS lanes, by shuffles in a fixed
+// tree (the same bits every run): the two highest bits of ks scatter
+// the rows (a lane keeps rows 0-1 or 2-3, then one of them), the others
+// add the lanes' sums.  Returns the row this lane holds, 2 * (ks & KS/2
+// set) + (ks & KS/4 set); v[j] is its sum.
+__device__ __forceinline__ int reduce_rows(const float (&acc)[4][4], int ks,
+                                           int KS, float (&v)[4]) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int d1 = KS / 2, d2 = KS / 4;
+  const bool hi1 = ks & d1, hi2 = ks & d2;
+  float two[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float send = hi1 ? acc[r][j] : acc[r + 2][j];
+      const float keep = hi1 ? acc[r + 2][j] : acc[r][j];
+      two[r][j] = keep + __shfl_xor_sync(kAll, send, d1);
+    }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float send = hi2 ? two[0][j] : two[1][j];
+    const float keep = hi2 ? two[1][j] : two[0][j];
+    v[j] = keep + __shfl_xor_sync(kAll, send, d2);
+  }
+  for (int d = d2 / 2; d >= 1; d /= 2)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] += __shfl_xor_sync(kAll, v[j], d);
+  return 2 * hi1 + hi2;
+}
+
+// K3 for W_h that fits one cluster.  Cluster c of C CTAs takes batch
+// rows [c * rows, c * rows + rows) and runs their whole recurrence; CTA r
+// of it owns hidden units [r * U, r * U + U) and their four gates, and
+// keeps their W_h columns ws[k][4u + g] (unit-major, row stride ldw) and
+// a copy of the cluster's h in shared memory, double-buffered by step
+// parity: hbuf[t & 1] [rows4][hs].  Tile (row group, unit u) is 4 rows x
+// the 4 gates of u, and KS lanes split its depth k by k (lane ks takes k
+// = ks, ks + KS, ...): a lane loads h of 4 rows and one float4 of W a k
+// (both free of bank conflicts) for 16 FFMA.  Per step:
+//   1. contract hbuf[t & 1] with ws into each tile's 4 x 4 sums, and add
+//      the KS lanes' sums by shuffles (reduce_rows): each lane then holds
+//      one row's 4 gates, and one lane of each group is the cell's;
+//   2. the cell lane does the cell update with the xg and mask it staged
+//      itself by cp.async two steps before, keeps c in a register and
+//      writes h into its own hbuf[(t + 1) & 1];
+//   3. this CTA's units of h go to every peer's hbuf[(t + 1) & 1] over
+//      distributed shared memory, 16 bytes a thread; the CTA arrives at
+//      the cluster barrier (release), stores y, gates and c to device
+//      memory (out of the release's way), stages the inputs of step t + 2
+//      and waits (acquire).
+// No data crosses clusters: no device-memory barrier, no co-residency.
+__global__ void __launch_bounds__(kRecThreads, 2)
+lstm_fwd_cluster_kernel(const float* __restrict__ xg,
+                        const float* __restrict__ wh,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ h0,
+                        const float* __restrict__ c0, float* y, float* gates,
+                        float* cs, float* hT, float* cT, int T, int B, int H,
+                        int C, int rows, int U) {
+  const int Q = 4 * U, hk = padded_h(H), hs = h_stride(H), ldw = h_stride(Q);
+  const int rows4 = (rows + 3) & ~3, H4 = 4 * H;
+  const int tiles = rows4 / 4 * U, KS = tile_lanes(tiles);
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                         // [hk][ldw]
+  float* hbuf = ws + hk * ldw;              // [2][rows4][hs]
+  float4* xs = reinterpret_cast<float4*>(hbuf + 2 * rows4 * hs);
+  float* ms = reinterpret_cast<float*>(xs + kStages * kRecThreads);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cluster.block_rank(), tid = threadIdx.x;
+  const int b0 = blockIdx.x / C * rows, nb = min(rows, B - b0);
+  const int j0 = rank * U;
+  // This thread's tile and part of its depth; its row after the
+  // reduction; whether it is a live cell's lane.
+  const int tile = min(tid / KS, tiles - 1), ks = tid % KS;
+  const int rg = tile / U, u = tile % U, col = j0 + u;
+  const int b = rg * 4 + 2 * ((ks & (KS / 2)) != 0) + ((ks & (KS / 4)) != 0);
+  const bool cell = tid / KS < tiles && (ks & (KS / 4 - 1)) == 0 &&
+                    b < nb && col < H;
+
+  // W_h[k][g * H + j0 + u] into ws[k][4u + g]: lanes along u read
+  // device memory contiguously.
+  for (int i = tid; i < hk * Q; i += kRecThreads) {
+    const int uu = i % U, g = i / U % 4, k = i / Q;
+    const bool ok = k < H && j0 + uu < H;
+    cp_async<4>(ws + k * ldw + 4 * uu + g,
+                ok ? wh + (int64_t)k * H4 + g * H + j0 + uu : wh, ok);
+  }
+  commit_group();
+  // The cell lane's xg (4 gates) and mask of step t into slot t % 3.
+  auto stage = [&](int t) {
+    if (cell && t < T) {
+      float* x = reinterpret_cast<float*>(xs + (t % kStages) * kRecThreads +
+                                          tid);
+      const float* src = xg + ((int64_t)t * B + b0 + b) * H4 + col;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) cp_async<4>(x + g, src + g * H, true);
+      cp_async<4>(ms + (t % kStages) * kRecThreads + tid,
+                  mask + (int64_t)t * B + b0 + b, true);
+    }
+    commit_group();
+  };
+  stage(0);
+  stage(1);
+  for (int i = tid; i < 2 * rows4 * hs; i += kRecThreads) {
+    const int r = i / hs, k = i % hs;
+    hbuf[i] = r < nb && k < H ? h0[(int64_t)(b0 + r) * H + k] : 0.f;
+  }
+  float c = cell ? c0[(int64_t)(b0 + b) * H + col] : 0.f, h = 0.f;
+  // hbar[p]: the peers' h of a step has landed in hbuf[p].  The bytes it
+  // waits for: this CTA's rows of the peers' live 16-byte pieces.
+  __shared__ __align__(8) uint64_t hbar[2];
+  const int nv = U / 4;
+  int pieces = 0;
+  for (int p = 0; p < C; ++p)
+    if (p != rank) pieces += min(nv, max(0, (hk - p * U) / 4));
+  const uint32_t h_bytes = 16u * nb * pieces;
+  if (tid == 0) {
+    mbar_init(&hbar[0], 1);
+    mbar_init(&hbar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (T > 1) mbar_expect_tx(&hbar[1], h_bytes);
+    if (T > 2) mbar_expect_tx(&hbar[0], h_bytes);
+  }
+  uint32_t phase = 0;   // bit p: the parity of hbar[p]'s next phase
+  cp_async_wait<0>();
+  // W, both h buffers and the barriers are in place before any peer
+  // stores into them.
+  cluster.sync();
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) {
+      const int p = t & 1;
+      mbar_wait_cluster(&hbar[p], (phase >> p) & 1);
+      phase ^= 1u << p;
+      // Armed for the step after next before this CTA sends the h that
+      // the peers need to send into it again.
+      if (tid == 0 && t + 2 < T) mbar_expect_tx(&hbar[p], h_bytes);
+    }
+    const float* hcur = hbuf + (t & 1) * rows4 * hs + rg * 4 * hs;
+    float acc[4][4] = {};
+#pragma unroll 4
+    for (int k = ks; k < hk; k += KS) {
+      const float4 w = *reinterpret_cast<const float4*>(ws + k * ldw + 4 * u);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = hcur[r * hs + k];
+        acc[r][0] = fmaf(a, w.x, acc[r][0]);
+        acc[r][1] = fmaf(a, w.y, acc[r][1]);
+        acc[r][2] = fmaf(a, w.z, acc[r][2]);
+        acc[r][3] = fmaf(a, w.w, acc[r][3]);
+      }
+    }
+    float gate[4];
+    reduce_rows(acc, ks, KS, gate);
+    cp_async_wait<1>();   // this step's xg and mask (this lane's copies)
+    float* hnext = hbuf + ((t + 1) & 1) * rows4 * hs;
+    if (cell) {
+      const float4 x = xs[(t % kStages) * kRecThreads + tid];
+      const float m = ms[(t % kStages) * kRecThreads + tid];
+      // (h * m) @ W_h = m * (h @ W_h) for m in {0, 1}
+      gate[0] = sigmoid(fmaf(m, gate[0], x.x));
+      gate[1] = sigmoid(fmaf(m, gate[1], x.y));
+      gate[2] = tanhf(fmaf(m, gate[2], x.z));
+      gate[3] = sigmoid(fmaf(m, gate[3], x.w));
+      c = gate[1] * (c * m) + gate[0] * gate[2];
+      h = gate[3] * tanhf(c);
+      hnext[b * hs + col] = h;
+    }
+    if (t + 1 < T) {
+      __syncthreads();   // this CTA's h of the step is whole
+      // ... and goes to the peers, 16 bytes a thread, each counted on the
+      // peer's hbar.
+      const int items = nb * nv * (C - 1);
+      for (int i = tid; i < items; i += kRecThreads) {
+        const int peer = (rank + 1 + i / (nb * nv)) % C;
+        const int r = i % (nb * nv) / nv, k = j0 + (i % nv) * 4;
+        if (k < hk)
+          st_async(peer_addr(hnext + r * hs + k, peer),
+                   *reinterpret_cast<const float4*>(hnext + r * hs + k),
+                   peer_addr(&hbar[(t + 1) & 1], peer));
+      }
+    }
+    if (cell) {
+      const int64_t row = (int64_t)t * B + b0 + b;
+      y[row * H + col] = h;
+      cs[row * H + col] = c;
+      float* grow = gates + row * H4 + col;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) grow[g * H] = gate[g];
+      if (t == T - 1) {
+        hT[(int64_t)(b0 + b) * H + col] = h;
+        cT[(int64_t)(b0 + b) * H + col] = c;
+      }
+    }
+    stage(t + 2);
+  }
+}
+
+// K4 for W_h that fits one cluster: the same clusters, CTAs and units as
+// K3.  The carry into step s is dh = (dgates[s+1] @ W_h^T) * mask[s+1], a
+// sum over all 4H gate columns.  Reduce-scatter inside the cluster: CTA r
+// keeps its units' W_h columns transposed, wt[4u + g][k] (row stride ldk,
+// an odd number of 16-byte units), and after the cell update of step s+1
+// forms its partial carry over its own 4U columns for every unit,
+// part_r[b][k]: tile (row group, k0) is 4 rows x units k0 .. k0 + 3, KS
+// lanes split its depth q by q (a lane loads dgates of 4 rows and one
+// float4 of wt a q), the lanes' sums are added by shuffles
+// (reduce_rows), and each lane holding a row stores its float4 into
+// pbuf[r] of CTA k0 / U over distributed shared memory.  At step s, the
+// cell lane of (row, unit) adds the C partials of its unit in rank order.
+// Per step and CTA rows x H floats stored, none in device memory; the
+// partials alternate between two buffers by step parity, so one cluster
+// barrier a step orders them.  The cell lane stages its own inputs of a
+// step (gates, c, c before, dy, the masks) by cp.async two steps before.
+__global__ void __launch_bounds__(kRecThreads, 2)
+lstm_bwd_cluster_kernel(const float* __restrict__ gates,
+                        const float* __restrict__ cs,
+                        const float* __restrict__ c0,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ wh,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ dcT, float* dgates,
+                        float* dh0, float* dc0, int T, int B, int H, int C,
+                        int rows, int U) {
+  constexpr int kIn = 12;   // staged floats of a cell lane a step
+  const int Q = 4 * U, hk = padded_h(H), ldk = h_stride(hk), ldq = h_stride(Q);
+  const int rows4 = (rows + 3) & ~3, H4 = 4 * H;
+  const int tiles = rows4 / 4 * (hk / 4), KS = tile_lanes(tiles);
+  const int per_pass = kRecThreads / KS;
+  extern __shared__ __align__(16) float smem[];
+  float* wt = smem;                         // [4U][ldk]
+  float* dgs = wt + Q * ldk;                // [rows4][ldq]: this CTA's dg
+  float* pbuf = dgs + rows4 * ldq;          // [2][C][rows][U]
+  float* in = pbuf + 2 * C * rows * U;      // [3][threads][kIn]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cluster.block_rank(), tid = threadIdx.x;
+  const int b0 = blockIdx.x / C * rows, nb = min(rows, B - b0);
+  const int j0 = rank * U;
+  // The cell lane of (row b, unit u): thread b * U + u.
+  const int b = tid / U, u = tid % U, col = j0 + u;
+  const bool cell = b < nb && col < H;
+  const int ks = tid % KS;
+
+  // W_h[k][g * H + j0 + u] into wt[4u + g][k]: 8 units x 4 k a warp, so
+  // that it reads device memory in 32-byte pieces and shared memory with
+  // few bank conflicts.
+  for (int i = tid; i < hk * Q; i += kRecThreads) {
+    const int k = i / (4 * Q) * 4 + i % 4, uu = i / 4 % U, g = i / (4 * U) % 4;
+    const bool ok = k < H && j0 + uu < H;
+    cp_async<4>(wt + (4 * uu + g) * ldk + k,
+                ok ? wh + (int64_t)k * H4 + g * H + j0 + uu : wh, ok);
+  }
+  commit_group();
+  // What step s's cell update reads, into slot (s + 3) % 3: gates (4), c,
+  // c before, dy, mask, mask of step s + 1 (s = -1: only the last).
+  auto stage = [&](int s) {
+    if (cell && s >= -1) {
+      float* d = in + ((s + kStages) % kStages * kRecThreads + tid) * kIn;
+      if (s >= 0) {
+        const int64_t row = (int64_t)s * B + b0 + b;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          cp_async<4>(d + g, gates + row * H4 + g * H + col, true);
+        cp_async<4>(d + 4, cs + row * H + col, true);
+        cp_async<4>(d + 5,
+                    s == 0 ? c0 + (int64_t)(b0 + b) * H + col
+                           : cs + (row - B) * H + col,
+                    true);
+        cp_async<4>(d + 6, dy + row * H + col, true);
+        cp_async<4>(d + 7, mask + row, true);
+      }
+      if (s + 1 < T)
+        cp_async<4>(d + 8, mask + (int64_t)(s + 1) * B + b0 + b, true);
+    }
+    commit_group();
+  };
+  stage(T - 1);
+  stage(T - 2);
+  for (int i = tid; i < rows4 * ldq; i += kRecThreads) dgs[i] = 0.f;
+  float dc = cell ? dcT[(int64_t)(b0 + b) * H + col] : 0.f;
+  // pbar[p]: every CTA's partial carry of a step has landed in pbuf[p].
+  // The bytes it waits for: C senders x this CTA's rows x its units' live
+  // 16-byte pieces.
+  __shared__ __align__(8) uint64_t pbar[2];
+  const uint32_t p_bytes =
+      16u * C * nb * min(U / 4, max(0, (hk - rank * U) / 4));
+  if (tid == 0) {
+    mbar_init(&pbar[0], 1);
+    mbar_init(&pbar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(&pbar[(T - 1) & 1], p_bytes);
+    if (T > 1) mbar_expect_tx(&pbar[T & 1], p_bytes);
+  }
+  uint32_t phase = 0;   // bit p: the parity of pbar[p]'s next phase
+  cp_async_wait<0>();
+  // Every CTA of the cluster runs, with its barriers, before any stores
+  // into it.
+  cluster.sync();
+
+  // Step s = T-1 .. 0 emits dgates[s]; the pass at s = -1 only forms dh0
+  // from the partials of step 0.
+  for (int s = T - 1; s >= -1; --s) {
+    const float* pin = pbuf + ((s + 1) & 1) * C * rows * U;
+    if (s + 1 < T) {
+      const int p = (s + 1) & 1;
+      mbar_wait_cluster(&pbar[p], (phase >> p) & 1);
+      phase ^= 1u << p;
+      // Armed for the partials of step s - 1 before this CTA sends those
+      // of step s, which the peers need first.
+      if (tid == 0 && s >= 1) mbar_expect_tx(&pbar[p], p_bytes);
+    }
+    cp_async_wait<1>();   // this step's inputs (this lane's copies)
+    float dg[4];
+    if (cell) {
+      const float* d =
+          in + ((s + kStages) % kStages * kRecThreads + tid) * kIn;
+      float dhp = 0.f;
+      if (s + 1 < T) {
+#pragma unroll 4
+        for (int p = 0; p < C; ++p) dhp += pin[(p * rows + b) * U + u];
+        dhp *= d[8];
+      }
+      if (s >= 0) {
+        const float gi = d[0], gf = d[1], gg = d[2], go = d[3];
+        const float m = d[7];
+        const float tc = tanhf(d[4]);
+        const float dh = d[6] + dhp;
+        const float dct = dh * go * (1.f - tc * tc) + dc;
+        dg[0] = dct * gg * gi * (1.f - gi);
+        dg[1] = dct * (d[5] * m) * gf * (1.f - gf);
+        dg[2] = dct * gi * (1.f - gg * gg);
+        dg[3] = dh * tc * go * (1.f - go);
+        *reinterpret_cast<float4*>(dgs + b * ldq + 4 * u) =
+            make_float4(dg[0], dg[1], dg[2], dg[3]);
+        dc = dct * gf * m;
+      } else {
+        dh0[(int64_t)(b0 + b) * H + col] = dhp;
+        dc0[(int64_t)(b0 + b) * H + col] = dc;
+      }
+    }
+    if (s < 0) break;
+    __syncthreads();   // the CTA's dgates of the step are whole
+    float* pout = pbuf + (s & 1) * C * rows * U;
+    for (int base = 0; base < tiles; base += per_pass) {
+      const int tl = min(base + tid / KS, tiles - 1);
+      const int rg = tl / (hk / 4), k0 = tl % (hk / 4) * 4;
+      const float* a = dgs + rg * 4 * ldq;
+      float acc[4][4] = {};
+#pragma unroll 4
+      for (int q = ks; q < Q; q += KS) {
+        const float4 w = *reinterpret_cast<const float4*>(wt + q * ldk + k0);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x = a[r * ldq + q];
+          acc[r][0] = fmaf(x, w.x, acc[r][0]);
+          acc[r][1] = fmaf(x, w.y, acc[r][1]);
+          acc[r][2] = fmaf(x, w.z, acc[r][2]);
+          acc[r][3] = fmaf(x, w.w, acc[r][3]);
+        }
+      }
+      float v[4];
+      const int r = rg * 4 + reduce_rows(acc, ks, KS, v);
+      if (base + tid / KS < tiles && (ks & (KS / 4 - 1)) == 0 && r < nb)
+        st_async(peer_addr(pout + (rank * rows + r) * U + k0 % U, k0 / U),
+                 make_float4(v[0], v[1], v[2], v[3]),
+                 peer_addr(&pbar[s & 1], k0 / U));
+    }
+    __syncthreads();   // dgs is read before the next step writes it
+    if (cell) {
+      float* drow = dgates + ((int64_t)s * B + b0 + b) * H4 + col;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) drow[g * H] = dg[g];
+    }
+    stage(s - 2);
+  }
+}
+
+// Dynamic shared memory of the cluster path's CTAs.
+__host__ __device__ inline size_t fwd_cluster_smem(int H, int rows, int U) {
+  const int rows4 = (rows + 3) & ~3;
+  return sizeof(float) *
+         ((size_t)padded_h(H) * h_stride(4 * U) +
+          (size_t)2 * rows4 * h_stride(H) + (size_t)kStages * kRecThreads * 5);
+}
+
+__host__ __device__ inline size_t bwd_cluster_smem(int H, int C, int rows,
+                                                   int U) {
+  const int rows4 = (rows + 3) & ~3;
+  return sizeof(float) *
+         ((size_t)4 * U * h_stride(padded_h(H)) +
+          (size_t)rows4 * h_stride(4 * U) +
+          (size_t)2 * C * rows * U + (size_t)kStages * kRecThreads * 12);
+}
+
 __host__ __device__ inline size_t fwd_smem(int B, int H, int S) {
   constexpr int U = kUnits;
   return sizeof(float) *
@@ -1317,6 +1814,49 @@ cudaError_t launch_recurrence(const void* kernel, int which, int ctas,
 bool plan_ok(int H, int ctas) {
   return ctas % kCluster == 0 && (int64_t)ctas * kUnits >= H &&
          (ctas - kCluster) * kUnits < H;
+}
+
+// A cluster-path plan: C CTAs of U units (a multiple of 4) enough for H,
+// rows a cluster (rounded up to 4) times U cells, one a thread.
+bool cluster_plan_ok(int H, int C, int rows, int U) {
+  return C >= 1 && C <= kMaxCluster && U > 0 && U % 4 == 0 && C * U >= H &&
+         rows >= 1 && ((rows + 3) & ~3) * U <= kRecThreads;
+}
+
+// Launch a cluster-path recurrence: ``clusters`` clusters of C CTAs, an
+// ordinary clustered launch (clusters that do not fit run in waves).
+// Clusters of 16 are non-portable and need the kernel's opt-in, made once
+// for each kernel (``which``) and device with the shared-memory one.
+cudaError_t launch_clusters(const void* kernel, int which, int clusters,
+                            int C, size_t smem, void** args,
+                            cudaStream_t stream) {
+  static bool opted_in[2][64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!opted_in[which][dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    opted_in[which][dev] = true;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(kRecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, kernel, args);
 }
 
 }  // namespace
@@ -1457,6 +1997,102 @@ int lstm_bwd_launch(const void* gates, const void* cs, const void* c0,
       args, static_cast<cudaStream_t>(stream)));
 }
 
+// The cluster path's shared memory for C CTAs of ``units`` units taking
+// ``rows`` rows each (``ops/lstm.py`` checks its plan against these).
+long long lstm_fwd_cluster_smem(int H, int rows, int units) {
+  return (long long)fwd_cluster_smem(H, rows, units);
+}
+long long lstm_bwd_cluster_smem(int H, int C, int rows, int units) {
+  return (long long)bwd_cluster_smem(H, C, rows, units);
+}
+int lstm_tile_lanes(int tiles) { return tile_lanes(tiles); }
+
+// How many clusters of C CTAs with ``smem`` bytes each the device holds
+// at once (cudaOccupancyMaxActiveClusters; ``which`` 0 is K3, 1 is K4),
+// or minus a CUDA error code.
+int lstm_cluster_capacity(int which, int C, long long smem) {
+  const void* kernel =
+      which == 0 ? reinterpret_cast<const void*>(lstm_fwd_cluster_kernel)
+                 : reinterpret_cast<const void*>(lstm_bwd_cluster_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kRecThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// K3 on the cluster path, T > 1: the arguments of lstm_fwd_launch but the
+// counter, on ``clusters`` clusters of C CTAs of ``units`` units, each
+// cluster taking ``rows`` batch rows.
+int lstm_fwd_cluster_launch(const void* xg, const void* wh, const void* mask,
+                            const void* h0, const void* c0, void* y,
+                            void* gates, void* cs, void* hT, void* cT, int T,
+                            int B, int H, int C, int rows, int units,
+                            void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  const size_t smem = fwd_cluster_smem(H, rows, units);
+  if (!cluster_plan_ok(H, C, rows, units) || smem > (size_t)kSmemMax)
+    return kErrBadPlan;
+  int clusters = (B + rows - 1) / rows;
+  const float *a_xg = static_cast<const float*>(xg),
+              *a_wh = static_cast<const float*>(wh),
+              *a_mask = static_cast<const float*>(mask),
+              *a_h0 = static_cast<const float*>(h0),
+              *a_c0 = static_cast<const float*>(c0);
+  float *a_y = static_cast<float*>(y), *a_g = static_cast<float*>(gates),
+        *a_cs = static_cast<float*>(cs), *a_hT = static_cast<float*>(hT),
+        *a_cT = static_cast<float*>(cT);
+  void* args[] = {&a_xg, &a_wh, &a_mask, &a_h0, &a_c0, &a_y, &a_g, &a_cs,
+                  &a_hT, &a_cT, &T,    &B,      &H,    &C,   &rows, &units};
+  return static_cast<int>(launch_clusters(
+      reinterpret_cast<const void*>(lstm_fwd_cluster_kernel), 0, clusters, C,
+      smem, args, static_cast<cudaStream_t>(stream)));
+}
+
+// K4 on the cluster path: the arguments of lstm_bwd_launch but the
+// scratch and the counter, on clusters as for K3.
+int lstm_bwd_cluster_launch(const void* gates, const void* cs, const void* c0,
+                            const void* mask, const void* wh, const void* dy,
+                            const void* dcT, void* dgates, void* dh0,
+                            void* dc0, int T, int B, int H, int C, int rows,
+                            int units, void* stream) {
+  if (T == 0 || B == 0 || H == 0) return 0;
+  const size_t smem = bwd_cluster_smem(H, C, rows, units);
+  if (!cluster_plan_ok(H, C, rows, units) || smem > (size_t)kSmemMax)
+    return kErrBadPlan;
+  int clusters = (B + rows - 1) / rows;
+  const float *a_g = static_cast<const float*>(gates),
+              *a_cs = static_cast<const float*>(cs),
+              *a_c0 = static_cast<const float*>(c0),
+              *a_mask = static_cast<const float*>(mask),
+              *a_wh = static_cast<const float*>(wh),
+              *a_dy = static_cast<const float*>(dy),
+              *a_dcT = static_cast<const float*>(dcT);
+  float *a_dg = static_cast<float*>(dgates), *a_dh0 = static_cast<float*>(dh0),
+        *a_dc0 = static_cast<float*>(dc0);
+  void* args[] = {&a_g,   &a_cs, &a_c0,  &a_mask, &a_wh, &a_dy,
+                  &a_dcT, &a_dg, &a_dh0, &a_dc0,  &T,    &B,
+                  &H,     &C,    &rows,  &units};
+  return static_cast<int>(launch_clusters(
+      reinterpret_cast<const void*>(lstm_bwd_cluster_kernel), 1, clusters, C,
+      smem, args, static_cast<cudaStream_t>(stream)));
+}
+
 const char* lstm_error_string(int code) {
   if (code == kErrNotResident)
     return "the recurrence's CTAs cannot all be resident at once "
@@ -1464,8 +2100,10 @@ const char* lstm_error_string(int code) {
   if (code == kErrBadPlan)
     return "the recurrence's plan does not fit the kernel (CTAs of 4 "
            "units enough for H in whole clusters of 2, stage rows a "
-           "multiple of 32, shared memory within 226 KB, a counter for "
-           "T > 1, 16-byte aligned scratch)";
+           "multiple of 32, a counter for T > 1, 16-byte aligned scratch; "
+           "on the cluster path at most 16 CTAs of a multiple of 4 units "
+           "enough for H, at most 256 cells a CTA; shared memory within "
+           "226 KB)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -18,9 +18,14 @@ become three kernels here:
   ``dh0`` and ``dc0``.  ``dx``, ``dW_x``, ``dW_h`` and ``db`` are plain
   matrix products over ``dgates`` after it, as in the JAX package.
 
-``recurrence_plan`` sizes K3 and K4 (CTAs of ``UNITS`` hidden units in
-clusters of ``CLUSTER``, rows of h staged at a time, shared memory); the
-kernels check it.
+``recurrence_plan`` sizes K3 and K4; the kernels check it.  Where W_h
+fits one thread-block cluster's shared memory (H = 128 and 256), K3 at
+T > 1 and K4 take the cluster path (``ClusterPlan``): each cluster runs
+the whole recurrence of a slice of batch rows, h (K3) or the partial
+carries (K4) going to the peers' shared memory by st.async, counted on
+each receiver's mbarrier.  Otherwise (H = 512), and for K3 at T = 1, the
+step-barrier kernels: CTAs of ``UNITS`` hidden units in clusters of
+``CLUSTER``, a step barrier in device memory.
 
 Gate order is i, f, g, o.  ``done[t]`` zeroes h and c before step t
 (``lstm_scan``, lstm.py:43-64); the kernels take ``mask = 1 - done``.
@@ -30,6 +35,9 @@ kernels mask ragged edges themselves.
 Dispatch follows the tensor: CPU tensors take the plain versions; CUDA
 tensors launch the kernels or raise.  Each wrapper counts its launches
 in ``<wrapper>.launches`` (``lstm_fwd.step_launches``: those at T = 1;
+``lstm_fwd.cluster_launches``, ``lstm_bwd.cluster_launches``: those on
+the cluster path; ``lstm_fwd.shape_launches``, ``lstm_bwd.shape_launches``:
+by (T, B, H);
 ``input_proj.split_launches``: those with K split over a cluster,
 ``input_proj.shape_launches``: by (M, N, K)).
 """
@@ -64,14 +72,19 @@ def load():
         lib.lstm_proj_launch.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.lstm_fwd_launch.argtypes = [vp] * 11 + [ci] * 5 + [vp]
         lib.lstm_bwd_launch.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+        lib.lstm_fwd_cluster_launch.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        lib.lstm_bwd_cluster_launch.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        lib.lstm_cluster_capacity.argtypes = [ci, ci, ctypes.c_longlong]
         for fn in (lib.lstm_proj_launch, lib.lstm_fwd_launch,
-                   lib.lstm_bwd_launch):
+                   lib.lstm_bwd_launch, lib.lstm_fwd_cluster_launch,
+                   lib.lstm_bwd_cluster_launch, lib.lstm_cluster_capacity):
             fn.restype = ci
         lib.lstm_error_string.argtypes = [ci]
         lib.lstm_error_string.restype = ctypes.c_char_p
         for fn in (lib.lstm_proj_k_step, lib.lstm_proj_shape_count,
                    lib.lstm_rec_units, lib.lstm_rec_cluster):
             fn.argtypes, fn.restype = [], ci
+        lib.lstm_tile_lanes.argtypes, lib.lstm_tile_lanes.restype = [ci], ci
         lib.lstm_proj_shape.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
         lib.lstm_proj_shape.restype = None
         shapes = set()
@@ -81,14 +94,19 @@ def load():
             shapes.add((tm.value, tn.value, sp.value))
         if (lib.lstm_proj_k_step(), lib.lstm_rec_units(),
                 lib.lstm_rec_cluster()) != (PROJ_K_STEP, UNITS, CLUSTER) \
-                or shapes != PROJ_SHAPES:
+                or shapes != PROJ_SHAPES \
+                or any(lib.lstm_tile_lanes(n) != tile_lanes(n)
+                       for n in range(1, 130)):
             raise RuntimeError("lstm.cu and ops/lstm.py disagree on the "
                                "projection's shapes or K step or the "
-                               "recurrences' CTA shape")
+                               "recurrences' CTA shape or tile lanes")
         lib.lstm_fwd_smem.argtypes = [ci] * 3
         lib.lstm_bwd_smem.argtypes = [ci] * 2
-        lib.lstm_fwd_smem.restype = lib.lstm_bwd_smem.restype = \
-            ctypes.c_longlong
+        lib.lstm_fwd_cluster_smem.argtypes = [ci] * 3
+        lib.lstm_bwd_cluster_smem.argtypes = [ci] * 4
+        for fn in (lib.lstm_fwd_smem, lib.lstm_bwd_smem,
+                   lib.lstm_fwd_cluster_smem, lib.lstm_bwd_cluster_smem):
+            fn.restype = ctypes.c_longlong
         for B, H in ((32, 512), (37, 102), (128, 512), (5, 100)):
             plan = recurrence_plan(B, H, 132)
             if (lib.lstm_fwd_smem(B, H, plan.stage_rows),
@@ -96,6 +114,14 @@ def load():
                     != (plan.fwd_smem, plan.bwd_smem):
                 raise RuntimeError("lstm.cu and ops/lstm.py disagree on "
                                    "the recurrences' shared memory")
+        for B, H, C, rows in ((128, 128, 8, 8), (4, 256, 16, 4),
+                              (37, 102, 8, 12), (3, 100, 2, 3)):
+            cp = cluster_plan(B, H, C, rows)
+            if (lib.lstm_fwd_cluster_smem(H, rows, cp.units),
+                    lib.lstm_bwd_cluster_smem(H, C, rows, cp.units)) \
+                    != (cp.fwd_smem, cp.bwd_smem):
+                raise RuntimeError("lstm.cu and ops/lstm.py disagree on "
+                                   "the cluster path's shared memory")
         _lib = lib
     return _lib
 
@@ -192,7 +218,8 @@ def _n_sm(device) -> int:
 
 PROJ_K_STEP = 32    # depth of one shared-memory stage of K3a
 # Up to this depth the plan comes from PROJ_COST, fitted at K = 135-1031;
-# deeper K (R2D1's 6917 and 6919) keeps the plan tuned there.
+# deeper K (R2D1's 6917 and 6919) keeps the plan tuned there, but at
+# M <= 64 rows, where the cost model's choice is the faster.
 PROJ_MODEL_K = 2048
 # K3a's shapes below PROJ_MODEL_K, (tile_m, tile_n) -> the cost in us on
 # an H100 of a CTA's fixed part, of each 32-deep stage it carries and of
@@ -240,19 +267,20 @@ def proj_plan(M: int, N: int, K: int, n_sm: int) -> ProjPlan:
       so their wave is three quarters of the SMs.  One split at M = 2048
       and N = 512; the most splits at M <= 64, where few tiles must share
       the depth.
-    - Deeper K (R2D1's K = 6919): 128-column tiles.  M <= 64, or 128-row
-      tiles that would leave more than half of the SMs without one:
-      64-row tiles, K over a cluster of 8.  Otherwise no split: tiles of
-      192 or 128 rows, whichever takes fewer rows of tiles per SM (the
-      132 SMs take 1440 rows as one wave of 192-row tiles, 640 as one of
-      128-row tiles).
+    - Deeper K (R2D1's K = 6919) at M <= 64 (collection and evaluation
+      steps): the cost model too.
+    - Deeper K at more rows: 128-column tiles.  128-row tiles that would
+      leave more than half of the SMs without one: 64-row tiles, K over a
+      cluster of 8.  Otherwise no split: tiles of 192 or 128 rows,
+      whichever takes fewer rows of tiles per SM (the 132 SMs take 1440
+      rows as one wave of 192-row tiles, 640 as one of 128-row tiles).
     """
     if N % 4 != 0:
         return ProjPlan(0, 128, K, 1)
     stages = _cdiv(K, PROJ_K_STEP)
-    if K > PROJ_MODEL_K:
+    if K > PROJ_MODEL_K and M > 64:
         cols = _cdiv(N, 128)
-        if M <= 64 or 2 * _cdiv(M, 128) * cols <= n_sm:
+        if 2 * _cdiv(M, 128) * cols <= n_sm:
             return ProjPlan(64, 128, _cdiv(stages, 8) * PROJ_K_STEP, 8)
         tile_m = min((192, 128),
                      key=lambda bm: _cdiv(_cdiv(M, bm) * cols, n_sm) * bm)
@@ -303,40 +331,135 @@ def input_proj(x, wx, b):
 SMEM_MAX = 232448 - 1024   # dynamic shared memory of a recurrence CTA
 ROW_BLOCK = 32      # batch rows of one warp's tile in K3 / K4
 REC_WARPS = 8       # warps of a recurrence CTA
+REC_THREADS = 32 * REC_WARPS
 UNITS = 4           # hidden units of a recurrence CTA
 # CTAs of a recurrence's thread-block cluster: 64 clusters of 2 one-SM
 # CTAs are all resident on an H100, 32 clusters of 4 are not.
 CLUSTER = 2
+# The cluster path (W_h in one cluster's shared memory): its cluster
+# sizes.
+CLUSTER_SIZES = (2, 4, 8, 16)
+MAX_SPLITS = 16     # lanes that split one tile's depth on the cluster path
+STAGES = 3          # steps of inputs a cluster-path cell lane stages
+
+
+def _stride(n: int) -> int:
+    """Row stride in floats of a shared-memory tile n wide: n rounded up
+    to 4, and an odd number of 16-byte units (``lstm.cu:h_stride``)."""
+    hp = -(-n // 4) * 4
+    return hp if (hp // 4) % 2 else hp + 4
+
+
+def tile_lanes(tiles: int) -> int:
+    """Lanes that split the depth of one cluster-path tile of 4 rows x 4
+    outputs (``lstm.cu:tile_lanes``), for ``tiles`` tiles: the most, a
+    power of two from 4 up to MAX_SPLITS, with which a CTA's threads hold
+    every tile at once (4 where they cannot: the tiles go in passes)."""
+    ks = 4
+    while 2 * ks * tiles <= REC_THREADS and 2 * ks <= MAX_SPLITS:
+        ks *= 2
+    return ks
 
 
 @dataclass(frozen=True)
-class RecurrencePlan:
-    """How K3 and K4 run for one (B, H): ``ctas`` CTAs of ``UNITS``
-    hidden units each (CTA j owns units [UNITS * j, UNITS * j + UNITS)
-    and their four gates; CTAs past H only take part in the barriers), in
-    thread-block clusters of ``CLUSTER`` CTAs, which share K3's staged h
-    and K4's dgates; K3 stages ``stage_rows`` rows of h at a time.
-    Dynamic shared memory in bytes."""
-    ctas: int
-    stage_rows: int
+class ClusterPlan:
+    """K3 (T > 1) and K4 for a W_h that fits one thread-block cluster:
+    ``clusters`` clusters of ``cluster`` CTAs; cluster c takes batch rows
+    [c * rows, c * rows + rows) and all H units of them, CTA r of it units
+    [r * units, r * units + units) (a multiple of 4) with their W_h
+    columns, one (row, unit) cell a thread.  K3's tiles (4 rows x a
+    unit's 4 gates) and K4's (4 rows x 4 units) split their depth over
+    ``fwd_splits`` and ``bwd_splits`` lanes.  Dynamic shared memory in
+    bytes."""
+    cluster: int
+    rows: int
+    units: int
+    clusters: int
+    fwd_splits: int
+    bwd_splits: int
     fwd_smem: int
     bwd_smem: int
 
 
+def cluster_plan(B: int, H: int, C: int, rows: int):
+    """The cluster path with C CTAs a cluster and ``rows`` rows a cluster,
+    or None where it does not fit.  Shared memory (floats, U = units, Q =
+    4U, hk = H rounded up to 4, rows4 = rows rounded up to 4, stride(n)
+    = n rounded up to an odd number of 4-float units, 256 threads): K3
+    the W_h slice [hk][stride(Q)], h twice [rows4][stride(H)] and each
+    thread's xg and mask of 3 steps [3][256][5]; K4 the W_h slice
+    transposed [Q][stride(hk)], its dgates [rows4][stride(Q)], the C
+    peers' partial carries twice [rows][U] and each thread's inputs of 3
+    steps [3][256][12] (gates, c, c before, dy, the masks)."""
+    units = -(-(-(-H // C)) // 4) * 4
+    rows4 = -(-rows // 4) * 4
+    hk = -(-H // 4) * 4
+    q = 4 * units
+    if not 1 <= rows or rows4 * units > REC_THREADS:
+        return None
+    fwd = 4 * (hk * _stride(q) + 2 * rows4 * _stride(H)
+               + STAGES * REC_THREADS * 5)
+    bwd = 4 * (q * _stride(hk) + rows4 * _stride(q) + 2 * C * rows * units
+               + STAGES * REC_THREADS * 12)
+    if max(fwd, bwd) > SMEM_MAX:
+        return None
+    return ClusterPlan(cluster=C, rows=rows, units=units,
+                       clusters=-(-B // rows),
+                       fwd_splits=tile_lanes(rows4 // 4 * units),
+                       bwd_splits=tile_lanes(rows4 // 4 * (hk // 4)),
+                       fwd_smem=fwd, bwd_smem=bwd)
+
+
+@dataclass(frozen=True)
+class RecurrencePlan:
+    """How K3 and K4 run for one (B, H).  ``clustered``: the cluster path
+    (K3 at T > 1 and K4), where W_h fits one cluster; None at H = 512.
+    Otherwise, and for K3 at T = 1, the step-barrier kernels: ``ctas`` CTAs of
+    ``UNITS`` hidden units each (CTA j owns units [UNITS * j, UNITS * j +
+    UNITS) and their four gates; CTAs past H only take part in the
+    barriers), in thread-block clusters of ``CLUSTER`` CTAs, which share
+    K3's staged h and K4's dgates; K3 stages ``stage_rows`` rows of h at a
+    time.  Dynamic shared memory in bytes."""
+    ctas: int
+    stage_rows: int
+    fwd_smem: int
+    bwd_smem: int
+    clustered: ClusterPlan | None = None
+
+
+def _cluster_choice(B: int, H: int, n_sm: int):
+    """The cluster path's shape for (B, H) on ``n_sm`` SMs, or None where
+    W_h fits no cluster, as bench_torch_lstm_steps.py --sweep timed it
+    fastest on an H100: CTAs of about 16 units (the smallest cluster of
+    CLUSTER_SIZES with C * 16 >= H: 8 at H = 128, 16 at H = 256); rows a
+    cluster the fewest from 4 (2 in clusters of 16, whose CTAs each send
+    to 15 peers) that keep every cluster on SMs of its own, n_sm // C - 1
+    clusters (the card holds 15 clusters of 8 and 7 of 16 at one CTA an
+    SM), and at most B."""
+    C = next((c for c in CLUSTER_SIZES if 16 * c >= H), CLUSTER_SIZES[-1])
+    fit = n_sm // C - 1
+    rows = 2 if C == 16 else 4
+    while -(-B // rows) > fit:
+        rows = rows + 4 if rows >= 4 else 4
+    return cluster_plan(B, H, C, min(rows, B))
+
+
 @functools.lru_cache(maxsize=None)
 def recurrence_plan(B: int, H: int, n_sm: int) -> RecurrencePlan:
-    """The recurrences' plan on a card of ``n_sm`` SMs: ceil(H / UNITS)
-    CTAs rounded up to whole clusters (128 at H = 512), one per SM, so at
-    most ``n_sm``.  Shared memory (floats, U = UNITS, C = CLUSTER, H4 = H
-    rounded up to 4): K3 the W_h slice [H4][4U], staged h [stage_rows][H4
-    (+ 4)], the warps' partial tiles [8][32][4U + 4] and c [B][U]; K4 the
-    cluster's W_h block [~H4 / C][4UC], the cluster's dgates [B][4UC], its
-    own [B][4U], dc [B][U] and the warps' partial carries [8][32][U].
-    ``stage_rows``: all of B rounded up to 32 where it fits, else the
-    most multiples of 32 that do."""
+    """The recurrences' plan on a card of ``n_sm`` SMs.  The step-barrier
+    kernels' part:
+    ceil(H / UNITS) CTAs rounded up to whole clusters (128 at H = 512),
+    one per SM, so at most ``n_sm``.  Shared memory (floats, U = UNITS, C
+    = CLUSTER, H4 = H rounded up to 4): K3 the W_h slice [H4][4U], staged
+    h [stage_rows][H4 (+ 4)], the warps' partial tiles [8][32][4U + 4] and
+    c [B][U]; K4 the cluster's W_h block [~H4 / C][4UC], the cluster's
+    dgates [B][4UC], its own [B][4U], dc [B][U] and the warps' partial
+    carries [8][32][U].  ``stage_rows``: all of B rounded up to 32 where
+    it fits, else the most multiples of 32 that do.  The cluster path
+    where W_h fits one cluster (``_cluster_choice``)."""
     q = 4 * UNITS
     hp = -(-H // 4) * 4
-    hs = hp if (hp // 4) % 2 else hp + 4
+    hs = _stride(H)
     fixed = 4 * (hp * q + REC_WARPS * ROW_BLOCK * (q + 4) + B * UNITS)
     rows = -(-B // ROW_BLOCK) * ROW_BLOCK
     stage_rows = min(rows, (SMEM_MAX - fixed) // (4 * hs)
@@ -355,7 +478,8 @@ def recurrence_plan(B: int, H: int, n_sm: int) -> RecurrencePlan:
                          "once")
     return RecurrencePlan(ctas=ctas, stage_rows=stage_rows,
                           fwd_smem=fixed + 4 * stage_rows * hs,
-                          bwd_smem=bwd_smem)
+                          bwd_smem=bwd_smem,
+                          clustered=_cluster_choice(B, H, n_sm))
 
 
 def lstm_fwd(xg, wh, mask, h0, c0):
@@ -375,24 +499,33 @@ def lstm_fwd(xg, wh, mask, h0, c0):
                                device=dev), y.clone(), h0.clone(),
                 c0.clone())
     plan = recurrence_plan(B, H, _n_sm(dev))
+    cp = plan.clustered if T > 1 else None
     y = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     cs = torch.empty_like(y)
     gates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     hT = torch.empty((B, H), dtype=torch.float32, device=dev)
     cT = torch.empty_like(hT)
-    # The step barrier's counter, zeroed on the stream (none at T = 1).
-    counter = torch.zeros(1, dtype=torch.int32, device=dev) if T > 1 \
-        else None
-    with torch.cuda.device(dev):
-        err = load().lstm_fwd_launch(
-            xg.data_ptr(), wh.data_ptr(), mask.data_ptr(), h0.data_ptr(),
+    ptrs = (xg.data_ptr(), wh.data_ptr(), mask.data_ptr(), h0.data_ptr(),
             c0.data_ptr(), y.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-            hT.data_ptr(), cT.data_ptr(),
-            None if counter is None else counter.data_ptr(), T, B, H,
-            plan.ctas, plan.stage_rows, _stream(dev))
+            hT.data_ptr(), cT.data_ptr())
+    with torch.cuda.device(dev):
+        if cp is not None:
+            err = load().lstm_fwd_cluster_launch(
+                *ptrs, T, B, H, cp.cluster, cp.rows, cp.units, _stream(dev))
+        else:
+            # The step barrier's counter, zeroed on the stream (none at
+            # T = 1).
+            counter = torch.zeros(1, dtype=torch.int32, device=dev) \
+                if T > 1 else None
+            err = load().lstm_fwd_launch(
+                *ptrs, None if counter is None else counter.data_ptr(), T,
+                B, H, plan.ctas, plan.stage_rows, _stream(dev))
     _raise_on(err, "lstm forward")
     lstm_fwd.launches += 1
     lstm_fwd.step_launches += T == 1
+    lstm_fwd.cluster_launches += cp is not None
+    lstm_fwd.shape_launches[T, B, H] = \
+        lstm_fwd.shape_launches.get((T, B, H), 0) + 1
     return y, gates, cs, hT, cT
 
 
@@ -410,21 +543,31 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
     if B == 0:   # a data-parallel rank that holds no drawn row
         return torch.empty_like(gates), dcT.clone(), dcT.clone()
     plan = recurrence_plan(B, H, _n_sm(dev))
+    cp = plan.clustered
     dgates = torch.empty((T, B, 4 * H), dtype=torch.float32, device=dev)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=dev)
     dc0 = torch.empty_like(dh0)
-    # Each cluster's partial carry [B, H rounded up to 4], two steps'.
-    part = torch.empty((2, plan.ctas // CLUSTER, B, -(-H // 4) * 4),
-                       dtype=torch.float32, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = load().lstm_bwd_launch(
-            gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), mask.data_ptr(),
+    ptrs = (gates.data_ptr(), cs.data_ptr(), c0.data_ptr(), mask.data_ptr(),
             wh.data_ptr(), dy.data_ptr(), dcT.data_ptr(), dgates.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(), part.data_ptr(),
-            counter.data_ptr(), T, B, H, plan.ctas, _stream(dev))
+            dh0.data_ptr(), dc0.data_ptr())
+    with torch.cuda.device(dev):
+        if cp is not None:
+            err = load().lstm_bwd_cluster_launch(
+                *ptrs, T, B, H, cp.cluster, cp.rows, cp.units, _stream(dev))
+        else:
+            # Each cluster's partial carry [B, H rounded up to 4], two
+            # steps', and the step barrier's counter.
+            part = torch.empty((2, plan.ctas // CLUSTER, B, -(-H // 4) * 4),
+                               dtype=torch.float32, device=dev)
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            err = load().lstm_bwd_launch(
+                *ptrs, part.data_ptr(), counter.data_ptr(), T, B, H,
+                plan.ctas, _stream(dev))
     _raise_on(err, "lstm backward")
     lstm_bwd.launches += 1
+    lstm_bwd.cluster_launches += cp is not None
+    lstm_bwd.shape_launches[T, B, H] = \
+        lstm_bwd.shape_launches.get((T, B, H), 0) + 1
     return dgates, dh0, dc0
 
 
@@ -433,7 +576,11 @@ input_proj.split_launches = 0   # those of them with K split over a cluster
 input_proj.shape_launches = {}   # the launches by (M, N, K)
 lstm_fwd.launches = 0
 lstm_fwd.step_launches = 0   # those of them with T = 1 (a collection step)
+lstm_fwd.cluster_launches = 0   # those on the cluster path
+lstm_fwd.shape_launches = {}   # the launches by (T, B, H)
 lstm_bwd.launches = 0
+lstm_bwd.cluster_launches = 0   # those on the cluster path
+lstm_bwd.shape_launches = {}   # the launches by (T, B, H)
 
 
 class LstmFunction(torch.autograd.Function):

@@ -192,17 +192,23 @@ PLAN_CASES = [
     ((32, 512, 1031), (64, 64, 160, 7)), ((736, 512, 1031), (128, 64, 544, 2)),
     ((320, 512, 1031), (128, 64, 288, 4)), ((8, 512, 1031), (64, 64, 160, 7)),
     # atari_dqn r2d1 (H = 512, F = 6917) and bench_r2d1 (F = 6919): PR 4's
-    # plan, unchanged
+    # plan at more than 64 rows; at M <= 64 the cost model's (64 x 64
+    # tiles in 3 splits: 0.062-0.064 ms against the split-K 64 x 128 x 8 at
+    # 0.067-0.070 in that sweep)
     ((2720, 2048, 6917), (192, 128, 6944, 1)),
     ((1280, 2048, 6917), (192, 128, 6944, 1)),
-    ((32, 2048, 6917), (64, 128, 896, 8)), ((4, 2048, 6917), (64, 128, 896, 8)),
+    ((32, 2048, 6917), (64, 64, 2336, 3)),
+    ((4, 2048, 6917), (64, 64, 2336, 3)),
     ((2720, 2048, 6919), (192, 128, 6944, 1)),
     ((1280, 2048, 6919), (192, 128, 6944, 1)),
-    ((32, 2048, 6919), (64, 128, 896, 8)), ((4, 2048, 6919), (64, 128, 896, 8)),
+    ((32, 2048, 6919), (64, 64, 2336, 3)),
+    ((4, 2048, 6919), (64, 64, 2336, 3)),
     ((1440, 2048, 6919), (192, 128, 6944, 1)),
     ((640, 2048, 6919), (128, 128, 6944, 1)),
-    ((64, 2048, 6919), (64, 128, 896, 8)), ((1, 2048, 6919), (64, 128, 896, 8)),
-    ((63, 2048, 6919), (64, 128, 896, 8)), ((65, 2048, 6919), (64, 128, 896, 8)),
+    ((64, 2048, 6919), (64, 64, 2336, 3)),
+    ((1, 2048, 6919), (64, 64, 2336, 3)),
+    ((63, 2048, 6919), (64, 64, 2336, 3)),
+    ((65, 2048, 6919), (64, 128, 896, 8)),
     ((128, 2048, 6919), (64, 128, 896, 8)),
     # ragged: the generic kernel for N not a multiple of 4; shallow K
     ((1440, 2050, 6919), (0, 128, 6919, 1)), ((21, 400, 130), (64, 64, 32, 5)),
@@ -214,12 +220,12 @@ PLAN_CASES = [
 def test_proj_splits_cover_k(shape, plan):
     """The projection's plan on 132 SMs: every row of W_x in exactly one
     split, no split empty, each split a whole number of the kernel's K
-    steps, a shape the library builds; at K = 6919 and 6917 PR 4's plan
-    (64-row tiles, K over a cluster of 8, for M <= 64 and wherever
+    steps, a shape the library builds; at K = 6919 and 6917 and more than
+    64 rows the deep-K plan (64-row tiles, K over a cluster of 8, wherever
     128-row tiles would leave more than half of the SMs idle; 192- or
-    128-row tiles without a split otherwise); at smaller K the cost
-    model's choice, and no plan of more CTAs than SMs; the generic kernel
-    when N is not a multiple of 4."""
+    128-row tiles without a split otherwise); at smaller K, and at M <=
+    64, the cost model's choice, and no plan of more CTAs than SMs; the
+    generic kernel when N is not a multiple of 4."""
     M, N, K = shape
     got = L.proj_plan(M, N, K, 132)
     assert tuple(got) == plan
@@ -232,7 +238,7 @@ def test_proj_splits_cover_k(shape, plan):
         assert got.k_chunk % L.PROJ_K_STEP == 0
     else:
         assert (got.k_chunk, got.splits) == (K, 1)
-    if got.tile_m and K <= L.PROJ_MODEL_K:
+    if got.tile_m and (K <= L.PROJ_MODEL_K or M <= 64):
         assert -(-M // got.tile_m) * -(-N // got.tile_n) * got.splits <= 132
 
 
@@ -276,9 +282,10 @@ def test_three_tf32_products_reproduce_fp32(F):
     assert (one - ref).abs().max() > 1e-5 * scale
 
 
-# K3a's summation orders at the config shapes: (K, k_chunk, splits).
+# K3a's summation orders at the config shapes: (K, k_chunk, splits), and
+# the split-K order the plan takes at K = 6917 for 65-512 rows.
 ORDERS = sorted({(K, p[2], p[3]) for (_, _, K), p in PLAN_CASES
-                 if p[0] and K > 3})
+                 if p[0] and K > 3} | {(6917, 896, 8)})
 
 
 @pytest.mark.parametrize("K,k_chunk,splits", ORDERS)
@@ -345,6 +352,26 @@ def test_cuda_kernels_match_plain(cuda_device):
             assert (o - r).abs().max() <= 1e-3 * r.abs().max()
 
 
+def hold_cluster_plan(cp, B, H):
+    """The cluster path's plan ``cp`` for (B, H) on 132 SMs: every batch
+    row in exactly one cluster (cluster c takes [c * rows, c * rows +
+    rows)) and no cluster empty; every hidden unit in exactly one CTA of
+    a cluster (CTA r owns [r * units, r * units + units), a multiple of
+    4); each CTA's (row, unit) cells, rows rounded up to 4, at most one a
+    thread;
+    shared memory within SMEM_MAX; all clusters on the SMs at once."""
+    clusters = [range(c * cp.rows, min(B, (c + 1) * cp.rows))
+                for c in range(cp.clusters)]
+    assert [b for r in clusters for b in r] == list(range(B))
+    assert all(len(r) > 0 for r in clusters)
+    owners = [r for r in range(cp.cluster) for _ in range(cp.units)]
+    assert len(owners) >= H and owners[:H] == sorted(owners[:H])
+    assert cp.units % 4 == 0 and cp.cluster in L.CLUSTER_SIZES
+    assert -(-cp.rows // 4) * 4 * cp.units <= L.REC_THREADS
+    assert max(cp.fwd_smem, cp.bwd_smem) <= L.SMEM_MAX
+    assert cp.clusters * cp.cluster <= 132
+
+
 @pytest.mark.parametrize("B,H", [(32, 512), (64, 512), (128, 512), (3, 100),
                                  (37, 102), (5, 102), (1, 8), (64, 528),
                                  (1, 1), (128, 100), (32, 128), (128, 128)])
@@ -356,8 +383,14 @@ def test_recurrence_plan_covers_units(B, H):
     can have on sm_90, h staged in whole 32-row blocks; at R2D1's shapes
     (H = 512, B = 32 or 64) 128 CTAs of 4 units stage all of h at once.
     K3's warps take k in blocks of 4 (warp w: 4w, 4w + 32, ...): each k
-    below H, rounded up to 4, exactly once."""
+    below H, rounded up to 4, exactly once.  Where W_h fits one cluster
+    (H up to 256 here) the cluster path covers every row and unit
+    (``hold_cluster_plan``); at H = 512 and 528 there is none."""
     plan = L.recurrence_plan(B, H, 132)
+    if H <= 256:
+        hold_cluster_plan(plan.clustered, B, H)
+    else:
+        assert plan.clustered is None
     owners = [j for j in range(plan.ctas) for _ in range(L.UNITS)]
     assert len(owners[:H]) == H and owners[:H] == sorted(owners[:H])
     assert plan.ctas * L.UNITS >= H
@@ -379,9 +412,51 @@ def test_recurrence_plan_covers_units(B, H):
 @pytest.mark.parametrize("B,H", [(32, 529), (64, 1024)])
 def test_recurrence_plan_refuses_more_ctas_than_sms(B, H):
     """H above 4 units x 132 SMs would need CTAs that cannot all be
-    resident at once: the plan raises instead of launching them."""
+    resident at once: the plan raises instead of launching them.  Nor
+    does W_h fit any cluster there: 16 CTAs of H / 16 units would each
+    hold more than SMEM_MAX of it."""
     with pytest.raises(ValueError, match="SMs"):
         L.recurrence_plan(B, H, 132)
+    assert all(L.cluster_plan(B, H, C, 1) is None for C in L.CLUSTER_SIZES)
+
+
+# The recurrences' plan on 132 SMs at every LSTM config's (B, H):
+# ((B, H), (cluster, rows, clusters)) on the cluster path, or ((B, H),
+# (ctas, stage_rows, fwd_smem, bwd_smem)) of the step-barrier plan at
+# H = 512, unchanged.
+REC_PLAN_CASES = [
+    # minatar_pg (H = 128): the lstm_a2c window and a collection step, a
+    # lstm_ppo minibatch and an evaluation step
+    ((128, 128), (8, 12, 11)), ((32, 128), (8, 4, 8)),
+    # minatar_dqn r2d1 and the R2D1 twin (H = 128): a collection step, an
+    # evaluation step of the twin
+    ((64, 128), (8, 8, 8)), ((8, 128), (8, 4, 2)),
+    # MujocoLstmModel (H = 256): a PPO minibatch, the whole batch
+    ((4, 256), (16, 2, 2)), ((8, 256), (16, 2, 4)),
+    # Atari R2D1 (H = 512): the step-barrier plan
+    ((32, 512), (128, 32, 119808, 43520)),
+    ((64, 512), (128, 64, 186368, 50176)),
+    ((4, 512), (128, 32, 119360, 37696)),
+]
+
+
+@pytest.mark.parametrize("shape,want", REC_PLAN_CASES)
+def test_recurrence_plan_at_config_shapes(shape, want):
+    """At H <= 256 the cluster path, with the cluster size, rows a
+    cluster and clusters that bench_torch_lstm_steps.py --sweep timed
+    fastest on an H100, covering every row and unit
+    (``hold_cluster_plan``); at H = 512 no cluster path and the
+    step-barrier plan unchanged."""
+    B, H = shape
+    plan = L.recurrence_plan(B, H, 132)
+    if H <= 256:
+        cp = plan.clustered
+        assert (cp.cluster, cp.rows, cp.clusters) == want
+        hold_cluster_plan(cp, B, H)
+    else:
+        assert plan.clustered is None
+        assert (plan.ctas, plan.stage_rows, plan.fwd_smem,
+                plan.bwd_smem) == want
 
 
 def bwd_reduce_scatter(gates, cs, c0, mask, wh, dy, dcT):
@@ -452,6 +527,116 @@ def test_bwd_reduce_scatter_matches_plain(T, B, H):
     dy = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32))
     dcT = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
     got = bwd_reduce_scatter(gates, cs, a["c0"], mask, wh, dy, dcT)
+    want = L.lstm_bwd_plain(gates, cs, a["c0"], mask, wh, dy, dcT)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+
+
+def cluster_order(B, H):
+    """(C, units, fwd_splits, bwd_splits) of the cluster path's arithmetic
+    at (B, H): the plan's where it has one; at H = 512, where W_h fits no
+    cluster, the order 16 CTAs a cluster and 4 rows would take."""
+    cp = L.recurrence_plan(B, H, 132).clustered
+    if cp is not None:
+        return cp.cluster, cp.units, cp.fwd_splits, cp.bwd_splits
+    units = -(-(-(-H // 16)) // 4) * 4
+    return 16, units, L.tile_lanes(units), L.tile_lanes(-(-H // 4))
+
+
+def lane_tree(parts):
+    """The cluster path's sum of a tile's lane partials ``parts`` (lane ks
+    at index ks): the shuffle tree of ``lstm.cu:reduce_rows``, which adds
+    lanes ks and ks ^ d for d = KS / 2, KS / 4, ..., 1 in that order."""
+    d = len(parts) // 2
+    while d >= 1:
+        parts = [parts[i] + parts[i ^ d] for i in range(len(parts))]
+        d //= 2
+    return parts[0]
+
+
+def fwd_cluster_order(xg, wh, mask, h0, c0):
+    """K3's arithmetic on the cluster path in its order: h @ W_h as the
+    shuffle tree (``lane_tree``) of KS lanes' partial products, lane ks
+    summing k = ks, ks + KS, ... (KS = the plan's fwd_splits), times the
+    mask, plus xg."""
+    T, B, H4 = xg.shape
+    H = H4 // 4
+    _, _, KS, _ = cluster_order(B, H)
+    lanes = [list(range(ks, H, KS)) for ks in range(KS)]
+    h, c = h0, c0
+    ys, gs, cs = [], [], []
+    for t in range(T):
+        m = mask[t][:, None]
+        acc = lane_tree([h[:, idx] @ wh[idx] if idx
+                         else torch.zeros((B, H4)) for idx in lanes])
+        pre = m * acc + xg[t]
+        i, f = torch.sigmoid(pre[:, :H]), torch.sigmoid(pre[:, H:2 * H])
+        g, o = torch.tanh(pre[:, 2 * H:3 * H]), torch.sigmoid(pre[:, 3 * H:])
+        c = f * (c * m) + i * g
+        h = o * torch.tanh(c)
+        ys.append(h)
+        gs.append(torch.cat([i, f, g, o], dim=1))
+        cs.append(c)
+    return torch.stack(ys), torch.stack(gs), torch.stack(cs), h, c
+
+
+def bwd_cluster_order(gates, cs, c0, mask, wh, dy, dcT):
+    """K4's arithmetic on the cluster path in its order: CTA r's partial
+    carry over its own gate columns, q = 4u + g (column g * H + r * U +
+    u), as the shuffle tree of KS lanes' partials, lane ks summing q = ks,
+    ks + KS, ... (KS = the plan's bwd_splits); the carry the sum of the C
+    partials in rank order, times mask[s+1]."""
+    T, B, H = cs.shape
+    C, U, _, KS = cluster_order(B, H)
+    cols = [[[(q % 4) * H + r * U + q // 4 for q in range(ks, 4 * U, KS)
+              if r * U + q // 4 < H] for ks in range(KS)] for r in range(C)]
+    dc = dcT
+    dgs = [None] * T
+    for s in range(T - 1, -2, -1):
+        carry = torch.zeros_like(c0)
+        if s + 1 < T:
+            for lanes in cols:
+                carry = carry + lane_tree(
+                    [dgs[s + 1][:, idx] @ wh[:, idx].T if idx
+                     else torch.zeros_like(c0) for idx in lanes])
+            carry = carry * mask[s + 1][:, None]
+        if s < 0:
+            return torch.stack(dgs), carry, dc
+        m = mask[s][:, None]
+        cp = (c0 if s == 0 else cs[s - 1]) * m
+        i, f, g, o = gates[s].split(H, dim=1)
+        tc = torch.tanh(cs[s])
+        dh = dy[s] + carry
+        dct = dh * o * (1.0 - tc * tc) + dc
+        dgs[s] = torch.cat([dct * g * i * (1.0 - i), dct * cp * f * (1.0 - f),
+                            dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)],
+                           dim=1)
+        dc = dct * f * m
+
+
+# ORDER_SHAPES and cluster-path shapes of the configs: a lstm_ppo
+# minibatch (H = 128, B = 32) and a Gaussian PPO one (H = 256, B = 4),
+# with fewer steps.
+CLUSTER_ORDER_SHAPES = ORDER_SHAPES + [(6, 32, 128), (5, 4, 256)]
+
+
+@pytest.mark.parametrize("T,B,H", CLUSTER_ORDER_SHAPES)
+def test_cluster_orders_match_plain(T, B, H):
+    """The cluster path's K3 (lane partials added by a shuffle tree) and
+    K4 (each CTA's partial carry over its own gate columns, by the same
+    tree, the partials summed in rank order) equal lstm_fwd_plain and
+    lstm_bwd_plain to 1e-6 of the largest value (float32)."""
+    a, mask, xg = recurrence_inputs(12, T, B, H)
+    wh = a["wh"] / np.sqrt(H)
+    got = fwd_cluster_order(xg, wh, mask, a["h0"], a["c0"])
+    want = L.lstm_fwd_plain(xg, wh, mask, a["h0"], a["c0"])
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+    _, gates, cs, _, _ = want
+    rng = np.random.default_rng(13)
+    dy = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32))
+    dcT = torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+    got = bwd_cluster_order(gates, cs, a["c0"], mask, wh, dy, dcT)
     want = L.lstm_bwd_plain(gates, cs, a["c0"], mask, wh, dy, dcT)
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-6 * w.abs().max()
