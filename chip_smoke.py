@@ -211,7 +211,20 @@ Phases, each fatal on failure:
      that drive K3 and K4 (7, 12a-c, 13d, 14b, 18b) check that every K3
      launch at T > 1 and every K4 launch took the cluster path where W_h
      fits one cluster (H = 128, 256) and the step-barrier kernels at
-     H = 512.
+     H = 512.  At T = 1 it also gives K3a + K3 beside cuDNN's forward,
+     which projects the input too.
+ 21. the one-step kernel (lstm_step: every T = 1 call, one launch) at
+     every one-step shape of the LSTM configs (P21_SHAPES: collection and
+     evaluation steps of MujocoLstmModel, the Atari and MinAtar R2D1
+     configs, bench_r2d1.py, the MinAtar PG LSTM and the R2D1 twin): the
+     plan taken, the largest error of its five outputs against
+     lstm_step_plain (1e-4 of the largest value, TF32 off), the same bits
+     over two launches, and in one process the device and call times of
+     the kernel, of K3a + K3 (the two launches it replaced) and of cuDNN's
+     one-step nn.LSTM forward beside the bound.  The phases that drive
+     the LSTM (7, 12b, 12c, 13d, 14b, 15d, 16b, 17a, 18b) count every
+     one-step call as a launch of this kernel by (B, H, F), and fail if a
+     T = 1 call reaches K3a or K3; their K3a and K3 launches are windows'.
 
 The last lines are the card's name and power limit, one JSON line with
 the kernels' numbers and the result line
@@ -247,6 +260,10 @@ null launches, no result line).
     python3 chip_smoke.py --phase20
 
 builds the kernels and runs phase 20 alone, likewise.
+
+    python3 chip_smoke.py --phase21
+
+builds the kernels and runs phase 21 alone, likewise.
 """
 from __future__ import annotations
 
@@ -701,10 +718,11 @@ def zero_launches():
     from rlpyt_tpu_torch.ops import union_gather as ug
 
     for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd,
-               ug.gather_union_rows, ug.gather_union_window):
+               L.lstm_step, ug.gather_union_rows, ug.gather_union_window):
         fn.launches = 0
     L.input_proj.split_launches = 0
     L.input_proj.shape_launches = {}
+    L.lstm_step.shape_launches = {}
     L.lstm_fwd.step_launches = 0
     for fn in (L.lstm_fwd, L.lstm_bwd):
         fn.cluster_launches = 0
@@ -760,15 +778,49 @@ def proj_shapes(N: int, K: int, counts) -> dict:
     return out
 
 
-def r2d1_proj_shapes(algo, H: int, F: int, steps) -> dict:
-    """K3a's launches by shape on an R2D1 path: ``steps`` (lanes, env
-    steps) pairs for collection and evaluation, one launch of ``lanes``
-    rows a step, and for each update the online and the target network's
-    burn-in and training windows of ``batch_b`` sequences."""
+def r2d1_proj_shapes(algo, H: int, F: int) -> dict:
+    """K3a's launches by shape on an R2D1 path: for each update the online
+    and the target network's burn-in and training windows of ``batch_b``
+    sequences (collection and evaluation steps take the one-step
+    kernel)."""
     u = algo.update_counter
-    return proj_shapes(4 * H, F, list(steps) + [
+    return proj_shapes(4 * H, F, [
         (algo.warmup_T * algo.batch_b, 2 * u),
         ((algo.batch_T + algo.n_step) * algo.batch_b, 2 * u)])
+
+
+def step_shapes(H: int, F: int, counts) -> dict:
+    """The one-step kernel's launches by (B, H, F) from (lanes, steps)
+    pairs, one launch a step, those of equal B added, none of 0 kept."""
+    out = {}
+    for B, n in counts:
+        if n:
+            out[B, H, F] = out.get((B, H, F), 0) + n
+    return out
+
+
+# The one-step kernel's launches on the main paths by (B, H, F), summed
+# over the paths this process drove and checked (phases 7, 12b, 12c, 13d,
+# 14b, 15d, 18b): the launches of phase 21's entries.
+STEP_PATH_LAUNCHES: dict = {}
+
+
+def hold_step_shapes(L, what: str, want: dict) -> int:
+    """The main path just driven launched the one-step kernel exactly
+    ``want[(B, H, F)]`` times at each shape and at no other, and K3 at T =
+    1 never (K3a's shapes, windows only, are hold_proj_shapes'): a
+    one-step call that reached K3a or K3 fails.  Adds the launches to
+    STEP_PATH_LAUNCHES; returns their sum."""
+    got = L.lstm_step.shape_launches
+    if got != want:
+        fail(f"{what}: one-step launches by (B, H, F) {got}, expected "
+             f"{want}")
+    t1 = {k: n for k, n in L.lstm_fwd.shape_launches.items() if k[0] == 1}
+    if t1 or L.lstm_fwd.step_launches:
+        fail(f"{what}: one-step calls reached K3 (by (T, B, H) {t1})")
+    for shape, n in want.items():
+        STEP_PATH_LAUNCHES[shape] = STEP_PATH_LAUNCHES.get(shape, 0) + n
+    return sum(want.values())
 
 
 def hold_proj_shapes(L, what: str, want: dict) -> int:
@@ -901,11 +953,11 @@ def build_r2d1_runner(dev, n_itr: int, logger=None):
 def run_r2d1(L, dev):
     """Phase 7: the R2D1 trainer through MinibatchRl.  Checks finite
     losses and priorities and that every LSTM call of the run went
-    through the kernels: per iteration T collection steps (one K3a and
-    one K3 launch each, K3 at T=1), per update 4 forward calls (online
-    and target, burn-in and training window) and one backward (K4); K3a
-    by shape, and those of its launches that the plan splits over a
-    cluster (the collection's)."""
+    through the kernels: per iteration T collection steps (one one-step
+    launch each, no K3a or K3), per update 4 forward calls (online and
+    target, burn-in and training window: K3a and K3) and one backward
+    (K4); K3a and the one-step kernel by shape, and those of K3a's
+    launches that the plan splits over a cluster."""
     from rlpyt_tpu_torch.ops import frame_gather as fg
 
     logger = row_logger()
@@ -918,6 +970,7 @@ def run_r2d1(L, dev):
                 "lstm_input_proj_split": L.input_proj.split_launches,
                 "lstm_fwd": L.lstm_fwd.launches,
                 "lstm_fwd_step": L.lstm_fwd.step_launches,
+                "lstm_step": L.lstm_step.launches,
                 "lstm_bwd": L.lstm_bwd.launches}
     updates = algo.update_counter
     learning_itrs = sum(1 for i in range(1, R2D1_ITR + 1)
@@ -925,12 +978,12 @@ def run_r2d1(L, dev):
     if updates != learning_itrs * algo.updates_per_optimize or updates == 0:
         fail(f"R2D1 ran {updates} updates, expected "
              f"{learning_itrs * algo.updates_per_optimize}")
-    want = {"lstm_input_proj": R2D1_ITR * R2D1_T + 4 * updates,
+    want = {"lstm_input_proj": 4 * updates,
             "lstm_input_proj_split": hold_proj_shapes(
-                L, "phase 7", r2d1_proj_shapes(
-                    algo, LSTM_H, LSTM_F, [(R2D1_B, R2D1_ITR * R2D1_T)])),
-            "lstm_fwd": R2D1_ITR * R2D1_T + 4 * updates,
-            "lstm_fwd_step": R2D1_ITR * R2D1_T,
+                L, "phase 7", r2d1_proj_shapes(algo, LSTM_H, LSTM_F)),
+            "lstm_fwd": 4 * updates, "lstm_fwd_step": 0,
+            "lstm_step": hold_step_shapes(L, "phase 7", step_shapes(
+                LSTM_H, LSTM_F, [(R2D1_B, R2D1_ITR * R2D1_T)])),
             "lstm_bwd": updates}
     if launches != want:
         fail(f"LSTM launches {launches}, expected {want}")
@@ -1491,26 +1544,29 @@ def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
     launches = {"lstm_input_proj": L.input_proj.launches,
                 "lstm_fwd": L.lstm_fwd.launches,
                 "lstm_fwd_t1": L.lstm_fwd.step_launches,
+                "lstm_step": L.lstm_step.launches,
                 "lstm_bwd": L.lstm_bwd.launches}
     algo, n_eval = runner.algo, eval_steps[0]
     if not key.startswith("lstm"):
         want = dict.fromkeys(launches, 0)
-        shapes = {}
+        shapes, steps = {}, {}
     else:
         windows = algo.updates_per_optimize    # 16 for PPO, 1 for A2C
         T, B = cfg["sampler"]["batch_T"], cfg["sampler"]["batch_B"]
         t1 = n_itr * (T + 1) + n_eval
-        want = {"lstm_input_proj": t1 + n_itr * windows,
-                "lstm_fwd": t1 + n_itr * windows, "lstm_fwd_t1": t1,
-                "lstm_bwd": n_itr * windows}
+        want = {"lstm_input_proj": n_itr * windows,
+                "lstm_fwd": n_itr * windows, "lstm_fwd_t1": 0,
+                "lstm_step": t1, "lstm_bwd": n_itr * windows}
         # Recurrent PPO's minibatches take whole lanes.
         shapes = proj_shapes(4 * PG_H, PG_F, [
-            (B, n_itr * (T + 1)), (cfg["sampler"]["eval_n_envs"], n_eval),
             (T * B // getattr(algo, "minibatches", 1), n_itr * windows)])
+        steps = step_shapes(PG_H, PG_F, [
+            (B, n_itr * (T + 1)), (cfg["sampler"]["eval_n_envs"], n_eval)])
     launches["lstm_input_proj_split"] = L.input_proj.split_launches
     want["lstm_input_proj_split"] = hold_proj_shapes(L, key, shapes)
+    hold_step_shapes(L, key, steps)
     launches.update(hold_cluster_path(L, key, need=key.startswith("lstm")))
-    want.update(lstm_fwd_cluster=want["lstm_fwd"] - want["lstm_fwd_t1"],
+    want.update(lstm_fwd_cluster=want["lstm_fwd"],
                 lstm_bwd_cluster=want["lstm_bwd"])
     if launches != want:
         fail(f"{key}: LSTM launches {launches}, expected {want} "
@@ -1980,15 +2036,19 @@ def check_gaussian_ppo_against_cpu(L, dev):
             "lstm_input_proj_split": L.input_proj.split_launches,
             "lstm_fwd": L.lstm_fwd.launches,
             "lstm_fwd_t1": L.lstm_fwd.step_launches,
+            "lstm_step": L.lstm_step.launches,
             "lstm_bwd": L.lstm_bwd.launches})
     (info_c, before, after_c, grads_c, _), \
         (info_g, _, after_g, grads_g, launches) = out["cpu"], out[dev]
     windows = MJ_PPO["epochs"] * MJ_MINIBATCHES
-    want = {"lstm_input_proj": windows + 1,
+    want = {"lstm_input_proj": windows,
             "lstm_input_proj_split": hold_proj_shapes(
                 L, "phase 13d", proj_shapes(4 * MJ_H, MJ_F, [
-                    (MJ_B, 1), (MJ_T * MJ_B // MJ_MINIBATCHES, windows)])),
-            "lstm_fwd": windows + 1, "lstm_fwd_t1": 1, "lstm_bwd": windows}
+                    (MJ_T * MJ_B // MJ_MINIBATCHES, windows)])),
+            "lstm_fwd": windows, "lstm_fwd_t1": 0,
+            "lstm_step": hold_step_shapes(L, "phase 13d", step_shapes(
+                MJ_H, MJ_F, [(MJ_B, 1)])),
+            "lstm_bwd": windows}
     launches.update(hold_cluster_path(L, "phase 13d", need=True))
     want.update(lstm_fwd_cluster=windows, lstm_bwd_cluster=windows)
     if launches != want:
@@ -2080,6 +2140,7 @@ def md_launches(L) -> dict:
             "lstm_input_proj_split": L.input_proj.split_launches,
             "lstm_fwd": L.lstm_fwd.launches,
             "lstm_fwd_t1": L.lstm_fwd.step_launches,
+            "lstm_step": L.lstm_step.launches,
             "lstm_bwd": L.lstm_bwd.launches}
 
 
@@ -2091,13 +2152,13 @@ def run_minatar_dqn(L, key: str, log_root: Path):
     are cut.  Checks finite losses once learning has started, the update
     count, the Eval keys and a completed evaluation episode; for ernbw and
     ernbw_vec finite priorities above 0 on every written row; for r2d1 the
-    LSTM launches of every iteration: T collection steps (one K3a and one
-    one-step K3 each), per update four forward windows (K3a, K3) and one
-    backward (K4), and one K3a and one-step K3 per evaluation step
-    (counted at the env: 32 lanes), and over the run K3a's launches by
-    shape and those of them that the plan splits over a cluster; for the
-    others no LSTM launch.  Returns (runner, rows, per-iteration launch
-    counts)."""
+    LSTM launches of every iteration: T collection steps (one one-step
+    launch each), per update four forward windows (K3a, K3) and one
+    backward (K4), and one one-step launch per evaluation step (counted
+    at the env: 32 lanes), and over the run K3a's and the one-step
+    kernel's launches by shape and those of K3a's that the plan splits
+    over a cluster; for the others no LSTM launch.  Returns (runner,
+    rows, per-iteration launch counts)."""
     import contextlib
     import csv
     import io
@@ -2155,9 +2216,8 @@ def run_minatar_dqn(L, key: str, log_root: Path):
         per_itr.append(dict(got, eval_steps=n_eval))
         if key == "r2d1":
             win = 4 * algo.updates_per_optimize * learning[i]
-            t1 = MD_T + n_eval
-            want = {"lstm_input_proj": t1 + win, "lstm_fwd": t1 + win,
-                    "lstm_fwd_t1": t1,
+            want = {"lstm_input_proj": win, "lstm_fwd": win,
+                    "lstm_fwd_t1": 0, "lstm_step": MD_T + n_eval,
                     "lstm_bwd": algo.updates_per_optimize * learning[i]}
             got = {k: got[k] for k in want}
         else:
@@ -2166,8 +2226,10 @@ def run_minatar_dqn(L, key: str, log_root: Path):
             fail(f"14b {key} iteration {i + 1}: LSTM launches {got}, "
                  f"expected {want} ({n_eval} evaluation steps)")
     n_eval = sum(it["eval_steps"] for it in per_itr)
-    hold_proj_shapes(L, f"14b {key}", r2d1_proj_shapes(
-        algo, MD_H, MD_F, [(MD_B, MD_T * n_itr), (MD_EVAL_B, n_eval)])
+    hold_proj_shapes(L, f"14b {key}", r2d1_proj_shapes(algo, MD_H, MD_F)
+                     if key == "r2d1" else {})
+    hold_step_shapes(L, f"14b {key}", step_shapes(
+        MD_H, MD_F, [(MD_B, MD_T * n_itr), (MD_EVAL_B, n_eval)])
         if key == "r2d1" else {})
     got = hold_cluster_path(L, f"14b {key}", need=key == "r2d1")
     if key == "r2d1" and got != {
@@ -2609,10 +2671,9 @@ def run_atari(fg, L, key: str, log_root: Path, asynchronous=False):
         per_itr.append(dict(got, eval_steps=n_eval))
         n_upd = upd * learning[i]
         if key == "r2d1":
-            t1 = T + n_eval
-            want = {"frame_gather": 0, "lstm_input_proj": t1 + 4 * n_upd,
-                    "lstm_fwd": t1 + 4 * n_upd, "lstm_fwd_t1": t1,
-                    "lstm_bwd": n_upd}
+            want = {"frame_gather": 0, "lstm_input_proj": 4 * n_upd,
+                    "lstm_fwd": 4 * n_upd, "lstm_fwd_t1": 0,
+                    "lstm_step": T + n_eval, "lstm_bwd": n_upd}
             got = {k: got[k] for k in want}
         else:
             want = dict.fromkeys(got, 0)
@@ -2648,16 +2709,18 @@ def run_atari(fg, L, key: str, log_root: Path, asynchronous=False):
     if asynchronous:
         if total["frame_gather"] != algo.update_counter or any(
                 total[k] for k in ("lstm_input_proj", "lstm_fwd",
-                                   "lstm_bwd")):
+                                   "lstm_step", "lstm_bwd")):
             fail(f"15e: launches {total} for {algo.update_counter} updates")
         if not float(rows[-1]["loss"]) > 0:
             fail(f"15e: loss {rows[-1]['loss']} in the last iteration")
         lags = runner.actor_lags
         if not all(0 <= lag <= 2 for lag in lags):
             fail(f"15e: actor parameter lags {lags}, not within 2 batches")
-    hold_proj_shapes(L, f"15 {name}", r2d1_proj_shapes(
-        algo, AT_H, AT_F, [(AT_B, T * len(rows)), (
-            AT_EVAL_B, sum(it["eval_steps"] for it in per_itr))])
+    hold_proj_shapes(L, f"15 {name}", r2d1_proj_shapes(algo, AT_H, AT_F)
+                     if key == "r2d1" else {})
+    hold_step_shapes(L, f"15 {name}", step_shapes(AT_H, AT_F, [
+        (AT_B, T * len(rows)),
+        (AT_EVAL_B, sum(it["eval_steps"] for it in per_itr))])
         if key == "r2d1" else {})
     return runner, rows, per_itr, tm
 
@@ -2832,8 +2895,7 @@ def run_host_path(fg, L, g, dev, errs, times, launches, tf32):
         "frame_gather_atari_cfg": counts["dqn"]["frame_gather"],
         "frame_gather_u7_atari_cfg": counts["ernbw"]["frame_gather"],
         "lstm_input_proj_atari_r2d1": counts["r2d1"]["lstm_input_proj"],
-        "lstm_fwd_atari_r2d1": (counts["r2d1"]["lstm_fwd"]
-                                - counts["r2d1"]["lstm_fwd_t1"]),
+        "lstm_fwd_atari_r2d1": counts["r2d1"]["lstm_fwd"],
         "lstm_fwd_t1_atari_r2d1": counts["r2d1"]["lstm_fwd_t1"],
         "lstm_bwd_atari_r2d1": counts["r2d1"]["lstm_bwd"]})
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3035,16 +3097,18 @@ def example5_equal_and_resume(L, dev, tmp: Path) -> dict:
                 "lstm_fwd_t1": L.lstm_fwd.step_launches,
                 "lstm_fwd_window": L.lstm_fwd.launches
                 - L.lstm_fwd.step_launches,
+                "lstm_step": L.lstm_step.launches,
                 "lstm_bwd": L.lstm_bwd.launches}
     n_intervals = len(async_log.rows)
     updates = runner.algo.update_counter
     steps = EX5_N_STEPS // runner.batch_spec.B   # collection steps
-    want = {"lstm_input_proj": steps + 4 * updates, "lstm_fwd_t1": steps,
-            "lstm_fwd_window": 4 * updates, "lstm_bwd": updates}
+    want = {"lstm_input_proj": 4 * updates, "lstm_fwd_t1": 0,
+            "lstm_fwd_window": 4 * updates, "lstm_bwd": updates,
+            "lstm_step": hold_step_shapes(L, "16b", step_shapes(
+                MD_H, MD_F, [(runner.batch_spec.B, steps)]))}
     launches["lstm_input_proj_split"] = L.input_proj.split_launches
     want["lstm_input_proj_split"] = hold_proj_shapes(
-        L, "16b", r2d1_proj_shapes(runner.algo, MD_H, MD_F,
-                                   [(runner.batch_spec.B, steps)]))
+        L, "16b", r2d1_proj_shapes(runner.algo, MD_H, MD_F))
     if updates <= 0 or launches != want:
         fail(f"16b: LSTM launches {launches} with {updates} updates, "
              f"expected {want}")
@@ -3321,7 +3385,8 @@ P17_EX4_ITR = 3              # 17e: example 4 iterations (2048 steps each)
 P17_MP_STEPS = 2_048         # 17f: CartPole steps of the mp = 2 run
 P17_RATE_ITR = 6             # 17g: r2d1 iterations of each timed run
 P17_KEYS = ("frame_gather", "lstm_input_proj", "lstm_fwd", "lstm_fwd_t1",
-            "lstm_bwd", "updates", "all_reduce_s", "all_reduces")
+            "lstm_step", "lstm_bwd", "updates", "all_reduce_s",
+            "all_reduces")
 P17_TOL = dict(rtol=2e-3, atol=2e-4)   # tests/test_parallel.py:86
 
 
@@ -3367,7 +3432,8 @@ class CheckedSyncRl(SyncRl):
         mine = torch.tensor(
             [fg.gather_frame_stacks.launches, L.input_proj.launches,
              L.lstm_fwd.launches, L.lstm_fwd.step_launches,
-             L.lstm_bwd.launches, self.algo.update_counter, spent[0],
+             L.lstm_step.launches, L.lstm_bwd.launches,
+             self.algo.update_counter, spent[0],
              spent[1]], dtype=torch.float64, device=self.device)
         every = [torch.empty_like(mine)
                  for _ in range(dist.get_world_size())]
@@ -3837,7 +3903,7 @@ def run_phase17(dev, launches14=None):
           + json.dumps({"17b": [{k: int(r[k]) for k in
                                  ("frame_gather", "updates")}
                                 for r in b["per_rank"]],
-                        "17c": [{k: int(r[k]) for k in P17_KEYS[1:6]}
+                        "17c": [{k: int(r[k]) for k in P17_KEYS[1:7]}
                                 for r in c["per_rank"]]}))
     g = p17_rates()
     print(f"phase 17g (readings): r2d1 env-steps/s, turns {g}; host ms of "
@@ -3906,6 +3972,22 @@ P20_SHAPES = (
     ("minatar r2d1 collection", MD_H, MD_F, 1, MD_B),
     ("evaluation", MD_H, MD_F, 1, MD_EVAL_B),
     ("gaussian collection", MJ_H, MJ_F, 1, MJ_B),
+)
+
+
+# Phase 21: the one-step kernel at every one-step call of the LSTM
+# configs, (config, call, H, F, B).
+P21_SHAPES = (
+    ("mujoco_lstm", "collection", MJ_H, MJ_F, MJ_B),
+    ("atari_dqn r2d1", "evaluation", AT_H, AT_F, AT_EVAL_B),
+    ("atari_dqn r2d1", "collection", AT_H, AT_F, AT_B),
+    ("bench_r2d1", "collection", LSTM_H, LSTM_F, R2D1_B),
+    ("minatar_dqn r2d1", "collection", MD_H, MD_F, MD_B),
+    ("minatar_dqn r2d1", "evaluation", MD_H, MD_F, MD_EVAL_B),
+    ("minatar_pg", "collection", PG_H, PG_F, PG_B),
+    ("minatar_pg", "evaluation", PG_H, PG_F, PG_EVAL_B),
+    ("r2d1 twin", "collection", MD_H, MD_F, TW_B),
+    ("r2d1 twin", "evaluation", MD_H, MD_F, TW_EVAL_B),
 )
 
 
@@ -3982,10 +4064,10 @@ def run_twin_r2d1(L, dev) -> dict:
     """Phase 18b: the twin's R2D1 for TW_ITR iterations; fails unless
     the losses and priorities are finite, the updates are those of the
     learning iterations, and the LSTM launches are those the config
-    predicts: per collection step one K3a and one K3 at T=1; per update
-    four of each (online and target burn-in at T=10, online and target
-    training window at T=23) and one K4 (the online window's backward).
-    Returns the launches."""
+    predicts: per collection step one one-step launch; per update
+    four of K3a and K3 (online and target burn-in at T=10, online and target
+    training window at T=23) and one K4 (the online window's backward);
+    one-step calls on the one-step kernel.  Returns the launches."""
     runner = twin_r2d1_runner(dev)
     zero_launches()
     t0 = time.time()
@@ -3996,12 +4078,13 @@ def run_twin_r2d1(L, dev) -> dict:
     steps = TW_T * TW_B
     first = -(-algo.min_steps_learn // steps)   # first learning iteration
     updates = (TW_ITR - first + 1) * algo.updates_per_optimize
-    want = {"lstm_input_proj": TW_ITR * TW_T + 4 * updates,
+    want = {"lstm_input_proj": 4 * updates,
             "lstm_input_proj_split": hold_proj_shapes(
-                L, "phase 18b", r2d1_proj_shapes(
-                    algo, MD_H, MD_F, [(TW_B, TW_ITR * TW_T)])),
-            "lstm_fwd": TW_ITR * TW_T + 4 * updates,
-            "lstm_fwd_t1": TW_ITR * TW_T, "lstm_bwd": updates}
+                L, "phase 18b", r2d1_proj_shapes(algo, MD_H, MD_F)),
+            "lstm_fwd": 4 * updates, "lstm_fwd_t1": 0,
+            "lstm_step": hold_step_shapes(L, "phase 18b", step_shapes(
+                MD_H, MD_F, [(TW_B, TW_ITR * TW_T)])),
+            "lstm_bwd": updates}
     if algo.update_counter != updates:
         fail(f"phase 18b: {algo.update_counter} updates, predicted "
              f"{updates}")
@@ -4193,12 +4276,22 @@ def run_phase20(L, g, dev):
             launches[name] = REC_PATH_LAUNCHES.get((kernel, T, B, H), 0) \
                 if REC_PATH_LAUNCHES else None
             lib = t.get("library_device_ms") or t["library_ms"]
+            seq = ""
+            if kernel == "lstm_fwd" and T == 1:
+                # cuDNN's forward also projects the input: beside it K3
+                # alone, and K3a + K3 (a one-step call's two launches
+                # before the one-step kernel).
+                pj = proj_times(L, c["x"].view(B, F), [c["wx"]], c["b"], 20)
+                t["seq_device_ms"] = pj["device_ms"] + t["device_ms"]
+                seq = (f", K3a + K3 {t['seq_device_ms']:.4f} ms "
+                       f"({t['seq_device_ms'] / lib:.2f} x cuDNN)")
             line.append(
                 f"{kernel} max abs err {worst:.3g}, device "
                 f"{t['device_ms']:.4f} ms ({t['device_ms'] / T * 1e3:.2f} us"
                 f" a step), cuDNN "
                 f"{'device' if t.get('library_device_ms') else 'call'} "
-                f"{lib:.4f} ms ({t['device_ms'] / lib:.2f} x), bound "
+                f"{lib:.4f} ms ({t['device_ms'] / lib:.2f} x"
+                f"{', K3 alone' if seq else ''}){seq}, bound "
                 f"{t['bound_ms']:.5f} ms by {t['bound_by']} "
                 f"({t['device_ms'] / t['bound_ms']:.1f} x), main-path "
                 f"launches {launches[name]}")
@@ -4210,6 +4303,70 @@ def run_phase20(L, g, dev):
     torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32 = tf32
     print(f"phase 20: {time.time() - t0:.1f} s")
+    return times, errs, launches
+
+
+def p21_name(cfg: str, call: str) -> str:
+    """The kernels-line name of phase 21's entry for one config shape."""
+    return "lstm_step_p21_" + "_".join((cfg + " " + call).split())
+
+
+def run_phase21(L, g, dev):
+    """Phase 21: the one-step kernel at P21_SHAPES.  At each: the plan
+    taken, the largest error of the five outputs against
+    ``lstm_step_plain`` (TF32 off; fails above 1e-4 of each output's
+    largest value), two launches with the same bits (fails otherwise),
+    and in this process the device and call times of the one-step
+    kernel, of K3a + K3 (the two launches it replaced) and of cuDNN's
+    one-step ``nn.LSTM`` forward, beside the bound and the unit that sets
+    it (bench_torch_lstm_step.measure).  Returns (times, errors, launches)
+    of its kernels-line entries; the launches are the main paths' at that
+    shape (STEP_PATH_LAUNCHES: none when no path was driven in this
+    process)."""
+    import bench_torch_lstm_step as step_bench
+    from rlpyt_tpu_torch.utils import cuda_timing
+
+    t0 = time.time()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    times, errs, launches = {}, {}, {}
+    for cfg, call, H, F, B in P21_SHAPES:
+        r = step_bench.measure(L, cuda_timing, g, dev, H, F, B)
+        p = r["plan"]
+        if not (r["max_rel_err"] <= 1e-4 and r["same_bits"]):
+            fail(f"phase 21: the one-step kernel at {cfg} {call} (H={H} "
+                 f"F={F} B={B}, plan {p}) differs from plain (largest "
+                 f"error {r['max_rel_err']:.3g} of max, tolerance 1e-4) or "
+                 f"between launches (same bits {r['same_bits']})")
+        name = p21_name(cfg, call)
+        times[name] = dict(
+            ms=r["step_ms"], device_ms=r["step_device_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], bound_ffma_ms=r["bound_ffma_ms"],
+            library_ms=r["cudnn_ms"],
+            library_device_ms=r["cudnn_device_ms"],
+            seq_ms=r["seq_ms"], seq_device_ms=r["seq_device_ms"])
+        errs[name] = r["max_abs_err"]
+        launches[name] = STEP_PATH_LAUNCHES.get((B, H, F), 0) \
+            if STEP_PATH_LAUNCHES else None
+        print(f"phase 21: {cfg} {call} H={H} F={F} B={B}: plan rows "
+              f"{p['rows']} x {p['row_tiles']}, {p['path']}, "
+              f"{p['splits']} splits of {p['split_stages']} stages, "
+              f"{p['ctas']} CTAs; max err {r['max_rel_err']:.3g} of max, same bits "
+              f"over two launches; device {r['step_device_ms']:.4f} ms, "
+              f"K3a + K3 {r['seq_device_ms']:.4f} ms "
+              f"({r['seq_device_ms'] / r['step_device_ms']:.2f} x), cuDNN "
+              f"{r['cudnn_device_ms']:.4f} ms "
+              f"({r['cudnn_device_ms'] / r['step_device_ms']:.2f} x); call "
+              f"{r['step_ms']:.4f} / {r['seq_ms']:.4f} / "
+              f"{r['cudnn_ms']:.4f} ms; bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']} ({r['step_device_ms'] / r['bound_ms']:.1f} "
+              f"x); main-path launches {launches[name]}")
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 21: {time.time() - t0:.1f} s")
     return times, errs, launches
 
 
@@ -4301,6 +4458,8 @@ KERNELS.update({p19_name(cfg, call): (_LSTM_SRC, f"{_PALLAS}lstm.py:109")
 KERNELS.update({p20_name(kernel, call): (_LSTM_SRC, f"{_PALLAS}lstm.py:{line}")
                 for call, *_ in P20_SHAPES
                 for kernel, line in (("lstm_fwd", 109), ("lstm_bwd", 214))})
+KERNELS.update({p21_name(cfg, call): (_LSTM_SRC, f"{_PALLAS}lstm.py:109")
+                for cfg, call, *_ in P21_SHAPES})
 
 
 def kernels_line(times: dict, errs: dict, launches: dict) -> str:
@@ -4317,7 +4476,8 @@ def kernels_line(times: dict, errs: dict, launches: dict) -> str:
                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                  "library_ms": t["library_ms"],
                  "library_device_ms": t.get("library_device_ms")}
-        for extra in ("device_int32_ms", "bound_ffma_ms"):
+        for extra in ("device_int32_ms", "bound_ffma_ms", "seq_ms",
+                      "seq_device_ms"):
             if extra in t:
                 entry[extra] = t[extra]
         entries.append(entry)
@@ -4372,6 +4532,12 @@ def main():
     if "--phase20" in sys.argv[1:]:
         times, errs, launches = run_phase20(
             L, torch.Generator(device=dev).manual_seed(20), dev)
+        print(nvidia_smi_line())
+        print(kernels_line(times, errs, launches))
+        return 0
+    if "--phase21" in sys.argv[1:]:
+        times, errs, launches = run_phase21(
+            L, torch.Generator(device=dev).manual_seed(21), dev)
         print(nvidia_smi_line())
         print(kernels_line(times, errs, launches))
         return 0
@@ -4441,6 +4607,7 @@ def main():
     launches.update(lstm_launches)
     launches["lstm_input_proj_m64"] = launches.pop("lstm_input_proj_split")
     launches["lstm_fwd_t1"] = launches.pop("lstm_fwd_step")
+    launches.pop("lstm_step")
     print(f"phase 7: R2D1 trainer {R2D1_ITR} iterations, "
           f"{runner.algo.update_counter} updates, LSTM launches "
           f"{lstm_launches}, env-steps/s per iteration "
@@ -4581,6 +4748,8 @@ def main():
     for part, new in zip((times, errs, launches), run_phase19(L, g, dev)):
         part.update(new)
     for part, new in zip((times, errs, launches), run_phase20(L, g, dev)):
+        part.update(new)
+    for part, new in zip((times, errs, launches), run_phase21(L, g, dev)):
         part.update(new)
 
     print(nvidia_smi_line())

@@ -1,8 +1,12 @@
 // Fused LSTM kernels for Hopper (sm_90a), float32 throughout.
 //
-// Replaces the TPU Pallas kernels of rlpyt_tpu/ops/pallas/lstm.py:
+// Replaces the TPU Pallas kernels of rlpyt_tpu/ops/pallas/lstm.py, four
+// kernels here:
 //   K3  _lstm_fwd_pallas (body _fwd_kernel :71), via lstm_pallas :276:
-//       here split into
+//       at T = 1 (every collection and evaluation step)
+//       lstm_step:  the whole step in one launch (reset, x @ W_x + h @ W_h
+//           + b, cell update; design below, after K4's);
+//       at T > 1 split into
 //       K3a lstm_proj:  xg[T*B, 4H] = x[T*B, F] @ W_x + b   (the x@W_x of
 //           _fwd_kernel :88, hoisted out of the recurrence), and
 //       K3  lstm_fwd:   the T-step recurrence over xg with W_h.
@@ -10,6 +14,9 @@
 //       recurrence that emits dgates, dh0 and dc0.  The contractions
 //       after it (dx, dW_x, dW_h, db) are plain matrix products, outside
 //       any kernel, as in the JAX package (lstm.py:257-262).
+//   ops/lstm.py's LstmFunction takes lstm_step at T = 1 and K3a + K3 at
+//   T > 1; K3a and K3 keep their T = 1 and few-row shapes for direct
+//   callers.
 // Gate order is i, f, g, o; done[t] zeroes h and c before step t (the
 // caller passes mask = 1 - done).
 //
@@ -162,10 +169,39 @@
 //       units in both kernels; clusters of 1 slower than of 2; 32
 //       clusters of 4 one-SM CTAs are not all resident.  Only the shape
 //       that won is built.)
+//   lstm_step does 2*B*(F+H)*4H operations on (F+H)*4H weights: bound by
+//       W's bytes at every config shape (61 MB at H = 512, F = 6917: 18.6
+//       us at 3.35 TB/s, more than L2 holds; 0.5-2.4 MB, in L2, at H = 128
+//       and 256, where a launch's fixed cost dominates).  Design: CTAs own
+//       8 units and all four of their gates' columns (so the cell update
+//       needs no other CTA), for a tile of 8-64 rows; the depth F + H runs
+//       in 128-deep stages (x @ W_x, then h @ W_h) split over the CTAs of
+//       a cluster, reduced in rank order over distributed shared memory;
+//       W by TMA boxes.  Paths (ops/lstm.py step_plan, fitted to
+//       bench_torch_lstm_step.py --sweep on an H100): FFMA at B <= 16 and
+//       at shallow depths (the MinAtar PG LSTM's 3 stages: no split);
+//       three TF32 products on mma.sync where the fp32 operations at half
+//       the pipes' rate outweigh the bytes (B = 32 and 64 at H = 128 and
+//       512).  Measured on an H100 (bench_torch_lstm_step.py, builds of
+//       the variants) and not kept: 64-deep stages (a loop
+//       iteration costs ~0.5 us of barrier and address latency whatever
+//       its work: 44.5 against 38.6 us at B = 4, H = 512); 4-byte copies
+//       of x (0.9 us a 64-row stage); one 16 x 16 mma piece a warp; W in
+//       16-byte cp.async pieces (within 4 % of TMA boxes; the memory
+//       system reads 32-byte column slices of W at 2.4 TB/s); clusters of
+//       3 or more at H = 512 (1.3-2 x slower than 2); FFMA lanes of 2-4
+//       rows x 16 columns x one k of four (fewer shared-memory wavefronts
+//       a FMA; 41.0 against 38.7 us at B = 4, H = 512); 255 registers a
+//       thread (40.5 us).  W not 16-byte aligned, or of fewer rows than a
+//       box, takes 4-byte cp.async.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -733,6 +769,7 @@ constexpr int kSmemMax = 232448 - 1024;
 constexpr size_t kOnePerSm = 116 * 1024;   // over half an SM's 228 KB
 constexpr int kErrNotResident = 10001;
 constexpr int kErrBadPlan = 10002;
+constexpr int kErrNoTensorMap = 10003;
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
@@ -1859,6 +1896,487 @@ cudaError_t launch_clusters(const void* kernel, int which, int clusters,
   return cudaLaunchKernelExC(&cfg, kernel, args);
 }
 
+// ---------------------------------------------------------------------
+// The one-step forward (T = 1): projection, reset and cell in one launch
+// ---------------------------------------------------------------------
+
+constexpr int kStepUnits = 8;                  // hidden units of a CTA
+constexpr int kStepCols = 4 * kStepUnits;      // their four gates' columns
+constexpr int kStepK = 128;                    // depth of a ring stage
+constexpr int kStepXStride = kStepK + 4;       // floats: a staged x / h row
+constexpr int kStepWTile = kStepK * kStepUnits;   // floats: a gate's W tile
+constexpr int kStepBudget = 210 * 1024;        // ring bytes
+constexpr int kStepMaxSplits = 8;              // CTAs of a cluster
+
+// Floats of one ring stage: [W_x; W_h] rows of the stage as four gate
+// tiles [kStepK][kStepUnits] (first: a TMA box lands 128-byte aligned),
+// then R rows of x (or h0) by kStepK.
+__host__ __device__ constexpr int step_stage_floats(int R) {
+  return 4 * kStepWTile + R * kStepXStride;
+}
+__host__ __device__ constexpr int step_stages(int R) {
+  return kStepBudget / (4 * step_stage_floats(R)) < 8
+             ? kStepBudget / (4 * step_stage_floats(R))
+             : 8;
+}
+// Groups of warps that split each stage's depth: all 8 warps on the FFMA
+// path; on the TF32 path a warp takes 32 rows x all 32 columns, and the
+// 256 / R groups of R / 32 warps split the depth.
+__host__ __device__ constexpr int step_k_groups(int R, bool tf32) {
+  return tf32 ? 256 / R : kRecWarps;
+}
+// The ring, or the warp groups' partials and their sum where those take
+// more, and 128 bytes to align the ring.
+__host__ __device__ constexpr size_t step_smem(int R, bool tf32) {
+  const int ring = step_stages(R) * step_stage_floats(R);
+  const int kg = step_k_groups(R, tf32);
+  const int tail = (kg + (kg > 1)) * R * kStepCols;
+  return sizeof(float) * (size_t)(ring > tail ? ring : tail) + 128;
+}
+
+// d (16 x 8, fp32) += a (16 x 8 TF32, row) @ b (8 x 8 TF32, col).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One TMA box of a 2D tensor map (column c, row r) into shared memory,
+// counted on ``bar``; rows and columns outside the tensor read as zero.
+__device__ __forceinline__ void tma_load_2d(float* dst, const CUtensorMap* map,
+                                            int c, int r, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The one-step LSTM forward: y = h, gates and c of
+//   h_, c_ = h0 * m, c0 * m;  pre = x @ W_x + h_ @ W_h + b;  cell update.
+// CTA (group, split z, row tile) owns hidden units [8 group, +8) and their
+// 4 x 8 gate columns for rows [R tile, +R).  The depth runs in stages of
+// kStepK = 128 rows that never cross from W_x to W_h: ceil(F / 128)
+// stages of x @ W_x, then ceil(H / 128) of h_ @ W_h; the ``splits`` CTAs
+// of a cluster (blockIdx.x = group * splits + z) take ``split_stages``
+// stages each, z the stages [z split_stages, +split_stages).  All 256
+// threads keep step_stages(R) stages in flight in a ring:
+// - W: with ``tma``, thread 0 asks for four TMA boxes (one a gate, [128
+//   rows][8 columns]) of the tensor map of W_x or W_h, counted on the
+//   stage's mbarrier; rows past F or H read as zero.  Without it (W not
+//   16-byte aligned, or of fewer rows than a box), 4-byte cp.async.
+// - x and h0: the 33 16-byte pieces from the one that holds the stage's
+//   first k of a row (x rows of F = 6917 floats are 4-byte aligned only:
+//   a row lands (b F) % 4 floats to the right, and the consumer reads it
+//   there), zero past the tensor's end; 4-byte cp.async where x or h0 is
+//   not 16-byte aligned.  Rows past the stage's depth hold the next row's
+//   values, against rows of W that read as zero.  The reset is the
+//   consumer's: on a stage of h0 it scales row b by m[b] (h0 * m, as the
+//   plain version computes).
+// Each stage is contracted:
+// - FFMA (TF32 false, R = 8, 16, 32): lane (rg, cq) of every warp holds
+//   rows rg + 8i (i < R / 8) x the 8 columns of gate cq; warp w takes the
+//   k quads 4w + 32j (j < 4) of each stage (x one k at a time, float4s of
+//   W), so the 8 warps' sums are partials over k;
+// - TF32 (R = 32, 64): the error-compensated split of K3a on mma.sync
+//   m16n8k8: a warp takes 32 rows x all 32 columns (two 16-row pieces by
+//   four m16n8 tiles, one a gate: eight independent accumulator chains,
+//   each W fragment split once for 32 rows), and the 256 / R groups of
+//   R / 32 warps split a stage's 8-deep steps; a stage's three products
+//   (x_lo w_hi, x_hi w_lo, x_hi w_hi, small terms first) are summed from
+//   zero in the tensor core and each stage's sum added to the fp32 sum by
+//   a rounded add.
+// The warp groups' partials are summed in shared memory in group order;
+// after a cluster barrier CTA z sums its share of the (row, unit) cells
+// over the splits' partials in rank order over distributed shared memory,
+// adds b and applies the cell update with the b and c0 it staged with the
+// first stage, and writes y, gates, c, hT and cT.  No atomics, no
+// device-memory partials: the same bits every launch.
+template <int R, bool TF32>
+__global__ void __launch_bounds__(kRecThreads, TF32 ? 1 : 2)
+lstm_step_kernel(const __grid_constant__ CUtensorMap tmx,
+                 const __grid_constant__ CUtensorMap tmh,
+                 const float* __restrict__ x, const float* __restrict__ wx,
+                 const float* __restrict__ wh, const float* __restrict__ bias,
+                 const float* __restrict__ mask, const float* __restrict__ h0,
+                 const float* __restrict__ c0, float* y, float* gates,
+                 float* cs, float* hT, float* cT, int B, int H, int F,
+                 int splits, int split_stages, int tma, int xal) {
+  constexpr int U = kStepUnits, Q = kStepCols, KS = kStepK;
+  constexpr int NST = step_stages(R), SF = step_stage_floats(R);
+  constexpr int KG = step_k_groups(R, TF32);
+  static_assert(R % 8 == 0 && R <= 64 && NST >= 2, "step tile");
+  extern __shared__ __align__(16) float smem_raw[];
+  float* smem = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  __shared__ float mrow[R];           // the rows' masks, for the cells
+  __shared__ float cin[R * U];        // c0 of this CTA's share of cells
+  __shared__ float bin[Q];            // b of its 32 columns
+  __shared__ __align__(8) uint64_t full[NST];   // a stage's W landed
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int z = blockIdx.x % splits, j0 = blockIdx.x / splits * U;
+  const int r0 = blockIdx.y * R, H4 = 4 * H;
+  const int nx = (F + KS - 1) / KS, n_all = nx + (H + KS - 1) / KS;
+  const int s0 = z * split_stages;
+  const int nk = max(0, min(n_all, s0 + split_stages) - s0);
+  const int per = (R * U + splits - 1) / splits;   // cells of a split
+  const int c_beg = z * per, c_end = min(R * U, c_beg + per);
+  if (tid < R) mrow[tid] = r0 + tid < B ? mask[r0 + tid] : 0.f;
+  if (tma && tid == 0) {
+    for (int s = 0; s < NST; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load_stage = [&](int kt) {
+    float* ws = smem + (kt % NST) * SF;   // [4 gates][KS][U]
+    float* xs = ws + 4 * kStepWTile;      // [R][kStepXStride]
+    const int s = s0 + kt;
+    const bool is_x = s < nx;
+    const int k0 = (is_x ? s : s - nx) * KS;
+    const int kv = min(KS, (is_x ? F : H) - k0);   // rows of the stage
+    if (tma) {
+      if (tid == 0) {
+        // This slot's last reads (generic proxy) come before the TMA
+        // writes (async proxy).
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(&full[kt % NST], 4 * kStepWTile * 4);
+        for (int g = 0; g < 4; ++g)
+          tma_load_2d(ws + g * kStepWTile, is_x ? &tmx : &tmh, g * H + j0,
+                      k0, &full[kt % NST]);
+      }
+    } else {
+      const float* w = is_x ? wx : wh;
+      for (int i = tid; i < KS * Q; i += kRecThreads) {
+        const int g = i / (KS * U), kk = i / U % KS, u = i % U;
+        const bool ok = kk < kv && j0 + u < H;
+        cp_async<4>(ws + i,
+                    ok ? w + (int64_t)(k0 + kk) * H4 + g * H + j0 + u : h0, ok);
+      }
+    }
+    const float* src = is_x ? x : h0;
+    const int ld = is_x ? F : H;
+    if (xal) {
+      // Row r's kStepXStride / 4 16-byte pieces from the one holding
+      // (r0 + r, k0): the row lands o = its offset in that piece floats to
+      // the right; bytes past the tensor's end are zero-filled.  (B F and
+      // B H are below 2^31 where xal is set.)
+      const int n_elem = B * ld;
+      for (int i = tid; i < R * kStepXStride / 4; i += kRecThreads) {
+        const int r = i / (kStepXStride / 4), c = i % (kStepXStride / 4);
+        const int e = (r0 + r) * ld / 4 * 4 + k0 + 4 * c;
+        const int left = r0 + r < B ? n_elem - e : 0;
+        const int n = left >= 4 ? 16 : left > 0 ? left * 4 : 0;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_u32(xs + 4 * i)),
+                     "l"(n > 0 ? src + e : h0), "r"(n)
+                     : "memory");
+      }
+    } else {   // thread t takes k0 + t % 128 of rows t / 128, ...
+      const int kk = tid % KS;
+#pragma unroll 4
+      for (int r = tid / KS; r < R; r += kRecThreads / KS) {
+        const bool ok = kk < kv && r0 + r < B;
+        cp_async<4>(xs + r * kStepXStride + kk,
+                    ok ? src + (int64_t)(r0 + r) * ld + k0 + kk : h0, ok);
+      }
+    }
+  };
+
+  // b and c0 of the cells, with the first stage.
+  if (tid < Q) {
+    const bool ok = j0 + tid % U < H;
+    cp_async<4>(bin + tid, ok ? bias + (tid / U) * H + j0 + tid % U : h0, ok);
+  }
+  for (int c = c_beg + tid; c < c_end; c += kRecThreads) {
+    const int b = r0 + c / U, j = j0 + c % U;
+    const bool ok = b < B && j < H;
+    cp_async<4>(cin + c - c_beg, ok ? c0 + (int64_t)b * H + j : h0, ok);
+  }
+
+  // FFMA: acc[8i + c] of row rg + 8i, column 8 cq + c (gate cq, unit c).
+  // TF32: acc[16 mi + 4n + e] of the warp's 16-row piece mi x gate n's 8
+  // columns, fragment element e.
+  constexpr int TR = R / 8;
+  constexpr int kAcc = TF32 ? 32 : TR * 8;
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  const int rg = lane % 8, cq = lane / 8;             // FFMA
+  const int g8 = lane >> 2, t4 = lane & 3;            // TF32 fragments
+  constexpr int kPieces = R / 32;                     // TF32 32-row pieces
+  const int kgi = TF32 ? warp / kPieces : warp;
+  const int rp = warp % kPieces;
+  // The rows this lane contracts: their masks (for the stages of h0) and
+  // where their x and h0 sit in a staged row (the offset in the 16-byte
+  // piece that holds the stage's first k).
+  constexpr int kM = TF32 ? 4 : TR;
+  float mreg[kM];
+  int ox[kM], oh[kM];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    const int64_t b = r0 + (TF32 ? 32 * rp + g8 + 8 * i : rg + 8 * i);
+    mreg[i] = b < B ? mask[b] : 0.f;
+    ox[i] = xal ? (int)(b * F % 4) : 0;
+    oh[i] = xal ? (int)(b * H % 4) : 0;
+  }
+
+#pragma unroll
+  for (int kt = 0; kt < NST - 1; ++kt) {
+    if (kt < nk) load_stage(kt);
+    commit_group();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<NST - 2>();   // this thread's part of stage kt landed
+    if (tma) mbar_wait(&full[kt % NST], (kt / NST) & 1);   // and W
+    __syncthreads();            // everyone's; stage kt-1 is read
+    if (kt + NST - 1 < nk) load_stage(kt + NST - 1);
+    commit_group();
+    const float* ws = smem + (kt % NST) * SF;
+    const float* xs = ws + 4 * kStepWTile;
+    // The stage's contraction, with the rows' masks applied to h0 where
+    // ``masked`` (a stage of h0) and not otherwise.
+    auto contract = [&](auto masked) {
+      if constexpr (!TF32) {
+        const float* xr[TR];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          xr[i] = xs + (rg + 8 * i) * kStepXStride +
+                  (decltype(masked)::value ? oh[i] : ox[i]);
+#pragma unroll
+        for (int half = 0; half < KS / 32; ++half) {
+          const int k = 4 * warp + 32 * half;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float* wrow = ws + (cq * KS + k + kk) * U;
+            const float4 w0 = *reinterpret_cast<const float4*>(wrow);
+            const float4 w1 = *reinterpret_cast<const float4*>(wrow + 4);
+#pragma unroll
+            for (int i = 0; i < TR; ++i) {
+              float v = xr[i][k + kk];
+              if constexpr (decltype(masked)::value) v *= mreg[i];
+              float* a = acc + 8 * i;
+              a[0] = fmaf(v, w0.x, a[0]);
+              a[1] = fmaf(v, w0.y, a[1]);
+              a[2] = fmaf(v, w0.z, a[2]);
+              a[3] = fmaf(v, w0.w, a[3]);
+              a[4] = fmaf(v, w1.x, a[4]);
+              a[5] = fmaf(v, w1.y, a[5]);
+              a[6] = fmaf(v, w1.z, a[6]);
+              a[7] = fmaf(v, w1.w, a[7]);
+            }
+          }
+        }
+      } else {
+        float d[2][4][4];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d[i / 16][i / 4 % 4][i % 4] = 0.f;
+        // Rows 32 rp + 8 i + g8: i = 0, 1 the piece mi = 0, i = 2, 3 mi = 1.
+        const float* ar[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ar[i] = xs + (32 * rp + 8 * i + g8) * kStepXStride +
+                  (decltype(masked)::value ? oh[i] : ox[i]) + t4;
+        auto a_at = [&](int i, int k) {
+          float v = ar[i][k];
+          if constexpr (decltype(masked)::value) v *= mreg[i];
+          return v;
+        };
+#pragma unroll
+        for (int j = 0; j < KS / 8 / KG; ++j) {
+          const int k = 8 * (kgi + KG * j);
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            split_tf32(a_at(2 * mi, k), ah[mi][0], al[mi][0]);         // (g, t)
+            split_tf32(a_at(2 * mi + 1, k), ah[mi][1], al[mi][1]);     // (g+8, t)
+            split_tf32(a_at(2 * mi, k + 4), ah[mi][2], al[mi][2]);     // (g, t+4)
+            split_tf32(a_at(2 * mi + 1, k + 4), ah[mi][3], al[mi][3]); // (g+8, t+4)
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {   // gate n: its 8 units' columns
+            const float* bp = ws + (n * KS + k + t4) * U + g8;
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(bp[0], bh0, bl0);                 // (k t, unit g)
+            split_tf32(bp[4 * U], bh1, bl1);             // (k t+4)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_tf32(d[mi][n], al[mi], bh0, bh1);   // small terms first
+              mma_tf32(d[mi][n], ah[mi], bl0, bl1);
+              mma_tf32(d[mi][n], ah[mi], bh0, bh1);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += d[i / 16][i / 4 % 4][i % 4];
+      }
+    };
+    if (s0 + kt >= nx)
+      contract(std::true_type{});
+    else
+      contract(std::false_type{});
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is read; the partials take its place
+
+  float* part = smem;                               // [KG][R][Q]
+  float* red = KG > 1 ? part + KG * R * Q : part;   // [R][Q]
+  if constexpr (!TF32) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float* p = part + (warp * R + rg + 8 * i) * Q + 8 * cq;
+      *reinterpret_cast<float4*>(p) =
+          make_float4(acc[8 * i], acc[8 * i + 1], acc[8 * i + 2], acc[8 * i + 3]);
+      *reinterpret_cast<float4*>(p + 4) = make_float4(
+          acc[8 * i + 4], acc[8 * i + 5], acc[8 * i + 6], acc[8 * i + 7]);
+    }
+  } else {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* p = part + (kgi * R + 32 * rp + 16 * mi + g8 + 8 * h) * Q +
+                     8 * n + 2 * t4;
+          const float* a = acc + 16 * mi + 4 * n + 2 * h;
+          *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+        }
+  }
+  __syncthreads();
+  if constexpr (KG > 1) {
+    for (int e = tid; e < R * Q; e += kRecThreads) {
+      float s = part[e];
+#pragma unroll
+      for (int k = 1; k < KG; ++k) s += part[k * R * Q + e];
+      red[e] = s;
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1)
+    cluster.sync();   // every split's partial tile is in its red
+  else
+    __syncthreads();
+
+  // Cells (row r, unit u): this CTA's share [c_beg, c_end).
+  for (int c = c_beg + tid; c < c_end; c += kRecThreads) {
+    const int r = c / U, u = c % U, b = r0 + r, j = j0 + u;
+    if (b >= B || j >= H) continue;
+    float p[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int q = r * Q + g * U + u;
+      float s = red[q];
+      if (splits > 1) {
+        s = cluster.map_shared_rank(red, 0)[q];
+        for (int zz = 1; zz < splits; ++zz)
+          s += cluster.map_shared_rank(red, zz)[q];
+      }
+      p[g] = s + bin[g * U + u];
+    }
+    const float gi = sigmoid(p[0]), gf = sigmoid(p[1]);
+    const float gg = tanhf(p[2]), go = sigmoid(p[3]);
+    const float cn = gf * (cin[c - c_beg] * mrow[r]) + gi * gg;
+    const float hn = go * tanhf(cn);
+    const int64_t o = (int64_t)b * H + j;
+    y[o] = hn;
+    cs[o] = cn;
+    hT[o] = hn;
+    cT[o] = cn;
+    float* grow = gates + (int64_t)b * H4 + j;
+    grow[0] = gi;
+    grow[H] = gf;
+    grow[2 * H] = gg;
+    grow[3 * H] = go;
+  }
+  if (splits > 1) cluster.sync();   // no CTA leaves while a peer reads it
+}
+
+// The one-step kernel's shapes: (rows a CTA, TF32 path).
+using StepKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, float*, float*, float*, float*,
+                            float*, int, int, int, int, int, int, int);
+struct StepShape {
+  int rows, tf32;
+  StepKernel kernel;
+  size_t smem;
+};
+// What ops/lstm.py STEP_SHAPES lists.
+const StepShape kStepShapes[] = {
+    {8, 0, lstm_step_kernel<8, false>, step_smem(8, false)},
+    {16, 0, lstm_step_kernel<16, false>, step_smem(16, false)},
+    {32, 0, lstm_step_kernel<32, false>, step_smem(32, false)},
+    {32, 1, lstm_step_kernel<32, true>, step_smem(32, true)},
+    {64, 1, lstm_step_kernel<64, true>, step_smem(64, true)},
+};
+constexpr int kNumStepShapes = sizeof(kStepShapes) / sizeof(kStepShapes[0]);
+
+// cuTensorMapEncodeTiled from the CUDA driver library (loaded already), so
+// that the library links against the runtime alone.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  static bool tried = false;
+  if (!tried) {
+    tried = true;
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The tensor map of a row-major float32 W [rows][cols] in boxes of
+// kStepK rows x kStepUnits columns; the last few made are kept, by
+// address and shape (a model's weights keep theirs from call to call).
+bool step_weight_map(CUtensorMap* out, const float* w, int rows, int cols) {
+  struct Entry {
+    CUtensorMap map;
+    const float* w;
+    int rows, cols;
+  };
+  static Entry cache[8];
+  static int next = 0;
+  for (const Entry& e : cache)
+    if (e.w == w && e.rows == rows && e.cols == cols) {
+      *out = e.map;
+      return true;
+    }
+  EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+  const cuuint32_t box[2] = {kStepUnits, kStepK};
+  const cuuint32_t elem[2] = {1, 1};
+  Entry& e = cache[next];
+  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(w), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    e.w = nullptr;
+    return false;
+  }
+  e.w = w;
+  e.rows = rows;
+  e.cols = cols;
+  next = (next + 1) % 8;
+  *out = e.map;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2093,17 +2611,116 @@ int lstm_bwd_cluster_launch(const void* gates, const void* cs, const void* c0,
       smem, args, static_cast<cudaStream_t>(stream)));
 }
 
+// The one-step kernel's CTA shape and built shapes: ``ops/lstm.py``'s
+// step_plan computes the same and checks it against these.
+int lstm_step_units() { return kStepUnits; }
+int lstm_step_depth() { return kStepK; }
+int lstm_step_shape_count() { return kNumStepShapes; }
+// Dynamic shared memory of the shape (rows, tf32), or -1 where not built.
+long long lstm_step_smem(int rows, int tf32) {
+  for (const StepShape& s : kStepShapes)
+    if (s.rows == rows && s.tf32 == tf32) return (long long)s.smem;
+  return -1;
+}
+
+// The one-step forward.  x [B, F], wx [F, 4H], wh [H, 4H], b [4H],
+// mask [B] (1 - done), h0, c0 [B, H] -> y, cs, hT, cT [B, H], gates
+// [B, 4H].  CTAs of kStepUnits units and ``rows`` rows (one of
+// kStepShapes, ``tf32`` its path); ``splits`` CTAs of a cluster take
+// ``split_stages`` of the ceil(F / 64) + ceil(H / 64) stages each (none
+// empty).  W by TMA where H % 4 == 0 and both W are 16-byte aligned.
+int lstm_step_launch(const void* x, const void* wx, const void* wh,
+                     const void* b, const void* mask, const void* h0,
+                     const void* c0, void* y, void* gates, void* cs, void* hT,
+                     void* cT, int B, int H, int F, int rows, int tf32,
+                     int splits, int split_stages, void* stream) {
+  if (B == 0) return 0;
+  int shape = -1;
+  for (int i = 0; i < kNumStepShapes; ++i)
+    if (kStepShapes[i].rows == rows && kStepShapes[i].tf32 == tf32) shape = i;
+  const int64_t n_all = ((int64_t)F + kStepK - 1) / kStepK +
+                        ((int64_t)H + kStepK - 1) / kStepK;
+  const int64_t tiles = ((int64_t)B + rows - 1) / (rows > 0 ? rows : 1);
+  const int64_t groups = ((int64_t)H + kStepUnits - 1) / kStepUnits;
+  if (shape < 0 || B < 0 || H < 1 || F < 0 || splits < 1 ||
+      splits > kStepMaxSplits || split_stages < 1 ||
+      (int64_t)split_stages * splits < n_all ||
+      (int64_t)split_stages * (splits - 1) >= n_all || tiles > 65535 ||
+      groups * splits > 0x7fffffff)
+    return kErrBadPlan;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static bool opted_in[kNumStepShapes][64];
+  const StepShape& s = kStepShapes[shape];
+  if (!opted_in[shape][dev]) {
+    err = cudaFuncSetAttribute(s.kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)s.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[shape][dev] = true;
+  }
+  // A TMA box of kStepK rows needs W of as many rows or more.
+  int tma = ((reinterpret_cast<uintptr_t>(wx) |
+              reinterpret_cast<uintptr_t>(wh)) & 15u) == 0 &&
+            H >= kStepK && (F == 0 || F >= kStepK);
+  int xal = ((reinterpret_cast<uintptr_t>(x) |
+              reinterpret_cast<uintptr_t>(h0)) & 15u) == 0 &&
+            (int64_t)B * ((int64_t)F + H) < 0x7fffff00;
+  alignas(64) CUtensorMap tmx = {}, tmh = {};
+  if (tma && ((F > 0 && !step_weight_map(&tmx, static_cast<const float*>(wx),
+                                         F, 4 * H)) ||
+              !step_weight_map(&tmh, static_cast<const float*>(wh), H,
+                               4 * H)))
+    return kErrNoTensorMap;
+  const float *a_x = static_cast<const float*>(x),
+              *a_wx = static_cast<const float*>(wx),
+              *a_wh = static_cast<const float*>(wh),
+              *a_b = static_cast<const float*>(b),
+              *a_m = static_cast<const float*>(mask),
+              *a_h0 = static_cast<const float*>(h0),
+              *a_c0 = static_cast<const float*>(c0);
+  float *a_y = static_cast<float*>(y), *a_g = static_cast<float*>(gates),
+        *a_cs = static_cast<float*>(cs), *a_hT = static_cast<float*>(hT),
+        *a_cT = static_cast<float*>(cT);
+  void* args[] = {&tmx, &tmh,  &a_x,   &a_wx,   &a_wh,         &a_b,
+                  &a_m, &a_h0, &a_c0,  &a_y,    &a_g,          &a_cs,
+                  &a_hT, &a_cT, &B,    &H,      &F,            &splits,
+                  &split_stages, &tma, &xal};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * splits), (unsigned)tiles);
+  cfg.blockDim = dim3(kRecThreads);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;   // no cluster without a split
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(s.kernel),
+                            args);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 const char* lstm_error_string(int code) {
   if (code == kErrNotResident)
     return "the recurrence's CTAs cannot all be resident at once "
            "(they wait for each other at every step)";
+  if (code == kErrNoTensorMap)
+    return "the one-step kernel could not make W's TMA tensor map "
+           "(cuTensorMapEncodeTiled from libcuda.so.1)";
   if (code == kErrBadPlan)
     return "the recurrence's plan does not fit the kernel (CTAs of 4 "
            "units enough for H in whole clusters of 2, stage rows a "
            "multiple of 32, a counter for T > 1, 16-byte aligned scratch; "
            "on the cluster path at most 16 CTAs of a multiple of 4 units "
            "enough for H, at most 256 cells a CTA; shared memory within "
-           "226 KB)";
+           "226 KB), or the one-step kernel's (a built shape of rows and "
+           "path, 1-8 splits of the stages, none empty)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -5,18 +5,25 @@ that takes the place of the JAX package's ``jax.custom_vjp``
 (``rlpyt_tpu/ops/pallas/lstm.py:275-309 lstm_pallas``).
 
 The TPU kernels K3 (``_lstm_fwd_pallas``) and K4 (``_lstm_bwd_pallas``)
-become three kernels here:
+become four kernels here:
 
+- ``lstm_step``: the whole forward at T = 1 (every collection and
+  evaluation step) in one launch: the reset, x @ W_x + h @ W_h + b over
+  the depth F + H split across a thread-block cluster, and the cell
+  update (``step_plan`` sizes it);
 - ``input_proj`` (K3a): ``xg = x @ W_x + b`` over all T*B rows at once,
   float32 results from the TF32 tensor cores (wgmma) by a hi/lo split of
   both operands (three products for each tile);
 - ``lstm_fwd`` (K3): the T-step recurrence over ``xg`` with ``W_h``,
   emitting ``y``, the post-activation gates and ``c`` for the backward,
-  and ``hT``, ``cT``; at T = 1 (a collection step) an ordinary launch
-  with no step barrier;
+  and ``hT``, ``cT``;
 - ``lstm_bwd`` (K4): the reverse-time recurrence emitting ``dgates``,
   ``dh0`` and ``dc0``.  ``dx``, ``dW_x``, ``dW_h`` and ``db`` are plain
   matrix products over ``dgates`` after it, as in the JAX package.
+
+``LstmFunction`` takes ``lstm_step`` at T = 1 and K3a then K3 at T > 1;
+its backward (K4) is the same for both.  ``input_proj`` and ``lstm_fwd``
+keep their T = 1 and few-row shapes for direct callers.
 
 ``recurrence_plan`` sizes K3 and K4; the kernels check it.  Where W_h
 fits one thread-block cluster's shared memory (H = 128 and 256), K3 at
@@ -39,7 +46,8 @@ in ``<wrapper>.launches`` (``lstm_fwd.step_launches``: those at T = 1;
 the cluster path; ``lstm_fwd.shape_launches``, ``lstm_bwd.shape_launches``:
 by (T, B, H);
 ``input_proj.split_launches``: those with K split over a cluster,
-``input_proj.shape_launches``: by (M, N, K)).
+``input_proj.shape_launches``: by (M, N, K);
+``lstm_step.shape_launches``: by (B, H, F)).
 """
 from __future__ import annotations
 
@@ -122,6 +130,26 @@ def load():
                     != (cp.fwd_smem, cp.bwd_smem):
                 raise RuntimeError("lstm.cu and ops/lstm.py disagree on "
                                    "the cluster path's shared memory")
+        lib.lstm_step_launch.argtypes = [vp] * 12 + [ci] * 7 + [vp]
+        lib.lstm_step_launch.restype = ci
+        for fn in (lib.lstm_step_units, lib.lstm_step_depth,
+                   lib.lstm_step_shape_count):
+            fn.argtypes, fn.restype = [], ci
+        lib.lstm_step_smem.argtypes = [ci, ci]
+        lib.lstm_step_smem.restype = ctypes.c_longlong
+        plans = [step_plan(B, H, F, 132) for B, H, F in (
+            (4, 512, 6917), (64, 512, 6919), (8, 256, 260), (128, 128, 135),
+            (3, 100, 130), (37, 102, 33))]
+        if (lib.lstm_step_units(), lib.lstm_step_depth(),
+                lib.lstm_step_shape_count()) \
+                != (STEP_UNITS, STEP_K, len(STEP_SHAPES)) \
+                or any(lib.lstm_step_smem(rows, tf32) != step_smem(rows, tf32)
+                       for rows, tf32 in STEP_SHAPES) \
+                or any(lib.lstm_step_smem(p.rows, p.path == "tf32")
+                       != p.smem for p in plans):
+            raise RuntimeError("lstm.cu and ops/lstm.py disagree on the "
+                               "one-step kernel's CTA shape, built shapes "
+                               "or shared memory")
         _lib = lib
     return _lib
 
@@ -156,6 +184,25 @@ def lstm_fwd_plain(xg, wh, mask, h0, c0):
         gs.append(torch.cat([i, f, g, o], dim=1))
         cs.append(c)
     return torch.stack(ys), torch.stack(gs), torch.stack(cs), h, c
+
+
+def lstm_step_plain(x, wx, wh, b, mask, h0, c0):
+    """One step of the forward at T = 1 from x [B, F] and mask [B]: the
+    reset h0 * m, c0 * m, then pre = x @ wx + h @ wh + b and the cell
+    update.  Returns what ``lstm_fwd_plain`` returns at T = 1: (y [1, B,
+    H], gates [1, B, 4H] post-activation, c [1, B, H], hT, cT)."""
+    H = wh.shape[0]
+    m = mask[:, None]
+    h, c = h0 * m, c0 * m
+    pre = x @ wx + h @ wh + b
+    i = torch.sigmoid(pre[:, :H])
+    f = torch.sigmoid(pre[:, H:2 * H])
+    g = torch.tanh(pre[:, 2 * H:3 * H])
+    o = torch.sigmoid(pre[:, 3 * H:])
+    c = f * c + i * g
+    h = o * torch.tanh(c)
+    return (torch.stack([h]), torch.cat([i, f, g, o], dim=1)[None],
+            torch.stack([c]), h, c)
 
 
 def lstm_bwd_plain(gates, cs, c0, mask, wh, dy, dcT):
@@ -571,6 +618,162 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
     return dgates, dh0, dc0
 
 
+STEP_UNITS = 8       # hidden units of a one-step CTA (its 32 gate columns)
+STEP_K = 128         # depth of one of its ring stages
+STEP_X_STRIDE = STEP_K + 4      # floats of a staged x / h0 row
+STEP_BUDGET = 210 * 1024        # ring bytes
+STEP_MAX_SPLITS = 8             # CTAs of a cluster that split the depth
+# The one-step kernel's shapes, (rows a CTA, TF32 path): lstm.cu builds
+# exactly these.
+STEP_SHAPES = frozenset({(8, False), (16, False), (32, False), (32, True),
+                         (64, True)})
+FP32_OPS_PER_S = 67e12    # an H100 SXM's fp32 pipes (data sheet)
+HBM_BYTES_PER_S = 3.35e12   # its device memory
+# The share of FP32_OPS_PER_S that the FFMA path reaches, by which the
+# plan weighs its operations against the bytes.
+STEP_FFMA_SHARE = 0.5
+STEP_SHALLOW = 3     # stages up to which the plan splits no depth
+
+
+def step_smem(rows: int, tf32: bool) -> int:
+    """Dynamic shared memory in bytes of the one-step shape (``lstm.cu:
+    step_smem``): a ring of stages, each four gate tiles [STEP_K]
+    [STEP_UNITS] of W and [rows][STEP_X_STRIDE] of x, as many as
+    STEP_BUDGET holds (at most 8), or the warp groups' partials and their
+    sum where they take more; and 128 bytes to align the ring."""
+    stage = 4 * STEP_K * STEP_UNITS + rows * STEP_X_STRIDE
+    stages = min(8, STEP_BUDGET // (4 * stage))
+    groups = 256 // rows if tf32 else REC_WARPS
+    tail = (groups + (groups > 1)) * rows * 4 * STEP_UNITS
+    return 4 * max(stages * stage, tail) + 128
+
+
+def step_stage_count(H: int, F: int) -> int:
+    """Stages of the one-step kernel's depth: ceil(F / STEP_K) of x @ W_x
+    (the last zero past F), then ceil(H / STEP_K) of h @ W_h."""
+    return _cdiv(F, STEP_K) + _cdiv(H, STEP_K)
+
+
+class StepPlan(NamedTuple):
+    """How the one-step kernel runs (B, H, F): CTAs of ``units`` hidden
+    units (their 4 x ``units`` gate columns) by ``rows`` batch rows,
+    ``row_tiles`` of them; the ``step_stage_count`` stages of the depth
+    split over a cluster of ``splits`` CTAs, split z taking stages
+    [z * split_stages, (z + 1) * split_stages); ``path`` "ffma" (the fp32
+    pipes) or "tf32" (three TF32 products on mma.sync); ``ctas`` in all;
+    dynamic shared memory in bytes."""
+    units: int
+    rows: int
+    row_tiles: int
+    splits: int
+    split_stages: int
+    path: str
+    ctas: int
+    smem: int
+
+
+def step_costs(B: int, H: int, F: int) -> tuple:
+    """(operations, bytes) of one one-step call: 2 B (F + H) 4H for the
+    contraction and ~10 a cell; x, [W_x; W_h], b, mask, h0, c0 read once,
+    y, gates, c, hT, cT written once."""
+    K = F + H
+    ops = 2 * B * K * 4 * H + 10 * B * H
+    nbytes = 4 * (B * F + K * 4 * H + 4 * H + B + 2 * B * H
+                  + B * (H + 4 * H + H) + 2 * B * H)
+    return ops, nbytes
+
+
+@functools.lru_cache(maxsize=None)
+def step_plan(B: int, H: int, F: int, n_sm: int) -> StepPlan:
+    """The one-step kernel's plan for x [B, F] and H units on ``n_sm``
+    SMs, as bench_torch_lstm_step.py --sweep timed fastest on an H100.
+
+    - A shallow depth (at most STEP_SHALLOW stages: the MinAtar PG LSTM's
+      F = 135): FFMA, no split, in the fewest rows of 8, 16, 32 whose row
+      tiles keep the grid within the SMs (a split's cluster barrier and
+      reduction cost more than its stage).
+    - Else the path: three TF32 products where B > 16 and the
+      contraction's fp32 operations, at STEP_FFMA_SHARE of the fp32
+      pipes' rate, take longer than the call's bytes at HBM's; FFMA
+      otherwise.  Rows a CTA: FFMA the fewest of 8, 16, 32 that hold B (32
+      above); TF32 64 above 32 rows, else 32.  Splits: the most, up to
+      STEP_MAX_SPLITS, with every split holding a stage, that keep the
+      grid (ceil(H / units) x row tiles x splits) to one wave: the SMs for
+      clusters of 1-2, three quarters of them for larger clusters, which
+      may not all fit the GPCs at once; the stages shared out evenly.
+    Covers every B >= 1, H >= 1 and F >= 0 of up to 65535 row tiles;
+    raises ValueError otherwise."""
+    if B < 1 or H < 1 or F < 0:
+        raise ValueError(f"lstm step: B={B}, H={H}, F={F} (B and H must "
+                         "be at least 1, F at least 0)")
+    groups = _cdiv(H, STEP_UNITS)
+    n = step_stage_count(H, F)
+    ops, nbytes = step_costs(B, H, F)
+    shallow = n <= STEP_SHALLOW
+    tf32 = not shallow and B > 16 and \
+        ops / (STEP_FFMA_SHARE * FP32_OPS_PER_S) > nbytes / HBM_BYTES_PER_S
+    if shallow:
+        rows = next((r for r in (8, 16, 32)
+                     if groups * _cdiv(B, r) <= n_sm), 32)
+    elif tf32:
+        rows = 64 if B > 32 else 32
+    else:
+        rows = next((r for r in (8, 16, 32) if r >= B), 32)
+    tiles = _cdiv(B, rows)
+    if tiles > 65535:
+        raise ValueError(f"lstm step: B={B} needs {tiles} row tiles of "
+                         f"{rows}, more than a grid's 65535")
+    splits = 1
+    for s in range(2, STEP_MAX_SPLITS + 1):
+        wave = n_sm if s <= 2 else n_sm * 3 // 4
+        if not shallow and groups * tiles * s <= wave \
+                and (s - 1) * _cdiv(n, s) < n:
+            splits = s
+    return StepPlan(units=STEP_UNITS, rows=rows, row_tiles=tiles,
+                    splits=splits, split_stages=_cdiv(n, splits),
+                    path="tf32" if tf32 else "ffma",
+                    ctas=groups * tiles * splits, smem=step_smem(rows, tf32))
+
+
+def lstm_step(x, wx, wh, b, mask, h0, c0):
+    """The one-step forward in one launch: x [B, F], wx [F, 4H], wh [H,
+    4H], b [4H], mask [B] (1 - done), h0, c0 [B, H]; same contract as
+    ``lstm_step_plain``."""
+    if _device(x) == "cpu":
+        return lstm_step_plain(x, wx, wh, b, mask, h0, c0)
+    B, F = x.shape
+    H = wh.shape[0]
+    dev = x.device
+    for name, t, shape in (("x", x, (B, F)), ("wx", wx, (F, 4 * H)),
+                           ("wh", wh, (H, 4 * H)), ("b", b, (4 * H,)),
+                           ("mask", mask, (B,)), ("h0", h0, (B, H)),
+                           ("c0", c0, (B, H))):
+        _check(name, t, shape, dev)
+    if B == 0:   # a data-parallel rank that holds no drawn row
+        y = torch.empty((1, 0, H), dtype=torch.float32, device=dev)
+        return (y, torch.empty((1, 0, 4 * H), dtype=torch.float32,
+                               device=dev), y.clone(), h0.clone(),
+                c0.clone())
+    plan = step_plan(B, H, F, _n_sm(dev))
+    y = torch.empty((1, B, H), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(y)
+    gates = torch.empty((1, B, 4 * H), dtype=torch.float32, device=dev)
+    hT = torch.empty((B, H), dtype=torch.float32, device=dev)
+    cT = torch.empty_like(hT)
+    with torch.cuda.device(dev):
+        err = load().lstm_step_launch(
+            x.data_ptr(), wx.data_ptr(), wh.data_ptr(), b.data_ptr(),
+            mask.data_ptr(), h0.data_ptr(), c0.data_ptr(), y.data_ptr(),
+            gates.data_ptr(), cs.data_ptr(), hT.data_ptr(), cT.data_ptr(),
+            B, H, F, plan.rows, int(plan.path == "tf32"), plan.splits,
+            plan.split_stages, _stream(dev))
+    _raise_on(err, "lstm one-step forward")
+    lstm_step.launches += 1
+    lstm_step.shape_launches[B, H, F] = \
+        lstm_step.shape_launches.get((B, H, F), 0) + 1
+    return y, gates, cs, hT, cT
+
+
 input_proj.launches = 0   # kernel launches, for chip_smoke.py
 input_proj.split_launches = 0   # those of them with K split over a cluster
 input_proj.shape_launches = {}   # the launches by (M, N, K)
@@ -581,12 +784,15 @@ lstm_fwd.shape_launches = {}   # the launches by (T, B, H)
 lstm_bwd.launches = 0
 lstm_bwd.cluster_launches = 0   # those on the cluster path
 lstm_bwd.shape_launches = {}   # the launches by (T, B, H)
+lstm_step.launches = 0
+lstm_step.shape_launches = {}   # the launches by (B, H, F)
 
 
 class LstmFunction(torch.autograd.Function):
-    """Forward: K3a then K3.  Backward: K4, then the window contractions
-    over dgates (lstm.py:257-262).  Saves what ``_vjp_fwd`` saves
-    (lstm.py:284-301): weights, inputs, mask, initial state, y, gates, c."""
+    """Forward: at T = 1 the one-step kernel, else K3a then K3.
+    Backward: K4, then the window contractions over dgates
+    (lstm.py:257-262).  Saves what ``_vjp_fwd`` saves (lstm.py:284-301):
+    weights, inputs, mask, initial state, y, gates, c."""
 
     @staticmethod
     def forward(ctx, wx, wh, b, x, done, h0, c0):
@@ -594,10 +800,14 @@ class LstmFunction(torch.autograd.Function):
         x = x.contiguous()
         mask = (~done.to(torch.bool)).to(torch.float32).contiguous()
         h0, c0 = h0.contiguous(), c0.contiguous()
-        wh = wh.contiguous()
-        xg = input_proj(x.view(T * B, F), wx.contiguous(), b.contiguous())
-        y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, wx.shape[1]), wh, mask,
-                                        h0, c0)
+        wx, wh, b = wx.contiguous(), wh.contiguous(), b.contiguous()
+        if T == 1:
+            y, gates, cs, hT, cT = lstm_step(x[0], wx, wh, b, mask[0], h0,
+                                             c0)
+        else:
+            xg = input_proj(x.view(T * B, F), wx, b)
+            y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, wx.shape[1]), wh,
+                                            mask, h0, c0)
         ctx.save_for_backward(wx, wh, x, mask, h0, c0, y, gates, cs)
         return y, hT, cT
 

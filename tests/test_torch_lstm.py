@@ -166,6 +166,10 @@ def test_wrappers_raise_on_other_devices():
                    torch.empty((T, B, H), device="meta"), meta["c0"],
                    torch.empty((T, B), device="meta"), meta["wh"],
                    torch.empty((T, B, H), device="meta"), meta["c0"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        L.lstm_step(meta["x"][0], meta["wx"], meta["wh"], meta["b"],
+                    torch.empty((B,), device="meta"), meta["h0"],
+                    meta["c0"])
 
 
 # K3a's plan on 132 SMs at every LSTM config's shapes (M = T * B, N = 4H,
