@@ -95,9 +95,9 @@ def run_one(seed: int, device: str, threads: int) -> dict:
 
     from rlpyt_tpu_torch.algos.r2d1 import R2D1
     from rlpyt_tpu_torch.envs.minatar import Breakout
-    from rlpyt_tpu_torch.ops import lstm
     from rlpyt_tpu_torch.runners.train import MinibatchRl
     from rlpyt_tpu_torch.samplers.rollout import BatchSpec
+    from rlpyt_tpu_torch.utils import profiling
 
     torch.set_num_threads(threads)
     t0 = time.time()
@@ -121,14 +121,16 @@ def run_one(seed: int, device: str, threads: int) -> dict:
 
     runner.logger.record_tabular = spy
     runner.logger.dump_tabular = lambda *a, **k: None
-    runner.train()
-    ev = evaluate(env, agent)
+    with profiling.recording() as rec:
+        runner.train()
+        ev = evaluate(env, agent)
     return {"device": device, "seed": seed, **ev,
             "passes": ev["eval_return"] > THRESHOLD,
             "ReturnAverage": averages,
-            "launches": {"K3a": lstm.input_proj.launches,
-                         "K3": lstm.lstm_fwd.launches,
-                         "K4": lstm.lstm_bwd.launches},
+            "launches": {"K3a": rec.total("ops.input_proj"),
+                         "K3": rec.total("ops.lstm_fwd"),
+                         "step": rec.total("ops.lstm_step"),
+                         "K4": rec.total("ops.lstm_bwd")},
             "seconds": round(time.time() - t0, 1)}
 
 

@@ -285,7 +285,9 @@ import torch
 
 import bench_torch_gather_formulations as harness
 from rlpyt_tpu_torch.runners.sync import SyncRl
-from rlpyt_tpu_torch.utils.cuda_timing import graph_ms, time_ms
+from rlpyt_tpu_torch.utils import profiling
+from rlpyt_tpu_torch.utils.cuda_timing import graph_ms as _graph_ms
+from rlpyt_tpu_torch.utils.cuda_timing import time_ms as _time_ms
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM fp32 rate outside the tensor cores
@@ -712,21 +714,62 @@ def time_lstm(L, g, dev):
 
 
 def zero_launches():
-    """Set every kernel wrapper's launch count to 0."""
-    from rlpyt_tpu_torch.ops import frame_gather as fg
-    from rlpyt_tpu_torch.ops import lstm as L
-    from rlpyt_tpu_torch.ops import union_gather as ug
+    """Count the kernel wrappers' launches from here on: a fresh recorder
+    of ``utils/profiling.py`` on, in place of any earlier one."""
+    profiling.start()
 
-    for fn in (fg.gather_frame_stacks, L.input_proj, L.lstm_fwd, L.lstm_bwd,
-               L.lstm_step, ug.gather_union_rows, ug.gather_union_window):
-        fn.launches = 0
-    L.input_proj.split_launches = 0
-    L.input_proj.shape_launches = {}
-    L.lstm_step.shape_launches = {}
-    L.lstm_fwd.step_launches = 0
-    for fn in (L.lstm_fwd, L.lstm_bwd):
-        fn.cluster_launches = 0
-        fn.shape_launches = {}
+
+def n_launches(kernel: str, match=None) -> int:
+    """The launches of wrapper ``kernel`` (its counter ``ops.<kernel>``)
+    since the last ``zero_launches``, over the keys ``match`` accepts
+    (the keys are (path, shape...); the gathers' shape alone)."""
+    rec = profiling.active()
+    return rec.total("ops." + kernel, match) if rec is not None else 0
+
+
+def launches_by_shape(kernel: str) -> dict:
+    """Those launches of an LSTM wrapper by shape (its keys less the
+    path)."""
+    rec = profiling.active()
+    out = {}
+    for key, n in (rec.counts.get("ops." + kernel, {})
+                   if rec is not None else {}).items():
+        out[key[1:]] = out.get(key[1:], 0) + n
+    return out
+
+
+def SPLIT(key) -> bool:   # K3a with K split over a cluster
+    return key[0] == "split"
+
+
+def CLUSTERED(key) -> bool:   # K3 / K4 on the cluster path
+    return key[0] == "cluster"
+
+
+def AT_T1(key) -> bool:   # K3 at T = 1
+    return key[1] == 1
+
+
+@contextmanager
+def uncounted():
+    """The block with the recorder off (a timed loop pays no counting);
+    the recorder, and its counts, back on after it."""
+    rec = profiling.stop()
+    try:
+        yield
+    finally:
+        if rec is not None:
+            profiling.start(rec)
+
+
+def time_ms(*args, **kwargs):
+    with uncounted():
+        return _time_ms(*args, **kwargs)
+
+
+def graph_ms(*args, **kwargs):
+    with uncounted():
+        return _graph_ms(*args, **kwargs)
 
 
 # K3a's launches on the main paths by (M, N, K), summed over the paths
@@ -750,16 +793,17 @@ def hold_cluster_path(L, what: str, need: bool) -> dict:
     returns the cluster-path launch counts."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     got, want = {}, {}
-    for name, fn in (("lstm_fwd", L.lstm_fwd), ("lstm_bwd", L.lstm_bwd)):
-        if sum(fn.shape_launches.values()) != fn.launches:
+    for name in ("lstm_fwd", "lstm_bwd"):
+        by_shape = launches_by_shape(name)
+        if sum(by_shape.values()) != n_launches(name):
             fail(f"{what}: {name}'s launches by shape "
-                 f"{fn.shape_launches} do not add up to {fn.launches}")
-        got[name + "_cluster"] = fn.cluster_launches
+                 f"{by_shape} do not add up to {n_launches(name)}")
+        got[name + "_cluster"] = n_launches(name, CLUSTERED)
         want[name + "_cluster"] = sum(
-            n for (T, B, H), n in fn.shape_launches.items()
+            n for (T, B, H), n in by_shape.items()
             if (T > 1 or name == "lstm_bwd")
             and L.recurrence_plan(B, H, n_sm).clustered is not None)
-        for shape, n in fn.shape_launches.items():
+        for shape, n in by_shape.items():
             key = (name,) + shape
             REC_PATH_LAUNCHES[key] = REC_PATH_LAUNCHES.get(key, 0) + n
     if got != want or (need and not all(got.values())):
@@ -811,12 +855,12 @@ def hold_step_shapes(L, what: str, want: dict) -> int:
     1 never (K3a's shapes, windows only, are hold_proj_shapes'): a
     one-step call that reached K3a or K3 fails.  Adds the launches to
     STEP_PATH_LAUNCHES; returns their sum."""
-    got = L.lstm_step.shape_launches
+    got = launches_by_shape("lstm_step")
     if got != want:
         fail(f"{what}: one-step launches by (B, H, F) {got}, expected "
              f"{want}")
-    t1 = {k: n for k, n in L.lstm_fwd.shape_launches.items() if k[0] == 1}
-    if t1 or L.lstm_fwd.step_launches:
+    t1 = {k: n for k, n in launches_by_shape("lstm_fwd").items() if k[0] == 1}
+    if t1 or n_launches("lstm_fwd", AT_T1):
         fail(f"{what}: one-step calls reached K3 (by (T, B, H) {t1})")
     for shape, n in want.items():
         STEP_PATH_LAUNCHES[shape] = STEP_PATH_LAUNCHES.get(shape, 0) + n
@@ -825,17 +869,17 @@ def hold_step_shapes(L, what: str, want: dict) -> int:
 
 def hold_proj_shapes(L, what: str, want: dict) -> int:
     """The main path just driven launched K3a exactly ``want[(M, N, K)]``
-    times at each shape and at no other; ``input_proj.split_launches``
+    times at each shape and at no other; ``n_launches("input_proj", SPLIT)``
     equals the launches that the plan splits over a cluster.  Adds them to
     PROJ_PATH_LAUNCHES; returns the split launches."""
-    got = L.input_proj.shape_launches
+    got = launches_by_shape("input_proj")
     if got != want:
         fail(f"{what}: K3a launches by (M, N, K) {got}, expected {want}")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     split = sum(n for (M, N, K), n in want.items()
                 if L.proj_plan(M, N, K, n_sm).splits > 1)
-    if L.input_proj.split_launches != split:
-        fail(f"{what}: {L.input_proj.split_launches} K3a launches split K "
+    if n_launches("input_proj", SPLIT) != split:
+        fail(f"{what}: {n_launches('input_proj', SPLIT)} K3a launches split K "
              f"over a cluster, the plan predicts {split}")
     for shape, n in want.items():
         PROJ_PATH_LAUNCHES[shape] = PROJ_PATH_LAUNCHES.get(shape, 0) + n
@@ -902,7 +946,7 @@ def run_trainer(dev):
     zero_launches()
     runner.train()
     torch.cuda.synchronize()
-    launches = fg.gather_frame_stacks.launches
+    launches = n_launches("gather_frame_stacks")
     updates = algo.update_counter
     if updates != N_ITR * algo.updates_per_optimize:
         fail(f"ran {updates} updates, expected "
@@ -966,12 +1010,12 @@ def run_r2d1(L, dev):
     zero_launches()
     runner.train()
     torch.cuda.synchronize()
-    launches = {"lstm_input_proj": L.input_proj.launches,
-                "lstm_input_proj_split": L.input_proj.split_launches,
-                "lstm_fwd": L.lstm_fwd.launches,
-                "lstm_fwd_step": L.lstm_fwd.step_launches,
-                "lstm_step": L.lstm_step.launches,
-                "lstm_bwd": L.lstm_bwd.launches}
+    launches = {"lstm_input_proj": n_launches("input_proj"),
+                "lstm_input_proj_split": n_launches("input_proj", SPLIT),
+                "lstm_fwd": n_launches("lstm_fwd"),
+                "lstm_fwd_step": n_launches("lstm_fwd", AT_T1),
+                "lstm_step": n_launches("lstm_step"),
+                "lstm_bwd": n_launches("lstm_bwd")}
     updates = algo.update_counter
     learning_itrs = sum(1 for i in range(1, R2D1_ITR + 1)
                         if i * R2D1_T * R2D1_B >= algo.min_steps_learn)
@@ -988,7 +1032,7 @@ def run_r2d1(L, dev):
     if launches != want:
         fail(f"LSTM launches {launches}, expected {want}")
     hold_cluster_path(L, "phase 7", need=False)
-    if fg.gather_frame_stacks.launches != 0:
+    if n_launches("gather_frame_stacks") != 0:
         fail("R2D1's sequence replay launched the frame-gather kernel")
     for row in logger.rows[-(learning_itrs):]:
         for key in ("loss", "grad_norm", "td_abs_err"):
@@ -1108,8 +1152,8 @@ def run_harness(ug, dev):
     row, window, res = harness.run(dev)
     if not (row and window):
         fail(f"harness: row match {row}, window match {window}")
-    launches = {"union_rows": ug.gather_union_rows.launches,
-                "union_window": ug.gather_union_window.launches}
+    launches = {"union_rows": n_launches("gather_union_rows"),
+                "union_window": n_launches("gather_union_window")}
     if min(launches.values()) == 0:
         fail(f"the harness did not launch the union kernels: {launches}")
 
@@ -1167,7 +1211,7 @@ def run_ernbw(fg, dev):
     zero_launches()
     runner.train()
     torch.cuda.synchronize()
-    launches = fg.gather_frame_stacks.launches
+    launches = n_launches("gather_frame_stacks")
     updates = algo.update_counter
     if updates != ERNBW_ITR * algo.updates_per_optimize:
         fail(f"ernbw ran {updates} updates, expected "
@@ -1336,7 +1380,7 @@ def run_minatar(fg, dev):
     torch.cuda.synchronize()
     if type(algo.replay) is not UniformReplayBuffer:
         fail(f"minatar: replay is {type(algo.replay).__name__}, not flat")
-    if fg.gather_frame_stacks.launches != 0:
+    if n_launches("gather_frame_stacks") != 0:
         fail("minatar: flat replay launched the frame-gather kernel")
     updates = algo.update_counter
     if updates != MINATAR_ITR * algo.updates_per_optimize:
@@ -1469,7 +1513,7 @@ def check_pg_against_cpu(L, dev):
             info = algo.optimize(samples, last, **kw)
             after = {k: v.detach().cpu()
                      for k, v in agent.model.state_dict().items()}
-            out[d] = (info, before, after, L.lstm_bwd.launches)
+            out[d] = (info, before, after, n_launches("lstm_bwd"))
             if d != "cpu":
                 hold_cluster_path(L, f"phase 12a {key}", need=True)
         (info_c, before, after_c, _), (info_g, _, after_g, k4_g) = \
@@ -1541,11 +1585,11 @@ def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
                 rows = list(csv.DictReader(f))
     finally:
         Breakout.step_batch = step_batch
-    launches = {"lstm_input_proj": L.input_proj.launches,
-                "lstm_fwd": L.lstm_fwd.launches,
-                "lstm_fwd_t1": L.lstm_fwd.step_launches,
-                "lstm_step": L.lstm_step.launches,
-                "lstm_bwd": L.lstm_bwd.launches}
+    launches = {"lstm_input_proj": n_launches("input_proj"),
+                "lstm_fwd": n_launches("lstm_fwd"),
+                "lstm_fwd_t1": n_launches("lstm_fwd", AT_T1),
+                "lstm_step": n_launches("lstm_step"),
+                "lstm_bwd": n_launches("lstm_bwd")}
     algo, n_eval = runner.algo, eval_steps[0]
     if not key.startswith("lstm"):
         want = dict.fromkeys(launches, 0)
@@ -1562,7 +1606,7 @@ def run_minatar_pg(L, key: str, n_itr: int, pg_stats: dict):
             (T * B // getattr(algo, "minibatches", 1), n_itr * windows)])
         steps = step_shapes(PG_H, PG_F, [
             (B, n_itr * (T + 1)), (cfg["sampler"]["eval_n_envs"], n_eval)])
-    launches["lstm_input_proj_split"] = L.input_proj.split_launches
+    launches["lstm_input_proj_split"] = n_launches("input_proj", SPLIT)
     want["lstm_input_proj_split"] = hold_proj_shapes(L, key, shapes)
     hold_step_shapes(L, key, steps)
     launches.update(hold_cluster_path(L, key, need=key.startswith("lstm")))
@@ -2032,12 +2076,12 @@ def check_gaussian_ppo_against_cpu(L, dev):
         after = {k: v.detach().cpu()
                  for k, v in agent.model.state_dict().items()}
         out[d] = (info, before, after, grads, {
-            "lstm_input_proj": L.input_proj.launches,
-            "lstm_input_proj_split": L.input_proj.split_launches,
-            "lstm_fwd": L.lstm_fwd.launches,
-            "lstm_fwd_t1": L.lstm_fwd.step_launches,
-            "lstm_step": L.lstm_step.launches,
-            "lstm_bwd": L.lstm_bwd.launches})
+            "lstm_input_proj": n_launches("input_proj"),
+            "lstm_input_proj_split": n_launches("input_proj", SPLIT),
+            "lstm_fwd": n_launches("lstm_fwd"),
+            "lstm_fwd_t1": n_launches("lstm_fwd", AT_T1),
+            "lstm_step": n_launches("lstm_step"),
+            "lstm_bwd": n_launches("lstm_bwd")})
     (info_c, before, after_c, grads_c, _), \
         (info_g, _, after_g, grads_g, launches) = out["cpu"], out[dev]
     windows = MJ_PPO["epochs"] * MJ_MINIBATCHES
@@ -2136,12 +2180,12 @@ MD_CASES = [(MD_WINDOW - MD_WARMUP, MD_BATCH_B, MD_F, MD_H),
 
 
 def md_launches(L) -> dict:
-    return {"lstm_input_proj": L.input_proj.launches,
-            "lstm_input_proj_split": L.input_proj.split_launches,
-            "lstm_fwd": L.lstm_fwd.launches,
-            "lstm_fwd_t1": L.lstm_fwd.step_launches,
-            "lstm_step": L.lstm_step.launches,
-            "lstm_bwd": L.lstm_bwd.launches}
+    return {"lstm_input_proj": n_launches("input_proj"),
+            "lstm_input_proj_split": n_launches("input_proj", SPLIT),
+            "lstm_fwd": n_launches("lstm_fwd"),
+            "lstm_fwd_t1": n_launches("lstm_fwd", AT_T1),
+            "lstm_step": n_launches("lstm_step"),
+            "lstm_bwd": n_launches("lstm_bwd")}
 
 
 def run_minatar_dqn(L, key: str, log_root: Path):
@@ -2466,7 +2510,7 @@ AT_CASES = [(AT_WINDOW, AT_B, AT_F, AT_H), (AT_WARMUP, AT_B, AT_F, AT_H),
 
 
 def at_launches(fg, L) -> dict:
-    return {"frame_gather": fg.gather_frame_stacks.launches,
+    return {"frame_gather": n_launches("gather_frame_stacks"),
             **md_launches(L)}
 
 
@@ -3017,7 +3061,7 @@ def resume_flagship(fg, dev, tmp: Path) -> dict:
     zero_launches()
     resumed = resumed_runner.train(resume_from=str(path))
     torch.cuda.synchronize()
-    launches = fg.gather_frame_stacks.launches
+    launches = n_launches("gather_frame_stacks")
     if launches <= 0:
         fail("16a: no frame-gather launch in the resumed run")
     n = hold_states("16a", resumed, full)
@@ -3093,12 +3137,12 @@ def example5_equal_and_resume(L, dev, tmp: Path) -> dict:
     with count_syncs(counts, where):
         full = runner.train()
     torch.cuda.synchronize()
-    launches = {"lstm_input_proj": L.input_proj.launches,
-                "lstm_fwd_t1": L.lstm_fwd.step_launches,
-                "lstm_fwd_window": L.lstm_fwd.launches
-                - L.lstm_fwd.step_launches,
-                "lstm_step": L.lstm_step.launches,
-                "lstm_bwd": L.lstm_bwd.launches}
+    launches = {"lstm_input_proj": n_launches("input_proj"),
+                "lstm_fwd_t1": n_launches("lstm_fwd", AT_T1),
+                "lstm_fwd_window": n_launches("lstm_fwd")
+                - n_launches("lstm_fwd", AT_T1),
+                "lstm_step": n_launches("lstm_step"),
+                "lstm_bwd": n_launches("lstm_bwd")}
     n_intervals = len(async_log.rows)
     updates = runner.algo.update_counter
     steps = EX5_N_STEPS // runner.batch_spec.B   # collection steps
@@ -3106,7 +3150,7 @@ def example5_equal_and_resume(L, dev, tmp: Path) -> dict:
             "lstm_fwd_window": 4 * updates, "lstm_bwd": updates,
             "lstm_step": hold_step_shapes(L, "16b", step_shapes(
                 MD_H, MD_F, [(runner.batch_spec.B, steps)]))}
-    launches["lstm_input_proj_split"] = L.input_proj.split_launches
+    launches["lstm_input_proj_split"] = n_launches("input_proj", SPLIT)
     want["lstm_input_proj_split"] = hold_proj_shapes(
         L, "16b", r2d1_proj_shapes(runner.algo, MD_H, MD_F))
     if updates <= 0 or launches != want:
@@ -3430,9 +3474,9 @@ class CheckedSyncRl(SyncRl):
         dist.all_reduce(lo, op=dist.ReduceOp.MIN)
         dist.all_reduce(hi, op=dist.ReduceOp.MAX)
         mine = torch.tensor(
-            [fg.gather_frame_stacks.launches, L.input_proj.launches,
-             L.lstm_fwd.launches, L.lstm_fwd.step_launches,
-             L.lstm_step.launches, L.lstm_bwd.launches,
+            [n_launches("gather_frame_stacks"), n_launches("input_proj"),
+             n_launches("lstm_fwd"), n_launches("lstm_fwd", AT_T1),
+             n_launches("lstm_step"), n_launches("lstm_bwd"),
              self.algo.update_counter, spent[0],
              spent[1]], dtype=torch.float64, device=self.device)
         every = [torch.empty_like(mine)
@@ -4246,7 +4290,8 @@ def run_phase20(L, g, dev):
                            L.lstm_bwd(*ba), L.lstm_bwd_plain(*ba)))
         plan = L.recurrence_plan(B, H, n_sm)
         cp = plan.clustered if T > 1 else None
-        taken = (L.lstm_fwd.cluster_launches, L.lstm_bwd.cluster_launches)
+        taken = (n_launches("lstm_fwd", CLUSTERED),
+                 n_launches("lstm_bwd", CLUSTERED))
         if T > 1 and (cp is None or taken != (2, 2)):
             fail(f"phase 20: {call} (H={H} T={T} B={B}) did not take the "
                  f"cluster path: plan {plan}, cluster launches {taken}")

@@ -27,6 +27,7 @@ from rlpyt_tpu_torch.replay.frame import (
 from rlpyt_tpu_torch.replay.prioritized import PrioritizedReplayBuffer
 from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
 from rlpyt_tpu_torch.struct import select_at_indexes, tree_map
+from rlpyt_tpu_torch.utils.profiling import spanned
 
 
 class OptInfo(NamedTuple):
@@ -172,6 +173,7 @@ class DQN(RlAlgorithm):
             loss.detach(), self._mean(td_abs, n=self.batch_size))
         return OptInfo(loss, grad_norm, td_abs_err)
 
+    @spanned("optimize")
     def optimize(self, samples, rollout_state) -> OptInfo:
         """Append, then maybe ``updates_per_optimize`` updates.  Returns
         the mean OptInfo as device scalars (zeros before learning

@@ -32,6 +32,7 @@ from rlpyt_tpu_torch.ops.returns import (
     valid_from_done,
 )
 from rlpyt_tpu_torch.struct import tree_map
+from rlpyt_tpu_torch.utils.profiling import spanned
 
 
 class PgOptInfo(NamedTuple):
@@ -167,6 +168,7 @@ class A2C(PolicyGradientAlgo):
         return self._total_loss(pi_loss, dist_info, value, return_, valid,
                                 n)
 
+    @spanned("optimize")
     def optimize(self, samples, rollout_state) -> PgOptInfo:
         bootstrap_value = self.bootstrap(rollout_state)
         init_rnn_state = (tuple(x[0] for x in
@@ -224,6 +226,7 @@ class PPO(PolicyGradientAlgo):
         return self._total_loss(pi_loss, dist_info, value, mb["return_"],
                                 valid, n)
 
+    @spanned("optimize")
     def optimize(self, samples, rollout_state,
                  permutations: Optional[torch.Tensor] = None) -> PgOptInfo:
         """``permutations`` [epochs, n_items] (lanes if recurrent, else

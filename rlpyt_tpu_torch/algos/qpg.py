@@ -35,6 +35,7 @@ from rlpyt_tpu_torch.distributions.gaussian import DistInfoStd
 from rlpyt_tpu_torch.ops.value import polyak_update
 from rlpyt_tpu_torch.replay.base import SamplesFromReplay, SamplesToBuffer
 from rlpyt_tpu_torch.replay.uniform import UniformReplayBuffer
+from rlpyt_tpu_torch.utils.profiling import spanned
 
 
 class QpgOptInfo(NamedTuple):
@@ -125,6 +126,7 @@ class QpgBase(RlAlgorithm):
     def _alpha(self) -> torch.Tensor:
         return torch.zeros((), device=self.agent.device)
 
+    @spanned("optimize")
     def optimize(self, samples, rollout_state) -> QpgOptInfo:
         """Append, then maybe ``updates_per_optimize`` updates.  Returns
         the mean QpgOptInfo as device scalars (zeros, and the current

@@ -36,6 +36,7 @@ from rlpyt_tpu_torch.replay.sequence import (
     UniformSequenceReplayBuffer,
 )
 from rlpyt_tpu_torch.struct import select_at_indexes, tree_map
+from rlpyt_tpu_torch.utils.profiling import span, spanned
 
 
 class R2D1(RlAlgorithm):
@@ -231,34 +232,47 @@ class R2D1(RlAlgorithm):
                       + (1 - self.pri_eta) * abs_delta.sum(dim=0) / denom)
         return loss, priorities
 
+    @spanned("update")
     def update(self, batch: SequenceSamples) -> OptInfo:
-        """One gradient step, the target rule and the priority write-back."""
-        loss, priorities = self.loss(batch)
-        self.optimizer.zero_grad()
-        loss.backward()
-        grad_norm = self.optimizer.step()
-        self.update_counter += 1
-        if self.update_counter % self.target_update_interval == 0:
-            polyak_update(self.target_model, self.model, 1.0)
-        self.replay.update_priorities(batch.slots, priorities)
+        """One gradient step, the target rule and the priority write-back.
+        Spans: ``update``, and in it ``update.loss``, ``update.backward``,
+        ``update.step`` (the optimizer's step and the target rule) and
+        ``replay.update_priorities``."""
+        with span("update.loss"):
+            loss, priorities = self.loss(batch)
+        with span("update.backward"):
+            self.optimizer.zero_grad()
+            loss.backward()
+        with span("update.step"):
+            grad_norm = self.optimizer.step()
+            self.update_counter += 1
+            if self.update_counter % self.target_update_interval == 0:
+                polyak_update(self.target_model, self.model, 1.0)
+        with span("replay.update_priorities"):
+            self.replay.update_priorities(batch.slots, priorities)
         loss, mean_priority = self._whole(
             loss.detach(), self._mean(priorities, n=self.batch_b))
         return OptInfo(loss, grad_norm, mean_priority)
 
+    @spanned("optimize")
     def optimize(self, samples, rollout_state) -> OptInfo:
         """Append (with input priorities), then maybe
         ``updates_per_optimize`` updates.  Returns the mean OptInfo as
-        device scalars (zeros before learning starts)."""
-        to_buf, rnn = self.samples_to_buffer(samples)
-        in_pri = (self._input_priorities(samples)
-                  if self.input_priorities and self.prioritized_replay
-                  else None)
-        self.replay.append(to_buf, rnn, in_pri)
+        device scalars (zeros before learning starts).  Spans:
+        ``optimize``, and in it ``replay.append``, then for each update
+        ``replay.sample`` and ``update``."""
+        with span("replay.append"):
+            to_buf, rnn = self.samples_to_buffer(samples)
+            in_pri = (self._input_priorities(samples)
+                      if self.input_priorities and self.prioritized_replay
+                      else None)
+            self.replay.append(to_buf, rnn, in_pri)
         if rollout_state.cum_steps < self.min_steps_learn:
             zero = torch.zeros((), device=self.agent.device)
             return OptInfo(zero, zero, zero)
         infos = []
         for _ in range(self.updates_per_optimize):
-            batch = self.replay.sample(self.batch_b, self.generator)
+            with span("replay.sample"):
+                batch = self.replay.sample(self.batch_b, self.generator)
             infos.append(self.update(batch))
         return OptInfo(*(torch.stack(x).mean() for x in zip(*infos)))

@@ -36,6 +36,7 @@ import numpy as np
 
 from rlpyt_tpu_torch.envs.base import EnvSpaces
 from rlpyt_tpu_torch.envs.gym_space import convert_gym_space
+from rlpyt_tpu_torch.utils import profiling
 
 
 def tmap(fn, tree, *rest):
@@ -184,10 +185,13 @@ def _step_env(env, action):
 
 
 def _worker(env_fns, lo, hi, shm, info_shm, sync, seed,
-            cpu: Optional[int], ready_spec=None):
+            cpu: Optional[int], ready_spec=None, stamps=None):
     """(rlpyt/samplers/parallel/worker.py:sampling_process ~L10): own the
     envs [lo, hi), loop on the step barrier, reset as ``_step_env``
-    says."""
+    says.  ``stamps``: (the farm's stamp block, this worker's index);
+    while the block's flag is set, the worker writes the
+    ``perf_counter_ns`` at the start and the end of its envs' stepping
+    into its two slots."""
     if cpu is not None:
         try:
             os.sched_setaffinity(0, {cpu})
@@ -200,6 +204,9 @@ def _worker(env_fns, lo, hi, shm, info_shm, sync, seed,
         spec.view() for spec in (act_spec, rew_spec, done_spec,
                                  timeout_spec))
     info_np = {k: spec.view() for k, spec in info_shm.items()}
+    stamp = slot = None
+    if stamps is not None:
+        stamp, slot = stamps[0].view(), 1 + 2 * stamps[1]
     if ready_spec is not None:
         # Startup handshake: the master polls this instead of blocking on
         # the barrier, so a worker that dies during init raises there.
@@ -211,6 +218,9 @@ def _worker(env_fns, lo, hi, shm, info_shm, sync, seed,
                 e.close()
             sync.post()
             return
+        timed = stamp is not None and stamp[0]
+        if timed:
+            t0 = time.perf_counter_ns()
         for i, env in enumerate(envs):
             b = lo + i
             if c == CMD_RESET:
@@ -226,6 +236,9 @@ def _worker(env_fns, lo, hi, shm, info_shm, sync, seed,
                 twrite(obs_np, b, obs)
                 for k, v in info_np.items():
                     v[b] = info.get(k, 0)
+        if timed:
+            stamp[slot] = t0
+            stamp[slot + 1] = time.perf_counter_ns()
         sync.post()
 
 
@@ -246,7 +259,12 @@ class _ShmSpec:
 class SharedMemVecEnv:
     """B host envs over W workers and shared-memory step buffers (rlpyt
     ParallelSamplerBase.initialize ~L40).  ``step`` returns views of the
-    shared blocks, which the next step overwrites."""
+    shared blocks, which the next step overwrites.
+
+    ``step`` is the span ``farm.step``.  While the recorder is on, the
+    workers stamp their envs' stepping into a shared block and the step
+    adds one ``farm.worker`` record a worker (its pid as the thread), a
+    child of ``farm.step`` on the same clock."""
 
     def __init__(self, env_fns: Sequence, n_workers: int = 0,
                  seed: int = 0, cpus: Optional[Sequence[int]] = None,
@@ -317,6 +335,10 @@ class SharedMemVecEnv:
 
         ready_spec = _ShmSpec((self.B,), np.bool_, ctx)
         self._ready = ready_spec.view()
+        # The stamp block: the flag, then each worker's start and end.
+        stamp_spec = _ShmSpec((1 + 2 * W,), np.int64, ctx)
+        self._stamps = stamp_spec.view()
+        self._stamping = False
         self._procs = []
         self.closed = False
         for w in range(W):
@@ -324,7 +346,8 @@ class SharedMemVecEnv:
             p = ctx.Process(
                 target=_worker,
                 args=(list(env_fns), w * per, (w + 1) * per, shm,
-                      info_shm, worker_syncs[w], seed, cpu, ready_spec),
+                      info_shm, worker_syncs[w], seed, cpu, ready_spec,
+                      (stamp_spec, w)),
                 daemon=True)
             p.start()
             self._procs.append(p)
@@ -365,9 +388,23 @@ class SharedMemVecEnv:
     def step(self, actions: np.ndarray):
         """Write the actions, step every worker, return views of the
         shared blocks: (obs, reward, done, timeout)."""
-        self.act[...] = actions
-        self._signal_and_wait(CMD_STEP)
+        rec = profiling.active()
+        if (rec is not None) != self._stamping:
+            self._stamping = rec is not None
+            self._stamps[0] = self._stamping
+        with profiling.span("farm.step"):
+            self.act[...] = actions
+            self._signal_and_wait(CMD_STEP)
+            if rec is not None:
+                self._worker_records(rec)
         return self.obs, self.rew, self.done, self.timeout
+
+    def _worker_records(self, rec):
+        """The workers' stamps of the step just taken, as ``farm.worker``
+        records under the open ``farm.step``."""
+        st = self._stamps[1:].tolist()
+        for w, p in enumerate(self._procs):
+            rec.add("farm.worker", st[2 * w], st[2 * w + 1], p.pid)
 
     def close(self):
         if not self.closed:

@@ -17,7 +17,8 @@ a plain comparison, the current stream's handle read without building a
 
 Dispatch follows the tensor: CPU tensors take ``gather_frame_stacks_plain``;
 CUDA tensors launch the kernel or raise.  The arguments are checked the
-same way on both.
+same way on both.  While the recorder of ``utils/profiling.py`` is on,
+each launch counts in ``ops.gather_frame_stacks`` by (batch, K, F).
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` at first
 use into ``rlpyt_tpu_torch/csrc/build/`` (git-ignored), loaded with ctypes.
@@ -30,6 +31,7 @@ from pathlib import Path
 import torch
 
 from rlpyt_tpu_torch.ops.cuda_build import CSRC, build_library
+from rlpyt_tpu_torch.utils.profiling import count
 
 _SRC = CSRC / "frame_gather.cu"
 _lib = None
@@ -142,8 +144,5 @@ def gather_frame_stacks(ring, start_rows, b_idx, mask_a, mask_t,
     if err != 0:
         raise RuntimeError("frame gather launch failed: "
                            + lib.frame_gather_error_string(err).decode())
-    gather_frame_stacks.launches += 1
+    count("ops.gather_frame_stacks", (batch, K, F))
     return rows_a, rows_t
-
-
-gather_frame_stacks.launches = 0   # kernel launches, for chip_smoke.py

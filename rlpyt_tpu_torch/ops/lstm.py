@@ -40,14 +40,14 @@ The TPU padding (H to 128, B to 8, F to 128) is not carried over: the
 kernels mask ragged edges themselves.
 
 Dispatch follows the tensor: CPU tensors take the plain versions; CUDA
-tensors launch the kernels or raise.  Each wrapper counts its launches
-in ``<wrapper>.launches`` (``lstm_fwd.step_launches``: those at T = 1;
-``lstm_fwd.cluster_launches``, ``lstm_bwd.cluster_launches``: those on
-the cluster path; ``lstm_fwd.shape_launches``, ``lstm_bwd.shape_launches``:
-by (T, B, H);
-``input_proj.split_launches``: those with K split over a cluster,
-``input_proj.shape_launches``: by (M, N, K);
-``lstm_step.shape_launches``: by (B, H, F)).
+tensors launch the kernels or raise.  While the recorder of
+``utils/profiling.py`` is on, each wrapper counts its launches in the
+counter ``ops.<wrapper>``, keyed by path and shape: ``ops.input_proj``
+by ("split" where K is split over a cluster, else "whole", M, N, K);
+``ops.lstm_fwd`` and ``ops.lstm_bwd`` by ("cluster" or "barrier", T, B,
+H); ``ops.lstm_step`` by (the plan's path, B, H, F).  ``LstmFunction``
+opens the spans ``ops.lstm_step``, ``ops.input_proj`` and ``ops.lstm_fwd``
+around its forward's calls and ``ops.lstm_bwd`` around its backward.
 """
 from __future__ import annotations
 
@@ -60,6 +60,7 @@ from typing import NamedTuple
 import torch
 
 from rlpyt_tpu_torch.ops.cuda_build import CSRC, build_library
+from rlpyt_tpu_torch.utils.profiling import count, span, spanned
 
 _SRC = CSRC / "lstm.cu"
 _lib = None
@@ -368,10 +369,8 @@ def input_proj(x, wx, b):
             x.data_ptr(), wx.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
             K, *plan, _stream(x.device))
     _raise_on(err, "lstm input projection")
-    input_proj.launches += 1
-    input_proj.split_launches += plan.splits > 1
-    input_proj.shape_launches[M, N, K] = \
-        input_proj.shape_launches.get((M, N, K), 0) + 1
+    count("ops.input_proj", ("split" if plan.splits > 1 else "whole", M, N,
+                             K))
     return out
 
 
@@ -568,11 +567,7 @@ def lstm_fwd(xg, wh, mask, h0, c0):
                 *ptrs, None if counter is None else counter.data_ptr(), T,
                 B, H, plan.ctas, plan.stage_rows, _stream(dev))
     _raise_on(err, "lstm forward")
-    lstm_fwd.launches += 1
-    lstm_fwd.step_launches += T == 1
-    lstm_fwd.cluster_launches += cp is not None
-    lstm_fwd.shape_launches[T, B, H] = \
-        lstm_fwd.shape_launches.get((T, B, H), 0) + 1
+    count("ops.lstm_fwd", ("barrier" if cp is None else "cluster", T, B, H))
     return y, gates, cs, hT, cT
 
 
@@ -611,10 +606,7 @@ def lstm_bwd(gates, cs, c0, mask, wh, dy, dcT):
                 *ptrs, part.data_ptr(), counter.data_ptr(), T, B, H,
                 plan.ctas, _stream(dev))
     _raise_on(err, "lstm backward")
-    lstm_bwd.launches += 1
-    lstm_bwd.cluster_launches += cp is not None
-    lstm_bwd.shape_launches[T, B, H] = \
-        lstm_bwd.shape_launches.get((T, B, H), 0) + 1
+    count("ops.lstm_bwd", ("barrier" if cp is None else "cluster", T, B, H))
     return dgates, dh0, dc0
 
 
@@ -768,24 +760,8 @@ def lstm_step(x, wx, wh, b, mask, h0, c0):
             B, H, F, plan.rows, int(plan.path == "tf32"), plan.splits,
             plan.split_stages, _stream(dev))
     _raise_on(err, "lstm one-step forward")
-    lstm_step.launches += 1
-    lstm_step.shape_launches[B, H, F] = \
-        lstm_step.shape_launches.get((B, H, F), 0) + 1
+    count("ops.lstm_step", (plan.path, B, H, F))
     return y, gates, cs, hT, cT
-
-
-input_proj.launches = 0   # kernel launches, for chip_smoke.py
-input_proj.split_launches = 0   # those of them with K split over a cluster
-input_proj.shape_launches = {}   # the launches by (M, N, K)
-lstm_fwd.launches = 0
-lstm_fwd.step_launches = 0   # those of them with T = 1 (a collection step)
-lstm_fwd.cluster_launches = 0   # those on the cluster path
-lstm_fwd.shape_launches = {}   # the launches by (T, B, H)
-lstm_bwd.launches = 0
-lstm_bwd.cluster_launches = 0   # those on the cluster path
-lstm_bwd.shape_launches = {}   # the launches by (T, B, H)
-lstm_step.launches = 0
-lstm_step.shape_launches = {}   # the launches by (B, H, F)
 
 
 class LstmFunction(torch.autograd.Function):
@@ -802,16 +778,20 @@ class LstmFunction(torch.autograd.Function):
         h0, c0 = h0.contiguous(), c0.contiguous()
         wx, wh, b = wx.contiguous(), wh.contiguous(), b.contiguous()
         if T == 1:
-            y, gates, cs, hT, cT = lstm_step(x[0], wx, wh, b, mask[0], h0,
-                                             c0)
+            with span("ops.lstm_step"):
+                y, gates, cs, hT, cT = lstm_step(x[0], wx, wh, b, mask[0],
+                                                 h0, c0)
         else:
-            xg = input_proj(x.view(T * B, F), wx, b)
-            y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, wx.shape[1]), wh,
-                                            mask, h0, c0)
+            with span("ops.input_proj"):
+                xg = input_proj(x.view(T * B, F), wx, b)
+            with span("ops.lstm_fwd"):
+                y, gates, cs, hT, cT = lstm_fwd(xg.view(T, B, wx.shape[1]),
+                                                wh, mask, h0, c0)
         ctx.save_for_backward(wx, wh, x, mask, h0, c0, y, gates, cs)
         return y, hT, cT
 
     @staticmethod
+    @spanned("ops.lstm_bwd")
     def backward(ctx, dy, dhT, dcT):
         wx, wh, x, mask, h0, c0, y, gates, cs = ctx.saved_tensors
         T, B, F = x.shape

@@ -20,7 +20,10 @@ ops/frame_gather.py); ``bench_torch_gather_formulations.py`` times the
 three side by side.
 
 Dispatch follows the tensor: CPU tensors take the plain versions; CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel or raise.  While the recorder of
+``utils/profiling.py`` is on, each launch counts in
+``ops.gather_union_rows`` or ``ops.gather_union_window`` by (batch, U,
+F).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from pathlib import Path
 import torch
 
 from rlpyt_tpu_torch.ops.cuda_build import CSRC, build_library
+from rlpyt_tpu_torch.utils.profiling import count
 
 _SRC = CSRC / "union_gather.cu"
 _lib = None
@@ -126,7 +130,7 @@ def gather_union_rows(ring, start, b_idx, U: int):
     _launched(name, load().union_rows_launch(
         ring.data_ptr(), start.data_ptr(), b_idx.data_ptr(), out.data_ptr(),
         size_T, B, F, U, batch, stream))
-    gather_union_rows.launches += 1
+    count("ops.gather_union_rows", (batch, U, F))
     return out
 
 
@@ -153,10 +157,5 @@ def gather_union_window(ring_lm, start, b_idx, U: int):
     _launched(name, load().union_window_launch(
         ring_lm.data_ptr(), start.data_ptr(), b_idx.data_ptr(),
         out.data_ptr(), NT - (U - 1), F, U, batch, stream))
-    gather_union_window.launches += 1
+    count("ops.gather_union_window", (batch, U, F))
     return out
-
-
-# Kernel launches, for chip_smoke.py.
-gather_union_rows.launches = 0
-gather_union_window.launches = 0

@@ -42,6 +42,7 @@ from rlpyt_tpu_torch.envs.host import PairedVecEnv, null_numpy, tmap
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Samples
 from rlpyt_tpu_torch.struct import tree_map
 from rlpyt_tpu_torch.utils.logging import TabularLogger
+from rlpyt_tpu_torch.utils.profiling import span, spanned
 
 
 class _TrajAccum:
@@ -318,9 +319,17 @@ class HostMinibatchRl:
     def _collect_batch(self):
         """One [T, B] batch: the action-server loop (rlpyt
         ActionServer.serve_actions ~L15).  Returns (Samples on the card,
-        HostRolloutState)."""
+        HostRolloutState).  Spans: ``collect``, and each step's
+        ``collect.record`` (the record and the copies to the card it
+        enqueues), ``collect.agent``, ``collect.action_wait`` (the
+        action's copy to the host, waited on), the farm's ``farm.step``
+        and ``collect.after_step``."""
         if isinstance(self.vec, PairedVecEnv):
             return self._collect_batch_alternating()
+        with span("collect"):
+            return self._collect_lockstep()
+
+    def _collect_lockstep(self):
         T, B = self.batch_spec
         self._land(self._recs_free)
         rec = self._recs[0]
@@ -332,25 +341,29 @@ class HostMinibatchRl:
         infos = []
         sl = slice(0, B)
         for t in range(T):
-            rec.record(t, self.vec.obs, self._prev_action,
-                       self._prev_reward)
-            tmap(lambda d, h: d[t].copy_(h[0][t], non_blocking=True),
-                 obs_dev, rec.obs)
-            pa_dev[t].copy_(rec.pa[0][t], non_blocking=True)
-            pr_dev[t].copy_(rec.pr[0][t], non_blocking=True)
-            astep, self._carry = self._agent_step(
-                tmap(lambda d: d[t], obs_dev), pa_dev[t], pr_dev[t],
-                self._carry, self._cum_steps + t * B)
+            with span("collect.record"):
+                rec.record(t, self.vec.obs, self._prev_action,
+                           self._prev_reward)
+                tmap(lambda d, h: d[t].copy_(h[0][t], non_blocking=True),
+                     obs_dev, rec.obs)
+                pa_dev[t].copy_(rec.pa[0][t], non_blocking=True)
+                pr_dev[t].copy_(rec.pr[0][t], non_blocking=True)
+            with span("collect.agent"):
+                astep, self._carry = self._agent_step(
+                    tmap(lambda d: d[t], obs_dev), pa_dev[t], pr_dev[t],
+                    self._carry, self._cum_steps + t * B)
             infos.append(astep.agent_info)
-            self._land(self._fetch(rec.act[0][t], astep.action))
+            with span("collect.action_wait"):
+                self._land(self._fetch(rec.act[0][t], astep.action))
             actions = rec.act[1][t]
             _, rew, done, timeout = self.vec.step(actions)
-            rec.record_env(t, rew, done, timeout)
-            if self._carry is not None:
-                done_dev[t].copy_(rec.done[0][t], non_blocking=True)
-            self._carry = self._after_step(
-                sl, actions, rec.rew[1][t], rec.done[1][t],
-                getattr(self.vec, "info", {}), self._carry, done_dev[t])
+            with span("collect.after_step"):
+                rec.record_env(t, rew, done, timeout)
+                if self._carry is not None:
+                    done_dev[t].copy_(rec.done[0][t], non_blocking=True)
+                self._carry = self._after_step(
+                    sl, actions, rec.rew[1][t], rec.done[1][t],
+                    getattr(self.vec, "info", {}), self._carry, done_dev[t])
         self._cum_steps += T * B
         samples = Samples(
             observation=obs_dev, action=self._h2d(rec.act[0]),
@@ -371,6 +384,7 @@ class HostMinibatchRl:
 
     # ------------------------------------------------------------------
 
+    @spanned("collect")
     def _collect_batch_alternating(self):
         """Alternating collection (rlpyt samplers/parallel/gpu/
         alternating_sampler.py:AlternatingSampler ~L100): while the card
@@ -379,7 +393,8 @@ class HostMinibatchRl:
         actions copied to pinned memory behind an event), the other
         half's envs are stepped, and only then is the event waited on
         (``land``).  Recurrent agents keep a carry bank per half (rlpyt
-        agents/base.py:AlternatingRecurrentAgentMixin ~L250)."""
+        agents/base.py:AlternatingRecurrentAgentMixin ~L250).  The spans
+        of ``_collect_batch``, for each half's step."""
         T, Btot = self.batch_spec
         halves = self.vec.halves
         b_a = halves[0].B
@@ -396,31 +411,36 @@ class HostMinibatchRl:
 
         def dispatch(h, t):
             rec, s = recs[h], sl[h]
-            rec.record(t, halves[h].obs, self._prev_action[s],
-                       self._prev_reward[s])
-            tmap(lambda d, b: d[t, s].copy_(b[0][t], non_blocking=True),
-                 obs_dev, rec.obs)
-            pa_dev[t, s].copy_(rec.pa[0][t], non_blocking=True)
-            pr_dev[t, s].copy_(rec.pr[0][t], non_blocking=True)
-            astep, self._alt_carry[h] = self._agent_step(
-                tmap(lambda d: d[t, s], obs_dev), pa_dev[t, s],
-                pr_dev[t, s], self._alt_carry[h],
-                self._cum_steps + t * Btot)
+            with span("collect.record"):
+                rec.record(t, halves[h].obs, self._prev_action[s],
+                           self._prev_reward[s])
+                tmap(lambda d, b: d[t, s].copy_(b[0][t],
+                                                non_blocking=True),
+                     obs_dev, rec.obs)
+                pa_dev[t, s].copy_(rec.pa[0][t], non_blocking=True)
+                pr_dev[t, s].copy_(rec.pr[0][t], non_blocking=True)
+            with span("collect.agent"):
+                astep, self._alt_carry[h] = self._agent_step(
+                    tmap(lambda d: d[t, s], obs_dev), pa_dev[t, s],
+                    pr_dev[t, s], self._alt_carry[h],
+                    self._cum_steps + t * Btot)
             infos[h].append(astep.agent_info)
             return self._fetch(rec.act[0][t], astep.action)
 
         def land(h, t, event):
-            self._land(event)
+            with span("collect.action_wait"):
+                self._land(event)
             rec, s = recs[h], sl[h]
             actions = rec.act[1][t]
             _, rew, done, timeout = halves[h].step(actions)
-            rec.record_env(t, rew, done, timeout)
-            if self._alt_carry[h] is not None:
-                done_dev[t, s].copy_(rec.done[0][t], non_blocking=True)
-            self._alt_carry[h] = self._after_step(
-                s, actions, rec.rew[1][t], rec.done[1][t],
-                getattr(halves[h], "info", {}), self._alt_carry[h],
-                done_dev[t, s])
+            with span("collect.after_step"):
+                rec.record_env(t, rew, done, timeout)
+                if self._alt_carry[h] is not None:
+                    done_dev[t, s].copy_(rec.done[0][t], non_blocking=True)
+                self._alt_carry[h] = self._after_step(
+                    s, actions, rec.rew[1][t], rec.done[1][t],
+                    getattr(halves[h], "info", {}), self._alt_carry[h],
+                    done_dev[t, s])
 
         ev_a = dispatch(0, 0)
         for t in range(T):

@@ -21,6 +21,7 @@ import torch
 
 from rlpyt_tpu_torch.struct import buffer_from_example, tree_map, \
     tree_select
+from rlpyt_tpu_torch.utils.profiling import span, spanned
 
 EVAL_CHECK_STEPS = 16   # evaluate() reads its trajectory count this often
 
@@ -164,11 +165,13 @@ class Collector:
         return state._replace(env_state=env_state, observation=obs,
                               prev_action=prev_a, prev_reward=prev_r)
 
+    @spanned("collect")
     def collect(self, state: RolloutState, generator: torch.Generator,
                 is_eval: bool = False) -> Tuple[RolloutState, Samples]:
         """Collect one [T, B] batch; ``is_eval``: the agent acts with its
         evaluation epsilon.  Under wait-reset the lanes that wait are
-        reset after the last step."""
+        reset after the last step.  Spans: ``collect``, and each step's
+        ``collect.agent`` and ``collect.env``."""
         T = self.batch_spec.T
         buf = None
         for t in range(T):
@@ -205,12 +208,15 @@ class Collector:
               is_eval: bool = False, max_trajectories: Optional[int] = None
               ) -> Tuple[RolloutState, Samples]:
         B = self.batch_spec.B
-        agent_step, agent_carry = self.agent.step(
-            carry.observation, carry.prev_action, carry.prev_reward,
-            carry.agent_carry, carry.cum_steps, generator, is_eval=is_eval)
+        with span("collect.agent"):
+            agent_step, agent_carry = self.agent.step(
+                carry.observation, carry.prev_action, carry.prev_reward,
+                carry.agent_carry, carry.cum_steps, generator,
+                is_eval=is_eval)
         action = agent_step.action
-        env_state, env_step = self.env.step_batch(carry.env_state, action,
-                                                  generator)
+        with span("collect.env"):
+            env_state, env_step = self.env.step_batch(carry.env_state,
+                                                      action, generator)
         reward = env_step.reward.to(torch.float32)
         done = env_step.done
         waiting = carry.needs_reset

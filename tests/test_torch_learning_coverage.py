@@ -21,9 +21,9 @@ from rlpyt_tpu_torch.algos.cat_dqn import CategoricalDQN
 from rlpyt_tpu_torch.algos.r2d1 import R2D1
 from rlpyt_tpu_torch.envs.minatar import Breakout
 from rlpyt_tpu_torch.models.dqn import AtariCatDqnModel, AtariR2d1Model
-from rlpyt_tpu_torch.ops import lstm
 from rlpyt_tpu_torch.runners.train import MinibatchRl
 from rlpyt_tpu_torch.samplers.rollout import BatchSpec, Collector
+from rlpyt_tpu_torch.utils import profiling
 
 # The published MinAtar baseline trunk: one 3x3 conv of 16.
 MINATAR_CONV = dict(channels=(16,), kernel_sizes=(3,), strides=(1,),
@@ -97,15 +97,13 @@ def test_r2d1_learns_minatar_breakout(card):
                 prioritized_replay=True, pri_alpha=0.6, pri_beta=0.9)
     runner = MinibatchRl(algo, agent, env, BatchSpec(T=40, B=32),
                          n_steps=300_000, seed=6, log_interval_steps=100_000)
-    for wrapper in (lstm.input_proj, lstm.lstm_fwd, lstm.lstm_bwd):
-        wrapper.launches = 0
-    lstm.lstm_fwd.step_launches = 0
-    runner.train()
+    with profiling.recording() as rec:
+        runner.train()
     print(f"LSTM kernel launches in training: K3a "
-          f"{lstm.input_proj.launches}, K3 {lstm.lstm_fwd.launches} "
-          f"({lstm.lstm_fwd.step_launches} at T=1), K4 "
-          f"{lstm.lstm_bwd.launches}")
-    assert lstm.lstm_bwd.launches > 0
+          f"{rec.total('ops.input_proj')}, K3 {rec.total('ops.lstm_fwd')}, "
+          f"one-step {rec.total('ops.lstm_step')}, K4 "
+          f"{rec.total('ops.lstm_bwd')}")
+    assert rec.total("ops.lstm_bwd") > 0
     avg, n = eval_return(env, agent)
     report("minatar breakout r2d1", avg, n, t0)
     assert avg > 1.5, f"r2d1 eval return {avg}"
