@@ -12,6 +12,12 @@ recurrent carry (None for a feedforward agent) is zeroed.  With
 done freezes until the end of the batch: its env state stays, it records
 reward 0 and done each step, it adds nothing to the episode sums, and it
 is reset, carry and all, after the batch's last step.
+
+On a card (``graph_capturable``) ``collect`` runs each step in two
+parts: the agent's step, eagerly, then one replay of a CUDA graph
+(``_StepGraph``) of everything after it, which takes the place of some
+200 launches from the host.  The graph gives the eager step's numbers
+bit for bit.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import torch
 
 from rlpyt_tpu_torch.struct import buffer_from_example, tree_map, \
     tree_select
-from rlpyt_tpu_torch.utils.profiling import span, spanned
+from rlpyt_tpu_torch.utils.profiling import count, span, spanned
 
 EVAL_CHECK_STEPS = 16   # evaluate() reads its trajectory count this often
 
@@ -102,6 +108,7 @@ class Collector:
         # Discount of the DiscountedReturn trajectory stat.
         self.discount = float(discount)
         self.device = env.device
+        self._graph: Optional[_StepGraph] = None
 
     def init_state(self, generator: torch.Generator) -> RolloutState:
         B = self.batch_spec.B
@@ -170,18 +177,56 @@ class Collector:
                 is_eval: bool = False) -> Tuple[RolloutState, Samples]:
         """Collect one [T, B] batch; ``is_eval``: the agent acts with its
         evaluation epsilon.  Under wait-reset the lanes that wait are
-        reset after the last step.  Spans: ``collect``, and each step's
-        ``collect.agent`` and ``collect.env``."""
+        reset after the last step.  Where ``graph_capturable`` holds, each
+        step is the agent's step, then one replay of a ``_StepGraph``,
+        captured in the first such batch (and again for another
+        generator); the state and samples returned are copies that no
+        later batch overwrites.  Elsewhere each step runs eagerly.
+        Spans: ``collect``, each step's ``collect.agent``, and either
+        ``collect.graph`` (``collect.capture`` once) or ``collect.env``.
+        Counters: ``collect.graph_replays``, ``collect.eager_steps``."""
         T = self.batch_spec.T
-        buf = None
-        for t in range(T):
-            state, out = self._step(state, generator, is_eval)
-            if buf is None:
-                buf = buffer_from_example(out, (T,), self.device)
-            tree_map(lambda b, x: b[t].copy_(x), buf, out)
+        if graph_capturable(self.env, generator):
+            state, buf = self._collect_graphed(state, generator, is_eval)
+        else:
+            buf = None
+            for t in range(T):
+                state, out = self._step(state, generator, is_eval)
+                if buf is None:
+                    buf = buffer_from_example(out, (T,), self.device)
+                tree_map(lambda b, x: b[t].copy_(x), buf, out)
+            count("collect.eager_steps", n=T)
         if not self.mid_batch_reset:
             state = self._reset_waiting(state, generator)
         return state, buf
+
+    def _collect_graphed(self, state: RolloutState,
+                         generator: torch.Generator, is_eval: bool
+                         ) -> Tuple[RolloutState, Samples]:
+        graph = self._graph
+        if graph is not None and graph.generator is generator:
+            graph.load(state)
+        else:
+            graph = None
+        carry = state if graph is None else graph.carry
+        cum_steps = state.cum_steps
+        for _ in range(self.batch_spec.T):
+            with span("collect.agent"):
+                agent_out = self.agent.step(
+                    carry.observation, carry.prev_action, carry.prev_reward,
+                    carry.agent_carry, cum_steps, generator, is_eval=is_eval)
+            if graph is None:
+                # The first step's agent outputs give the inputs' shapes.
+                with span("collect.capture"):
+                    graph = self._graph = _StepGraph(self, state, agent_out,
+                                                     generator)
+                graph.load(state)
+                carry = graph.carry
+            with span("collect.graph"):
+                graph.step(agent_out)
+            cum_steps += self.lanes_total
+        count("collect.graph_replays", n=self.batch_spec.T)
+        return graph.result(cum_steps)
 
     def evaluate(self, generator: torch.Generator, max_T: int,
                  max_trajectories: Optional[int] = None) -> TrajStats:
@@ -207,12 +252,23 @@ class Collector:
     def _step(self, carry: RolloutState, generator: torch.Generator,
               is_eval: bool = False, max_trajectories: Optional[int] = None
               ) -> Tuple[RolloutState, Samples]:
-        B = self.batch_spec.B
         with span("collect.agent"):
             agent_step, agent_carry = self.agent.step(
                 carry.observation, carry.prev_action, carry.prev_reward,
                 carry.agent_carry, carry.cum_steps, generator,
                 is_eval=is_eval)
+        return self._after_agent(carry, agent_step, agent_carry, generator,
+                                 max_trajectories)
+
+    def _after_agent(self, carry: RolloutState, agent_step, agent_carry,
+                     generator: torch.Generator,
+                     max_trajectories: Optional[int] = None
+                     ) -> Tuple[RolloutState, Samples]:
+        """A step after the agent's: the env step, the wait-reset freeze,
+        the record, the trajectory accounting and the auto-reset; returns
+        (next carry, record).  It only reads ``carry`` and the agent's
+        outputs, so ``_StepGraph`` captures it as it is."""
+        B = self.batch_spec.B
         action = agent_step.action
         with span("collect.env"):
             env_state, env_step = self.env.step_batch(carry.env_state,
@@ -300,6 +356,110 @@ class Collector:
             prev_reward=torch.where(w, 0.0, state.prev_reward),
             agent_carry=self.agent.reset_carry_where(w, state.agent_carry),
             needs_reset=torch.zeros_like(w))
+
+
+def graph_capturable(env, generator: torch.Generator) -> bool:
+    """Whether ``Collector.collect`` replays the step after the agent
+    from a CUDA graph: the env is on a card and the generator on that
+    same card (a generator elsewhere would have its draws frozen into the
+    graph)."""
+    dev, gen = env.device, generator.device
+    if dev.type != "cuda" or gen.type != "cuda":
+        return False
+    return _card_index(dev) == _card_index(gen)
+
+
+def _card_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def _tensors(state: RolloutState) -> RolloutState:
+    """``state`` without its host integer: a tree of tensors alone."""
+    return state._replace(cum_steps=None)
+
+
+class _StepGraph:
+    """A collection step after the agent's (``Collector._after_agent``),
+    then the write of its record into the [T, B] buffer at a step index
+    that lives on the card, captured as one CUDA graph for one collector
+    and one generator.
+
+    The graph reads and writes static tensors: ``carry`` (the rollout
+    state but ``cum_steps``), ``inputs`` (the agent's step and next
+    carry, copied in before each replay), the step index ``t`` and the
+    buffer ``buf``; one graph serves every step of a batch.  The
+    generator is registered with the graph, so that each replay draws at
+    the offsets the eager ops would have drawn at, after the agent's
+    eager draws.  The warm-up and the capture run on a copy of the state
+    they are given, and the generator's state is restored after them:
+    they advance nothing of the run."""
+
+    def __init__(self, collector: Collector, state: RolloutState,
+                 agent_out, generator: torch.Generator):
+        self.collector, self.generator = collector, generator
+        # ``cum_steps`` stays on the host: the carry's 0 is a placeholder.
+        self.carry = tree_map(torch.clone, _tensors(state))._replace(
+            cum_steps=0)
+        self.inputs = tree_map(torch.clone, agent_out)
+        self.t = torch.zeros((1,), dtype=torch.int64,
+                             device=collector.device)
+        saved = generator.get_state()
+        # One eager step gives the record's shapes.
+        _, out = collector._after_agent(self.carry, *self.inputs, generator)
+        self.buf = buffer_from_example(out, (collector.batch_spec.T,),
+                                       collector.device)
+        self.graph = self._capture()
+        generator.set_state(saved)
+
+    def _capture(self) -> "torch.cuda.CUDAGraph":
+        """Warm up on a side stream, then capture ``_body`` there.  The
+        capture is thread-local, as other threads may use the card
+        meanwhile (the learner of ``AsyncHostRl``, NCCL's)."""
+        device = self.collector.device
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._body()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self._body()
+        main.wait_stream(side)
+        return graph
+
+    def _body(self):
+        """What the graph holds: the step, the record written at ``t``,
+        ``t`` advanced, the next carry written over ``carry``.  Each leaf
+        of the next carry is a new tensor or the carry's own leaf, so no
+        copy reads what another wrote."""
+        new, out = self.collector._after_agent(self.carry, *self.inputs,
+                                               self.generator)
+        tree_map(lambda b, x: b.index_copy_(0, self.t, x.unsqueeze(0)),
+                 self.buf, out)
+        self.t.add_(1)
+        tree_map(lambda d, x: d.copy_(x), _tensors(self.carry),
+                 _tensors(new))
+
+    def load(self, state: RolloutState):
+        """Start a batch from ``state``: its tensors into ``carry``, the
+        step index to 0."""
+        tree_map(lambda d, x: d.copy_(x), _tensors(self.carry),
+                 _tensors(state))
+        self.t.zero_()
+
+    def step(self, agent_out):
+        """One step after the agent's, from its outputs."""
+        tree_map(lambda d, x: d.copy_(x), self.inputs, agent_out)
+        self.graph.replay()
+
+    def result(self, cum_steps: int) -> Tuple[RolloutState, Samples]:
+        """Copies of the carry (with ``cum_steps``) and of the buffer, which
+        no later replay overwrites."""
+        return (tree_map(torch.clone, _tensors(self.carry))._replace(
+            cum_steps=cum_steps), tree_map(torch.clone, self.buf))
 
 
 def evaluate(collector: Collector, generator: torch.Generator, max_T: int,
