@@ -1,8 +1,11 @@
 """ALE-Atari DQN-family configs (port of
 rlpyt_tpu/experiments/configs/atari_dqn.py, verbatim; reference:
 rlpyt/experiments/configs/atari/dqn/atari_dqn.py): "dqn", "ernbw"
-(categorical, double, dueling, prioritized, n-step) and the recurrent
-"r2d1".  Sections: agent, model, algo, env, eval_env, runner, sampler.
+(categorical, double, dueling, prioritized, n-step), the recurrent
+"r2d1", and "r2d1_resnet": "r2d1" on IMPALA's 15-layer residual trunk
+(arXiv:1802.01561, Fig. 3 right) with an LSTM 256, which the JAX package
+does not have.  Sections: agent, model, algo, env, eval_env, runner,
+sampler.
 
 They run over the host farm (envs/host.py) of envs/atari.py envs, the
 card running batched inference and the updates (rlpyt's GpuSampler
@@ -67,3 +70,12 @@ config["algo"] = dict(
     pri_beta=0.9, pri_eta=0.9, input_priorities=True)
 config["sampler"].update(batch_T=40, batch_B=32)
 configs["r2d1"] = config
+
+# R2D1 on IMPALA's deep trunk at its published widths (models/resnet.py):
+# sections of 16, 32, 32 channels, two residual blocks each, 256
+# features, LSTM 256.
+config = copy.deepcopy(configs["r2d1"])
+config["model"] = dict(trunk="resnet", channels=(16, 32, 32), blocks=2,
+                       feature_size=256, lstm_size=256)
+config["agent"]["lstm_size"] = 256
+configs["r2d1_resnet"] = config

@@ -5,10 +5,11 @@ rlpyt/experiments/scripts/atari/dqn/train/atari_dqn.py:build_and_train).
     python -m rlpyt_tpu_torch.experiments.scripts.atari_dqn \
         [LOG_DIR [RUN_ID [CONFIG]]]
 
-CONFIG is one of ``dqn``, ``ernbw``, ``r2d1`` (default ``dqn``); a
-``variant.json`` in LOG_DIR is merged into it.  ale_py is imported when
-an env is built; with ``env.fake=True`` (and ``eval_env.fake=True``) the
-scripted FakeALE runs the same pipeline without ROMs.  The envs step in a
+CONFIG is one of ``dqn``, ``ernbw``, ``r2d1``, ``r2d1_resnet`` (default
+``dqn``); a ``variant.json`` in LOG_DIR is merged into it.  ale_py is
+imported when an env is built; with ``env.fake=True`` (and
+``eval_env.fake=True``) the scripted FakeALE runs the same pipeline
+without ROMs.  The envs step in a
 ``SharedMemVecEnv`` (spawned workers: the env factories pickle) or, with
 ``serial=True``, in this process; the model and the updates run on the
 card unless ``build_and_train(device="cpu")`` is called.
@@ -51,9 +52,10 @@ def make_env_fn(env_config: dict, seed: int = 0):
 
 
 def build_agent_algo(config_key: str, config: dict, device="cuda"):
-    """R2D1 for ``r2d1``, categorical DQN where the agent names
-    ``n_atoms``, else DQN; each on its Atari model."""
-    if config_key == "r2d1":
+    """R2D1 for the ``r2d1`` keys (``r2d1``, ``r2d1_resnet``),
+    categorical DQN where the agent names ``n_atoms``, else DQN; each on
+    its Atari model."""
+    if config_key.split("_")[0] == "r2d1":
         agent = R2d1Agent(ModelCls=AtariR2d1Model,
                           model_kwargs=config["model"], device=device,
                           **config["agent"])

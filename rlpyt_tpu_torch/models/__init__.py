@@ -1,5 +1,6 @@
 from rlpyt_tpu_torch.models.mlp import MlpModel
 from rlpyt_tpu_torch.models.conv import Conv2dModel, Conv2dHeadModel
+from rlpyt_tpu_torch.models.resnet import ImpalaResNet
 from rlpyt_tpu_torch.models.dqn import (
     DqnMlpModel,
     AtariDqnModel,

@@ -1,6 +1,7 @@
 """DQN-family models (port of rlpyt_tpu/models/dqn.py: DuelingHead,
 DistributionalDuelingHead, AtariDqnModel, AtariCatDqnModel,
-AtariR2d1Model, DqnMlpModel, R2d1MlpModel).
+AtariR2d1Model, DqnMlpModel, R2d1MlpModel; AtariR2d1Model also takes
+IMPALA's residual trunk, which the JAX package does not have).
 
 Accept observations with [], [B] or [T,B] leading dims.  The Atari
 models take uint8 images in [C, H, W] layout, scaled by 1/``obs_divisor``
@@ -9,7 +10,7 @@ inside the model; the MLP models take vectors of ``input_size`` (or, for
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,12 +18,19 @@ from torch import nn
 
 from rlpyt_tpu_torch.models.conv import Conv2dModel
 from rlpyt_tpu_torch.models.mlp import MlpModel
+from rlpyt_tpu_torch.models.resnet import (
+    IMPALA_BLOCKS,
+    IMPALA_CHANNELS,
+    IMPALA_FEATURES,
+    ImpalaResNet,
+)
 from rlpyt_tpu_torch.models.rnn import LstmCore, RnnState
 from rlpyt_tpu_torch.struct import (
     infer_leading_dims,
     infer_leading_dims_tree,
     restore_leading_dims,
 )
+from rlpyt_tpu_torch.utils import profiling
 
 # Nature-CNN geometry as rlpyt adapts it to 104x80 frames.
 ATARI_CHANNELS = (32, 64, 64)
@@ -146,32 +154,54 @@ class AtariCatDqnModel(nn.Module):
 
 
 class AtariR2d1Model(nn.Module):
-    """Conv -> LSTM (with one-hot prev action and prev reward) ->
+    """Conv trunk -> LSTM (with one-hot prev action and prev reward) ->
     (dueling) Q.  ``forward(obs, prev_action, prev_reward, rnn_state,
     done=None)`` returns (q, next_rnn_state); ``done`` ([T, B] or [B])
     resets the state at episode starts inside a training window.
 
+    ``trunk``: ``"nature"``, the Nature CNN of ``channels``,
+    ``kernel_sizes``, ``strides`` and ``paddings`` (the JAX model's), or
+    ``"resnet"``, IMPALA's residual trunk (``resnet.py``) of ``channels``
+    (IMPALA's 16, 32, 32 by default), ``blocks`` residual blocks a
+    section and ``feature_size`` features.  Either is ``conv``.
+
     The LSTM input is built in the compute dtype, as the JAX model builds
     it (``dqn.py:211-214``): under bf16 the prev reward is rounded to
-    bf16 before the float32 LSTM."""
+    bf16 before the float32 LSTM.
+
+    While a recorder is on (``utils/profiling.py``), each trunk forward
+    is span ``model.trunk``, its backward span ``model.trunk_bwd``, and
+    counter ``model.trunk`` counts its calls by (gradient on, frames)."""
 
     def __init__(self, image_shape: Tuple[int, int, int], n_actions: int,
                  fc_sizes: Sequence[int] = (512,), lstm_size: int = 512,
                  dueling: bool = True,
-                 channels: Sequence[int] = ATARI_CHANNELS,
+                 channels: Optional[Sequence[int]] = None,
                  kernel_sizes: Sequence[int] = ATARI_KERNELS,
                  strides: Sequence[int] = ATARI_STRIDES,
                  paddings: Sequence[int] = ATARI_PADDINGS,
                  obs_divisor: float = 255.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 trunk: str = "nature", blocks: int = IMPALA_BLOCKS,
+                 feature_size: int = IMPALA_FEATURES):
         super().__init__()
         c, h, w = image_shape
         self.n_actions = n_actions
-        self.conv = Conv2dModel(c, channels, kernel_sizes, strides, paddings,
-                                compute_dtype=compute_dtype,
-                                input_scale=1.0 / obs_divisor)
-        n_feat = Conv2dModel.conv_out_size(channels, kernel_sizes, strides,
-                                           paddings, h, w)
+        if trunk == "nature":
+            channels = channels or ATARI_CHANNELS
+            self.conv = Conv2dModel(c, channels, kernel_sizes, strides,
+                                    paddings, compute_dtype=compute_dtype,
+                                    input_scale=1.0 / obs_divisor)
+            n_feat = Conv2dModel.conv_out_size(channels, kernel_sizes,
+                                               strides, paddings, h, w)
+        elif trunk == "resnet":
+            self.conv = ImpalaResNet(image_shape,
+                                     channels or IMPALA_CHANNELS, blocks,
+                                     feature_size, obs_divisor,
+                                     compute_dtype)
+            n_feat = feature_size
+        else:
+            raise ValueError(f"trunk {trunk!r}: 'nature' or 'resnet'")
         self.lstm = LstmCore(n_feat + n_actions + 1, lstm_size)
         if dueling:
             self.head = DuelingHead(lstm_size, fc_sizes, n_actions,
@@ -183,7 +213,7 @@ class AtariR2d1Model(nn.Module):
     def forward(self, observation, prev_action, prev_reward,
                 rnn_state: RnnState, done=None):
         lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
-        x = self.conv(observation.reshape((T * B,) + img_shape))
+        x = self._trunk(observation.reshape((T * B,) + img_shape))
         x = x.flatten(1).unflatten(0, (T, B))
         pa = F.one_hot(prev_action.reshape(T, B).long(),
                        self.n_actions).to(x.dtype)
@@ -194,6 +224,16 @@ class AtariR2d1Model(nn.Module):
         y, next_state = self.lstm(lstm_in, done_tb, rnn_state)
         q = self.head(y.flatten(0, 1))
         return restore_leading_dims(q, lead_dim, T, B), next_state
+
+    def _trunk(self, frames):
+        if profiling.active() is None:
+            return self.conv(frames)
+        grad = torch.is_grad_enabled()
+        profiling.count("model.trunk", (grad, frames.shape[0]))
+        with profiling.span("model.trunk"):
+            x = self.conv(frames)
+        return profiling.backward_span(x, list(self.conv.parameters()),
+                                       "model.trunk_bwd")
 
 
 class DqnMlpModel(nn.Module):

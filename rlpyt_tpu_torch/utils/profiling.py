@@ -5,6 +5,8 @@ port's span-and-counter recorder.
   counters, recorded only while a ``Recorder`` is on (``recording()``,
   ``start()``/``stop()``, or ``trace``); while it is off ``span``
   returns one shared null context and ``count`` returns at once;
+  ``backward_span(y, leaves, name)``: a span around the backward
+  from ``y`` to ``leaves``, likewise only while a recorder is on;
 - ``trace(log_dir)``: ``torch.profiler`` over the host and the card,
   written as a Chrome trace (open in Perfetto or chrome://tracing), the
   recorder on, its spans in the trace under their own names and the
@@ -237,6 +239,51 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return wrapper
     return deco
+
+
+def backward_span(y, leaves, name: str):
+    """``y``, or while a recorder is on a view of it whose backward runs in
+    span ``name``: from the moment the gradient reaches ``y`` to the
+    moment the gradients of every tensor of ``leaves`` that the backward
+    reaches through ``y`` are computed.  Like ``ops.lstm_bwd``, the span
+    is on the thread of the autograd engine that runs the backward."""
+    if _recorder is None or not y.requires_grad:
+        return y
+    import torch
+
+    box = {}
+
+    def close(_grads):
+        handle.remove()
+        opened = box.pop("span", None)
+        if opened is not None:
+            opened.__exit__(None, None, None)
+
+    handle = torch.autograd.graph.register_multi_grad_hook(
+        [t for t in leaves if t.requires_grad], close, mode="all")
+    return _backward_opener().apply(y, box, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_opener():
+    """The autograd function that opens ``backward_span``'s span (made at
+    first use: this module imports torch only when it needs it)."""
+    import torch
+
+    class OpenBackwardSpan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y, box, name):
+            ctx.box, ctx.name = box, name
+            return y.view_as(y)
+
+        @staticmethod
+        def backward(ctx, dy):
+            opened = span(ctx.name)
+            opened.__enter__()
+            ctx.box["span"] = opened
+            return dy, None, None
+
+    return OpenBackwardSpan
 
 
 def count(name: str, key=None, n: int = 1):

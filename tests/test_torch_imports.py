@@ -23,6 +23,7 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
                  ROOT / "tests" / "test_torch_learning_coverage.py",
                  ROOT / "tests" / "test_torch_host_learning.py",
                  ROOT / "tests" / "test_torch_surface.py",
+                 ROOT / "tests" / "test_torch_resnet_r2d1.py",
                  ROOT / "tests" / "_torch_multihost_worker.py"])
 
 

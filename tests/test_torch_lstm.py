@@ -331,7 +331,11 @@ def test_cuda_kernels_match_plain(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     for T, B, F, H in ((20, 32, 6919, 512), (1, 64, 6919, 512),
                        (5, 128, 33, 512), (7, 3, 130, 100),
-                       (3, 37, 33, 102)):
+                       (3, 37, 33, 102),
+                       # atari_dqn.py r2d1_resnet: an update's burn-in and
+                       # window (K3a at 2,560 and 5,440 rows, the cluster
+                       # path in clusters of 16 x 12 rows)
+                       (40, 64, 261, 256), (85, 64, 261, 256)):
         a = {k: torch.from_numpy(v).to(cuda_device)
              for k, v in make_inputs(7, T, B, F, H).items()}
         mask = (~a["done"]).to(torch.float32)
@@ -378,7 +382,8 @@ def hold_cluster_plan(cp, B, H):
 
 @pytest.mark.parametrize("B,H", [(32, 512), (64, 512), (128, 512), (3, 100),
                                  (37, 102), (5, 102), (1, 8), (64, 528),
-                                 (1, 1), (128, 100), (32, 128), (128, 128)])
+                                 (1, 1), (128, 100), (32, 128), (128, 128),
+                                 (64, 256)])
 def test_recurrence_plan_covers_units(B, H):
     """The recurrences' plan on 132 SMs: every hidden unit owned by
     exactly one CTA (CTA j owns [UNITS * j, UNITS * j + UNITS)), no

@@ -155,7 +155,9 @@ STEP_PLAN_CASES = [
     ((32, 128, 135), (8, "ffma", 1, 3)),
 ]
 RAGGED = [(1, 1, 0), (1, 8, 3), (3, 100, 130), (37, 102, 33), (70, 102, 33),
-          (129, 5, 7), (200, 512, 6917), (5000, 64, 64)]
+          (129, 5, 7), (200, 512, 6917), (5000, 64, 64),
+          # atari_dqn.py r2d1_resnet's collection and evaluation (not swept)
+          (32, 256, 261), (4, 256, 261)]
 
 
 def hold_step_plan(p, B, H, F, n_sm=132):
@@ -307,7 +309,7 @@ def test_cuda_step_matches_plain(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False
     for B, F, H in ((4, 6917, 512), (64, 6919, 512), (8, 260, 256),
                     (128, 135, 128), (32, 1031, 128), (3, 130, 100),
-                    (37, 33, 102)):
+                    (37, 33, 102), (32, 261, 256), (4, 261, 256)):
         a = make_inputs(7, B, F, H)
         args = tuple(t.to(cuda_device) for t in step_args(a))
         out = L.lstm_step(*args)

@@ -262,10 +262,11 @@ def test_farm_workers_on_the_masters_clock():
 
 def test_r2d1_iteration_span_tree():
     """One iteration of the tiny MinAtar R2D1 trainer once it learns: one
-    ``collect`` with T ``collect.agent`` and ``collect.env``, then
-    ``optimize`` with ``replay.append`` and each update's ``replay.sample``
-    and ``update``, whose children are the loss, the backward (holding
-    the LSTM's backward), the step and the priorities."""
+    ``collect`` with T ``collect.agent`` (holding the trunk's forward and
+    the one-step LSTM) and ``collect.env``, then ``optimize`` with
+    ``replay.append`` and each update's ``replay.sample`` and ``update``,
+    whose children are the loss, the backward (holding the LSTM's
+    backward, then the trunk's), the step and the priorities."""
     from rlpyt_tpu_torch.experiments.scripts.minatar_dqn import build_runner
     r, _ = build_runner("r2d1", seed=1, config_overrides=TINY_R2D1,
                         device="cpu")
@@ -298,11 +299,11 @@ def test_r2d1_iteration_span_tree():
             "update.loss", "update.backward", "update.step",
             "replay.update_priorities"]
     agent = [k for k, r_ in enumerate(s) if r_.name == "collect.agent"]
-    assert all([r_.name for r_ in s if r_.parent == k] == ["ops.lstm_step"]
-               for k in agent)
+    assert all([r_.name for r_ in s if r_.parent == k]
+               == ["model.trunk", "ops.lstm_step"] for k in agent)
     bwd = [k for k, r_ in enumerate(s) if r_.name == "update.backward"]
-    assert all("ops.lstm_bwd" in [r_.name for r_ in s if r_.parent == k]
-               for k in bwd)
+    assert all([r_.name for r_ in s if r_.parent == k]
+               == ["ops.lstm_bwd", "model.trunk_bwd"] for k in bwd)
     assert {r_.batch for r_ in s} == {1}
 
 
@@ -339,6 +340,81 @@ def test_host_collection_span_tree():
         if x.name == "farm.step":
             assert [k.name for k in s if k.parent == i] == \
                 ["farm.worker"] * 2
+
+
+RESNET_R2D1 = {
+    "env": {"fake": True},
+    "model": {"channels": (4, 4, 4), "feature_size": 16, "lstm_size": 16,
+              "fc_sizes": (32,)},
+    "algo": {"batch_b": 2, "batch_T": 8, "warmup_T": 4, "n_step_return": 2,
+             "replay_size": 2000, "min_steps_learn": 48,
+             "replay_ratio": 1.0},
+    "sampler": {"batch_T": 8, "batch_B": 2, "eval_n_envs": 0},
+}
+
+
+def _resnet_runner():
+    from rlpyt_tpu_torch.experiments.scripts.atari_dqn import build_runner
+    r, _ = build_runner("r2d1_resnet", seed=4, serial=True, device="cpu",
+                        config_overrides=RESNET_R2D1)
+    r.startup()
+    while r._cum_steps + 16 < r.algo.min_steps_learn:
+        r.algo.optimize(*r._collect_batch())
+    return r
+
+
+def _children(s, name):
+    return [[x.name for x in s if x.parent == k]
+            for k, r_ in enumerate(s) if r_.name == name]
+
+
+def test_trunk_spans_in_a_host_collection_batch():
+    """A host collection batch of ``r2d1_resnet`` opens one
+    ``model.trunk`` in each ``collect.agent``, before the one-step LSTM,
+    and counts each as B frames without a gradient; with the recorder off
+    nothing is recorded."""
+    r = _resnet_runner()
+    try:
+        with profiling.recording() as rec:
+            r._collect_batch()
+        s = rec.spans()
+        r._collect_batch()
+    finally:
+        r.vec.close()
+    assert _children(s, "collect.agent") == [
+        ["model.trunk", "ops.lstm_step"]] * 8
+    assert rec.counts == {"model.trunk": {(False, 2): 8}}
+    assert profiling.active() is None and rec.spans() == s
+
+
+def test_trunk_spans_and_counters_in_an_update():
+    """One update of ``r2d1_resnet``: ``update.loss`` holds a
+    ``model.trunk`` before each forward's LSTM (the online and the target
+    network's burn-in, the online window, the target's window),
+    ``update.backward``
+    the LSTM's backward and then ``model.trunk_bwd``, on the thread that
+    runs the backward and inside the backward's span; counter
+    ``model.trunk`` keys the calls by (gradient on, frames)."""
+    r = _resnet_runner()
+    algo = r.algo
+    try:
+        samples, state = r._collect_batch()
+        with profiling.recording() as rec:
+            algo.optimize(samples, state)
+    finally:
+        r.vec.close()
+    s = rec.spans()
+    assert _children(s, "update.loss") == [
+        ["model.trunk", "ops.input_proj", "ops.lstm_fwd"] * 4]
+    assert _children(s, "update.backward") == [
+        ["ops.lstm_bwd", "model.trunk_bwd"]]
+    (k,) = [i for i, x in enumerate(s) if x.name == "model.trunk_bwd"]
+    assert s[s[k].parent].start <= s[k].start <= s[k].end \
+        <= s[s[k].parent].end
+    b, window = algo.batch_b, algo.batch_T + algo.n_step
+    assert rec.counts["model.trunk"] == {
+        (False, algo.warmup_T * b): 2, (True, window * b): 1,
+        (False, window * b): 1}
 
 
 def test_threads_share_one_recorder_without_losing_records():
