@@ -11,7 +11,7 @@ a step costs no device sync.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -19,6 +19,10 @@ import torch
 from rlpyt_tpu_torch.parallel.mesh import is_sharded, shard_like, \
     vector_norm
 from rlpyt_tpu_torch.struct import load_state, state_of, valid_mean
+
+# The inner optimizer's choices of kernel, which its state_dict saves
+# with each group.
+_KERNEL_SETTINGS = ("fused", "capturable", "foreach")
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -132,17 +136,28 @@ class Optimizer:
         if self.shard is not None:
             self.shard.all_reduce_grads_(grads)
 
-    def step(self) -> torch.Tensor:
+    def step(self, apply: Optional[Callable[[], torch.Tensor]] = None
+             ) -> torch.Tensor:
+        """Set this update's rate, then ``apply()`` (or ``apply``, a
+        replay of its CUDA graph in R2D1's update), then count the
+        update."""
+        for group in self.inner.param_groups:
+            group["lr"] = self.lr(self.count)
+        norm = (apply or self.apply)()
+        self.count += 1
+        return norm
+
+    def apply(self) -> torch.Tensor:
+        """The step's device work at the rate set: the gradients summed
+        over the ranks and clipped, then the inner optimizer's step.
+        It changes no host state, so a CUDA graph can hold it."""
         grads = [p.grad for p in self.params]
         self.reduce_grads(grads)
         if self.clip_grad_norm is not None:
             norm = clip_by_global_norm_(grads, self.clip_grad_norm)
         else:
             norm = global_norm(grads)
-        for group in self.inner.param_groups:
-            group["lr"] = self.lr(self.count)
         self.inner.step()
-        self.count += 1
         return norm
 
     def state_dict(self) -> dict:
@@ -152,9 +167,17 @@ class Optimizer:
 
     def load_state_dict(self, state: dict):
         """Load ``state_dict()``; the moments of a parameter split over
-        'mp', saved whole, are cut to this rank's shard."""
+        'mp', saved whole, are cut to this rank's shard.  The kernel
+        settings (``fused``, ``capturable``, ``foreach``) stay this
+        optimizer's, whatever the saving one used: they follow the device
+        (R2D1's on a card), and the step counts are placed by them."""
         self.count = int(state["count"])
-        self.inner.load_state_dict(state["inner"])
+        inner = dict(state["inner"])
+        inner["param_groups"] = [
+            {**saved, **{k: group[k] for k in _KERNEL_SETTINGS if k in group}}
+            for saved, group in zip(inner["param_groups"],
+                                    self.inner.param_groups)]
+        self.inner.load_state_dict(inner)
         for p in self.params:
             if is_sharded(p):
                 moments = self.inner.state[p]

@@ -12,6 +12,11 @@
   ``algos/base.py:make_optimizer``; hard target copy every
   ``target_update_interval`` updates.
 
+On a card (``r2d1_graph.update_graphable``) an update replays CUDA
+graphs around the eager LSTM calls (``r2d1_graph.UpdateGraphs``),
+captured after the first update, which runs eagerly; Adam is the fused
+kernel there, for the eager updates too, so both give the same numbers.
+
 Per iteration: append the [T, B] batch, then, once ``min_steps_learn``
 env steps have been taken, ``updates_per_optimize`` updates.
 """
@@ -23,6 +28,7 @@ import torch
 
 from rlpyt_tpu_torch.algos.base import RlAlgorithm, make_optimizer
 from rlpyt_tpu_torch.algos.dqn import OptInfo
+from rlpyt_tpu_torch.algos.r2d1_graph import UpdateGraphs, update_graphable
 from rlpyt_tpu_torch.ops.returns import discount_return_n_step, \
     valid_from_done
 from rlpyt_tpu_torch.ops.value import huber_loss, polyak_update, \
@@ -36,7 +42,7 @@ from rlpyt_tpu_torch.replay.sequence import (
     UniformSequenceReplayBuffer,
 )
 from rlpyt_tpu_torch.struct import select_at_indexes, tree_map
-from rlpyt_tpu_torch.utils.profiling import span, spanned
+from rlpyt_tpu_torch.utils.profiling import count, span, spanned
 
 
 class R2D1(RlAlgorithm):
@@ -118,10 +124,16 @@ class R2D1(RlAlgorithm):
         self.updates_per_optimize = max(1, int(
             self.replay_ratio * batch_spec.size
             / (self.batch_b * self.batch_T)))
+        # Fixed from here: the update's graphs and the Adam they hold.
+        self._graphable = update_graphable(agent.device, self.shard,
+                                           self.model.parameters())
         self.optimizer = make_optimizer(
             self.model.parameters(), self.learning_rate,
-            self.clip_grad_norm, "adam", shard=self.shard, eps=1e-3)
+            self.clip_grad_norm, "adam", shard=self.shard, eps=1e-3,
+            **(dict(fused=True, capturable=True) if self._graphable
+               else {}))
         self.update_counter = 0
+        self._graphs, self._stepped = None, False
         if self.frame_compress:
             Cls = (PrioritizedSequenceFrameReplayBuffer
                    if self.prioritized_replay
@@ -180,18 +192,13 @@ class R2D1(RlAlgorithm):
         (scalar loss, priorities [b])."""
         model, target_model = self.model, self.target_model
         wT, T, n = self.warmup_T, self.batch_T, self.n_step
-        # done[t] ends the episode at t: reset the LSTM before t+1.
-        done_shifted = torch.cat([torch.zeros_like(batch.done[:1]),
-                                  batch.done[:-1]], dim=0)
+        done_shifted = self.shifted_done(batch.done)
 
         def inputs(lo, hi):
             return (batch.observation[lo:hi], batch.prev_action[lo:hi],
                     batch.prev_reward[lo:hi])
 
-        online_state = batch.init_rnn_state
-        if self.zero_state_init:
-            online_state = tree_map(torch.zeros_like, online_state)
-        target_state = online_state
+        online_state = target_state = self.initial_state(batch)
         if wT > 0:
             with torch.no_grad():
                 _, online_state = model(*inputs(0, wT), online_state,
@@ -203,6 +210,27 @@ class R2D1(RlAlgorithm):
         with torch.no_grad():
             qt_full, _ = target_model(*inputs(wT, W), target_state,
                                       done_shifted[wT:W])
+        return self.td_loss(batch, q_full, qt_full)
+
+    @staticmethod
+    def shifted_done(done: torch.Tensor) -> torch.Tensor:
+        """The LSTM's resets of a window: done[t] ends the episode at t,
+        so the state resets before t+1."""
+        return torch.cat([torch.zeros_like(done[:1]), done[:-1]], dim=0)
+
+    def initial_state(self, batch: SequenceSamples):
+        """The state both networks' burn-in starts from: the stored one,
+        or zeros with ``zero_state_init``."""
+        if self.zero_state_init:
+            return tree_map(torch.zeros_like, batch.init_rnn_state)
+        return batch.init_rnn_state
+
+    def td_loss(self, batch: SequenceSamples, q_full, qt_full):
+        """The loss and priorities from the online and the target
+        network's Q-values over the window after the burn-in ([T + n, b,
+        A] each): double-DQN n-step targets under value rescaling."""
+        wT, T, n = self.warmup_T, self.batch_T, self.n_step
+        with torch.no_grad():
             if self.double_dqn:
                 next_a = torch.argmax(q_full[n:n + T], dim=-1)
                 next_q = select_at_indexes(next_a, qt_full[n:n + T])
@@ -234,25 +262,56 @@ class R2D1(RlAlgorithm):
 
     @spanned("update")
     def update(self, batch: SequenceSamples) -> OptInfo:
-        """One gradient step, the target rule and the priority write-back.
-        Spans: ``update``, and in it ``update.loss``, ``update.backward``,
-        ``update.step`` (the optimizer's step and the target rule) and
-        ``replay.update_priorities``."""
+        """One gradient step, the target rule and the priority write-back,
+        eager or from the update's graphs (``_update_graphs``).  Spans:
+        ``update``, and in it ``update.capture`` (once a capture),
+        ``update.loss``, ``update.backward``, ``update.step`` (the
+        optimizer's step and the target rule) and
+        ``replay.update_priorities``.  Counters, one an update:
+        ``update.graph_replays`` or ``update.eager``."""
+        graphs = self._update_graphs(batch)
         with span("update.loss"):
-            loss, priorities = self.loss(batch)
+            loss, priorities = (self.loss(batch) if graphs is None
+                                else graphs.loss(batch))
         with span("update.backward"):
             self.optimizer.zero_grad()
             loss.backward()
         with span("update.step"):
-            grad_norm = self.optimizer.step()
+            grad_norm = (self.optimizer.step() if graphs is None
+                         else self.optimizer.step(graphs.apply))
             self.update_counter += 1
             if self.update_counter % self.target_update_interval == 0:
                 polyak_update(self.target_model, self.model, 1.0)
+        if graphs is None:
+            self._stepped = True
+        else:
+            # The graphs' outputs: the next replay overwrites them.
+            loss, grad_norm = loss.detach().clone(), grad_norm.clone()
         with span("replay.update_priorities"):
             self.replay.update_priorities(batch.slots, priorities)
         loss, mean_priority = self._whole(
             loss.detach(), self._mean(priorities, n=self.batch_b))
         return OptInfo(loss, grad_norm, mean_priority)
+
+    def _update_graphs(self, batch: SequenceSamples):
+        """The update's graphs, or None for an eager update.  They engage
+        where ``update_graphable`` held at ``initialize``, once this
+        algorithm has made an eager update (since ``initialize`` or
+        ``load_state_dict``), and are captured then, with ``batch``."""
+        graphs = None
+        if self._graphable:
+            if self._graphs is None and self._stepped:
+                with span("update.capture"):
+                    self._graphs = UpdateGraphs(self, batch)
+            graphs = self._graphs
+        count("update.eager" if graphs is None else "update.graph_replays")
+        return graphs
+
+    def load_state_dict(self, state: dict):
+        super().load_state_dict(state)
+        # Adam's moments are new tensors: capture again after an eager
+        # update.
+        self._graphs, self._stepped = None, False
 
     @spanned("optimize")
     def optimize(self, samples, rollout_state) -> OptInfo:

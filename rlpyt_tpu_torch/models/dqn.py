@@ -212,18 +212,25 @@ class AtariR2d1Model(nn.Module):
 
     def forward(self, observation, prev_action, prev_reward,
                 rnn_state: RnnState, done=None):
-        lead_dim, T, B, img_shape = infer_leading_dims(observation, 3)
+        lead_dim, T, B, _ = infer_leading_dims(observation, 3)
+        lstm_in = self.lstm_input(observation, prev_action, prev_reward)
+        done_tb = (torch.zeros((T, B), dtype=torch.bool,
+                               device=lstm_in.device)
+                   if done is None else done.reshape(T, B))
+        y, next_state = self.lstm(lstm_in, done_tb, rnn_state)
+        q = self.head(y.flatten(0, 1))
+        return restore_leading_dims(q, lead_dim, T, B), next_state
+
+    def lstm_input(self, observation, prev_action, prev_reward):
+        """The LSTM's input [T, B, F]: the trunk's features, the one-hot
+        previous action and the previous reward."""
+        _, T, B, img_shape = infer_leading_dims(observation, 3)
         x = self._trunk(observation.reshape((T * B,) + img_shape))
         x = x.flatten(1).unflatten(0, (T, B))
         pa = F.one_hot(prev_action.reshape(T, B).long(),
                        self.n_actions).to(x.dtype)
         pr = prev_reward.reshape(T, B, 1).to(x.dtype)
-        lstm_in = torch.cat([x, pa, pr], dim=-1)
-        done_tb = (torch.zeros((T, B), dtype=torch.bool, device=x.device)
-                   if done is None else done.reshape(T, B))
-        y, next_state = self.lstm(lstm_in, done_tb, rnn_state)
-        q = self.head(y.flatten(0, 1))
-        return restore_leading_dims(q, lead_dim, T, B), next_state
+        return torch.cat([x, pa, pr], dim=-1)
 
     def _trunk(self, frames):
         if profiling.active() is None:
@@ -284,15 +291,22 @@ class R2d1MlpModel(nn.Module):
 
     def forward(self, observation, prev_action, prev_reward,
                 rnn_state: RnnState, done=None):
-        lead_dim, T, B, obs_shape = infer_leading_dims(observation, 1)
+        lead_dim, T, B, _ = infer_leading_dims(observation, 1)
+        lstm_in = self.lstm_input(observation, prev_action, prev_reward)
+        done_tb = (torch.zeros((T, B), dtype=torch.bool,
+                               device=lstm_in.device)
+                   if done is None else done.reshape(T, B))
+        y, next_state = self.lstm(lstm_in, done_tb, rnn_state)
+        q = self.head(y.flatten(0, 1))
+        return restore_leading_dims(q, lead_dim, T, B), next_state
+
+    def lstm_input(self, observation, prev_action, prev_reward):
+        """The LSTM's input [T, B, F]: the MLP's features, the one-hot
+        previous action and the previous reward."""
+        _, T, B, obs_shape = infer_leading_dims(observation, 1)
         x = self.mlp(observation.reshape(T, B, obs_shape[0])
                      .to(torch.float32))
         pa = F.one_hot(prev_action.reshape(T, B).long(),
                        self.n_actions).to(x.dtype)
         pr = prev_reward.reshape(T, B, 1).to(x.dtype)
-        done_tb = (torch.zeros((T, B), dtype=torch.bool, device=x.device)
-                   if done is None else done.reshape(T, B))
-        y, next_state = self.lstm(torch.cat([x, pa, pr], dim=-1), done_tb,
-                                  rnn_state)
-        q = self.head(y.flatten(0, 1))
-        return restore_leading_dims(q, lead_dim, T, B), next_state
+        return torch.cat([x, pa, pr], dim=-1)

@@ -27,6 +27,7 @@ import torch
 
 from rlpyt_tpu_torch.struct import buffer_from_example, tree_map, \
     tree_select
+from rlpyt_tpu_torch.utils import cuda_graphs
 from rlpyt_tpu_torch.utils.profiling import count, span, spanned
 
 EVAL_CHECK_STEPS = 16   # evaluate() reads its trajectory count this often
@@ -424,8 +425,8 @@ class _StepGraph:
             self._body()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
+        with cuda_graphs.capture(graph, stream=side,
+                                 capture_error_mode="thread_local"):
             self._body()
         main.wait_stream(side)
         return graph

@@ -7,6 +7,7 @@ port's span-and-counter recorder.
   returns one shared null context and ``count`` returns at once;
   ``backward_span(y, leaves, name)``: a span around the backward
   from ``y`` to ``leaves``, likewise only while a recorder is on;
+  ``paused()``: none of them inside a block;
 - ``trace(log_dir)``: ``torch.profiler`` over the host and the card,
   written as a Chrome trace (open in Perfetto or chrome://tracing), the
   recorder on, its spans in the trace under their own names and the
@@ -323,6 +324,19 @@ def recording():
     rec = start()
     try:
         yield rec
+    finally:
+        _recorder = before
+
+
+@contextmanager
+def paused():
+    """No span or count inside the block, from any thread; whatever
+    recorder was on is on again after it.  Around a CUDA graph's body,
+    whose Python runs at its capture alone."""
+    global _recorder
+    before, _recorder = _recorder, None
+    try:
+        yield
     finally:
         _recorder = before
 
