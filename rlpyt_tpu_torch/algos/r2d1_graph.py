@@ -34,33 +34,29 @@ The pieces, in the order an update runs them:
 The graphs read and write static tensors: the batch, the inputs copied
 in from the eager LSTM calls, the parameters, their ``.grad`` and Adam's
 moments.  They are captured once an update has run eagerly (it creates
-Adam's moments and loads every kernel), in the order they replay, into
-one memory pool, on a side stream, after one warm-up run of the forward
-and backward pieces whose cached blocks are freed before the capture.
-Neither advances the run: both read the parameters and write only the
-pieces' own tensors.  The graphed update gives the eager update's
-numbers bit for bit.
+Adam's moments and loads every kernel), in the order they replay, by one
+``utils/cuda_graphs.py:Capturer``, after one warm-up run of the forward
+and backward pieces.  Neither advances the run: both read the parameters
+and write only the pieces' own tensors.  The graphed update gives the
+eager update's numbers bit for bit.
 
-The bodies' spans and counts are recorded at the capture alone, so the
-trunk's (``AtariR2d1Model``: span ``model.trunk``, its backward
-``model.trunk_bwd``, counter ``model.trunk`` by (gradient on, frames))
-are recorded around the replays that run it: ``burn_in``'s and
-``window``'s forward and ``window``'s backward, each span holding the
-whole piece, the trunk and the LSTM input's assembly (``window``'s also
-the burn-in's heads), and the counter counting the trunk calls inside.
+A piece's Python runs at the warm-up and the capture alone, so whatever
+the model records of it (``utils/profiling.py``) is learned at the
+warm-up and recorded again at each replay: the counts the body made, and
+spans of the names of its root spans, around the whole replay (the
+model's work and the rest of the piece).
 """
 from __future__ import annotations
 
-from contextlib import nullcontext
-from typing import Callable, Optional, Tuple
+import threading
+from contextlib import ExitStack, contextmanager, nullcontext
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from rlpyt_tpu_torch.models.dqn import AtariR2d1Model
 from rlpyt_tpu_torch.parallel.mesh import is_sharded
 from rlpyt_tpu_torch.struct import restore_leading_dims, tree_map
-from rlpyt_tpu_torch.utils import cuda_graphs
+from rlpyt_tpu_torch.utils import cuda_graphs, profiling
 from rlpyt_tpu_torch.utils.profiling import count, paused, span
 
 
@@ -73,38 +69,29 @@ def update_graphable(device, shard, params) -> bool:
             and not any(is_sharded(p) for p in params))
 
 
-class _Capturer:
-    """Warm-up and capture on a side stream of ``device``, every graph in
-    one memory pool; ``close`` joins the side stream to the current one.
-    The captures are thread-local, as other threads may use the card
-    meanwhile (an asynchronous runner's sampler)."""
+class _Listener(profiling.Recorder):
+    """The recorder of a piece's warm-up: it hears the calling thread and
+    the autograd engine's own threads (which run a card's backward), no
+    other thread of the program (an asynchronous runner's actor), and
+    opens no profiler range."""
 
-    def __init__(self, device):
-        self.device = device
-        self.main = torch.cuda.current_stream(device)
-        self.side = torch.cuda.Stream(device)
-        self.side.wait_stream(self.main)
-        self.pool = torch.cuda.graph_pool_handle()
+    def __init__(self):
+        super().__init__()
+        self._owner = threading.get_ident()
+        self._profiler_enabled = lambda: False
 
-    def warm(self, fn: Callable[[], None]):
-        """``fn`` on the side stream, after the current stream's work,
-        then its cached blocks freed."""
-        self.side.wait_stream(self.main)
-        with torch.cuda.stream(self.side):
-            fn()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
+    def _hears(self) -> bool:
+        # A thread that Python did not start (the engine's) is a dummy.
+        return (threading.get_ident() == self._owner
+                or isinstance(threading.current_thread(),
+                              threading._DummyThread))
 
-    def capture(self, body: Callable[[], None]) -> Callable[[], None]:
-        """``body`` as a CUDA graph: the graph's replay."""
-        graph = torch.cuda.CUDAGraph()
-        with cuda_graphs.capture(graph, pool=self.pool, stream=self.side,
-                                 capture_error_mode="thread_local"):
-            body()
-        return graph.replay
+    def span(self, name: str):
+        return super().span(name) if self._hears() else nullcontext()
 
-    def close(self):
-        self.main.wait_stream(self.side)
+    def count(self, name: str, key=None, n: int = 1):
+        if self._hears():
+            super().count(name, key, n)
 
 
 class _Piece:
@@ -119,24 +106,48 @@ class _Piece:
     graphs' static outputs: the next replay overwrites them.  ``outs``
     hold no autograd graph: the forward's graph lives until the backward
     has run (or been captured), so no node of it outlives the capture.
-    The bodies run with the recorder paused: their Python runs at the
-    capture alone.  Each replay of the forward (``play``) runs in span
-    ``spans[0]`` and counts ``counts`` ((name, key, n) each), each replay
-    of the backward (``play_backward``) in span ``spans[1]``."""
+    A body's first run (the warm-up) is under a ``_Listener``, which
+    learns what it records (``heard``: its root spans' names, its
+    counts); later runs (the capture) record nothing.  Each replay of the
+    forward (``play``) or the backward (``play_backward``) adds that
+    body's counts and runs in spans of those names."""
 
-    def __init__(self, fn, inputs=(), params=(),
-                 spans: Tuple[Optional[str], Optional[str]] = (None, None),
-                 counts=()):
+    def __init__(self, fn, inputs=(), params=()):
         self.fn, self.inputs, self.params = fn, tuple(inputs), tuple(params)
-        self.spans, self.counts = spans, tuple(counts)
         self.leaves = [x for x in self.inputs + self.params
                        if x.requires_grad]
         self.outs = self.grads = self._graph = None
         self.differentiable, self.grad_outs = [], []
         self.replay = self.replay_backward = None
+        self.heard = {}
+
+    @contextmanager
+    def _listening(self, phase: str):
+        """A body's run of ``phase`` ("forward" or "backward"), paused;
+        the first under a listener (yields whether it listens)."""
+        with paused():
+            if phase in self.heard:
+                yield False
+                return
+            rec = profiling.start(_Listener())
+            yield True
+        self.heard[phase] = (
+            list(dict.fromkeys(r.name for r in rec.spans()
+                               if r.parent is None)), rec.counts)
+
+    def _play(self, phase: str, replay):
+        names, counts = self.heard[phase]
+        for name, by_key in counts.items():
+            for key, n in by_key.items():
+                count(name, key, n)
+        with ExitStack() as stack:
+            for name in names:
+                stack.enter_context(span(name))
+            replay()
 
     def forward(self):
-        with paused(), torch.set_grad_enabled(bool(self.leaves)):
+        with self._listening("forward"), \
+                torch.set_grad_enabled(bool(self.leaves)):
             outs = self.fn(*self.inputs)
         outs = outs if isinstance(outs, tuple) else (outs,)
         self.differentiable = [o.requires_grad for o in outs]
@@ -144,10 +155,22 @@ class _Piece:
         self.outs = tuple(o.detach() for o in outs)
 
     def backward(self):
-        with paused():
-            self.grads = torch.autograd.grad(self._graph, self.leaves,
-                                             self.grad_outs,
-                                             allow_unused=True)
+        with self._listening("backward") as warm_up:
+            if not warm_up:
+                self.grads = torch.autograd.grad(self._graph, self.leaves,
+                                                 self.grad_outs,
+                                                 allow_unused=True)
+            else:
+                # What the model records of a backward may close on hooks
+                # of its leaves, which ``autograd.grad`` cannot run: the
+                # warm-up accumulates into ``.grad``, set aside meanwhile.
+                kept = [x.grad for x in self.leaves]
+                for x in self.leaves:
+                    x.grad = None
+                torch.autograd.backward(self._graph, self.grad_outs,
+                                        inputs=self.leaves)
+                for x, g in zip(self.leaves, kept):
+                    x.grad = g
         self._graph = None
 
     def load(self, live):
@@ -156,14 +179,10 @@ class _Piece:
                 x.copy_(v)
 
     def play(self):
-        for name, key, n in self.counts:
-            count(name, key, n)
-        with span(self.spans[0]) if self.spans[0] else nullcontext():
-            self.replay()
+        self._play("forward", self.replay)
 
     def play_backward(self):
-        with span(self.spans[1]) if self.spans[1] else nullcontext():
-            self.replay_backward()
+        self._play("backward", self.replay_backward)
 
 
 class _Replay(torch.autograd.Function):
@@ -221,18 +240,9 @@ class UpdateGraphs:
             return torch.zeros((T, b, H), device=dev, requires_grad=grad)
 
         params = tuple(algo.model.parameters())
-        # The trunk's spans and counts, which the bodies record at the
-        # capture alone.
-        trunk = isinstance(algo.model, AtariR2d1Model)
-        spans = ("model.trunk", "model.trunk_bwd") if trunk else (None, None)
-        self.burn_in = _Piece(
-            self._burn_in, spans=spans if wT else (None, None),
-            counts=[("model.trunk", (False, wT * b), 2)] if trunk and wT
-            else ())
-        self.window = _Piece(
-            self._window, (y(wT), y(wT)) if wT else (), params, spans,
-            [("model.trunk", (grad, rows * b), 1) for grad in (True, False)]
-            if trunk else ())
+        self.burn_in = _Piece(self._burn_in)
+        self.window = _Piece(self._window, (y(wT), y(wT)) if wT else (),
+                             params)
         self.tail = _Piece(self._tail, (y(rows, True), y(rows)), params)
         self.step = _Piece(algo.optimizer.apply)
         self._capture(dev)
@@ -240,7 +250,7 @@ class UpdateGraphs:
     def _capture(self, device):
         pieces = (self.burn_in, self.window, self.tail)
         differentiable = [p for p in reversed(pieces) if p.leaves]
-        cap = _Capturer(device)
+        cap = cuda_graphs.Capturer(device)
 
         def forward():
             for p in pieces:

@@ -27,8 +27,10 @@ path, so every algorithm of the port runs on host envs unchanged.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import itertools
 import math
 import queue
 import threading
@@ -143,6 +145,14 @@ def _stack(trees, dim: int = 0):
     return tree_map(lambda *xs: torch.stack(xs, dim), *trees)
 
 
+def _cat(trees, dim: int = 0):
+    """Concatenate a list of trees leafwise; a list of one is its tree,
+    uncopied."""
+    if len(trees) == 1:
+        return trees[0]
+    return tree_map(lambda *xs: torch.cat(xs, dim), *trees)
+
+
 class _Half:
     """The host records of one farm (or half of a paired farm) over a
     batch: [T, B_h] buffers, pinned when the runner's device is CUDA,
@@ -230,11 +240,16 @@ class HostMinibatchRl:
         B = self.batch_spec.B
         obs0 = tmap(lambda x: x.to(self.device),
                     self._to_device(self.vec.reset()))
-        # A batch rewrites the records only once the copies of the batch
-        # before out of them have landed (``_recs_free``).
-        self._recs = [_Half(self, v, self.batch_spec.T) for v in (
-            self.vec.halves if isinstance(self.vec, PairedVecEnv)
-            else [self.vec])]
+        # The farm's halves: a paired farm's two, stepped out of phase, or
+        # the farm itself; each has its lanes, its records and its carry
+        # bank.  A batch rewrites the records only once the copies of the
+        # batch before out of them have landed (``_recs_free``).
+        self._halves = (self.vec.halves if isinstance(self.vec, PairedVecEnv)
+                        else (self.vec,))
+        edges = list(itertools.accumulate((h.B for h in self._halves),
+                                          initial=0))
+        self._slices = [slice(a, b) for a, b in zip(edges, edges[1:])]
+        self._recs = [_Half(self, h, self.batch_spec.T) for h in self._halves]
         self._recs_free = None
         self.n_itr = max(1, math.ceil(self.n_steps / self.batch_spec.size))
         self.itrs_per_interval = max(
@@ -244,10 +259,7 @@ class HostMinibatchRl:
         self._prev_action = np.broadcast_to(
             self._act_null, (B,) + self._act_null.shape).copy()
         self._prev_reward = np.zeros((B,), np.float32)
-        self._carry = self.agent.init_carry(B)
-        if isinstance(self.vec, PairedVecEnv):
-            self._alt_carry = [self.agent.init_carry(h.B)
-                               for h in self.vec.halves]
+        self._carries = [self.agent.init_carry(h.B) for h in self._halves]
         self._actor = self.agent
         self._cum_steps = 0
         self._n_evals = 0
@@ -316,98 +328,37 @@ class HostMinibatchRl:
             carry = self.agent.reset_carry_where(done_dev, carry)
         return carry
 
+    @spanned("collect")
     def _collect_batch(self):
         """One [T, B] batch: the action-server loop (rlpyt
-        ActionServer.serve_actions ~L15).  Returns (Samples on the card,
-        HostRolloutState).  Spans: ``collect``, and each step's
-        ``collect.record`` (the record and the copies to the card it
-        enqueues), ``collect.agent``, ``collect.action_wait`` (the
-        action's copy to the host, waited on), the farm's ``farm.step``
-        and ``collect.after_step``."""
-        if isinstance(self.vec, PairedVecEnv):
-            return self._collect_batch_alternating()
-        with span("collect"):
-            return self._collect_lockstep()
-
-    def _collect_lockstep(self):
+        ActionServer.serve_actions ~L15) over the farm's halves.  A half's
+        step is launched (``dispatch``: its inputs recorded and copied to
+        the card, the agent step, the actions copied to pinned memory
+        behind an event), then landed (``land``: the event waited on, the
+        half's envs stepped, their outputs recorded).  One half lands each
+        step before the next is launched; two halves alternate (rlpyt
+        samplers/parallel/gpu/alternating_sampler.py:AlternatingSampler
+        ~L100), one half's envs stepping while the card runs the other's
+        inference, each half with a carry bank of its own (rlpyt
+        agents/base.py:AlternatingRecurrentAgentMixin ~L250).  Returns
+        (Samples on the card, HostRolloutState).  Spans: ``collect``, and
+        each half's step's ``collect.record`` (the record and the copies
+        to the card it enqueues), ``collect.agent``,
+        ``collect.action_wait`` (the wait for the action's copy to the
+        host), the farm's ``farm.step`` and ``collect.after_step``."""
         T, B = self.batch_spec
+        halves, recs, sl = self._halves, self._recs, self._slices
+        carries = self._carries
         self._land(self._recs_free)
-        rec = self._recs[0]
-        obs_dev = tmap(lambda b: self._empty(b[0].shape, b[0].dtype),
-                       rec.obs)
-        pa_dev = self._empty(rec.pa[0].shape, rec.pa[0].dtype)
-        pr_dev = self._empty((T, B))
-        done_dev = self._empty((T, B), torch.bool)
-        infos = []
-        sl = slice(0, B)
-        for t in range(T):
-            with span("collect.record"):
-                rec.record(t, self.vec.obs, self._prev_action,
-                           self._prev_reward)
-                tmap(lambda d, h: d[t].copy_(h[0][t], non_blocking=True),
-                     obs_dev, rec.obs)
-                pa_dev[t].copy_(rec.pa[0][t], non_blocking=True)
-                pr_dev[t].copy_(rec.pr[0][t], non_blocking=True)
-            with span("collect.agent"):
-                astep, self._carry = self._agent_step(
-                    tmap(lambda d: d[t], obs_dev), pa_dev[t], pr_dev[t],
-                    self._carry, self._cum_steps + t * B)
-            infos.append(astep.agent_info)
-            with span("collect.action_wait"):
-                self._land(self._fetch(rec.act[0][t], astep.action))
-            actions = rec.act[1][t]
-            _, rew, done, timeout = self.vec.step(actions)
-            with span("collect.after_step"):
-                rec.record_env(t, rew, done, timeout)
-                if self._carry is not None:
-                    done_dev[t].copy_(rec.done[0][t], non_blocking=True)
-                self._carry = self._after_step(
-                    sl, actions, rec.rew[1][t], rec.done[1][t],
-                    getattr(self.vec, "info", {}), self._carry, done_dev[t])
-        self._cum_steps += T * B
-        samples = Samples(
-            observation=obs_dev, action=self._h2d(rec.act[0]),
-            reward=self._h2d(rec.rew[0]), done=self._h2d(rec.done[0]),
-            prev_action=pa_dev, prev_reward=pr_dev,
-            agent_info=_stack(infos) if infos[0] else {},
-            env_info={"timeout": self._h2d(rec.to[0]),
-                      **{k: self._h2d(v[0]) for k, v in rec.info.items()}})
-        self._recs_free = self._mark()
-        return samples, self._rollout_state(self._carry)
 
-    def _rollout_state(self, carry) -> HostRolloutState:
-        return HostRolloutState(
-            observation=self._to_device(self.vec.obs),
-            prev_action=self._to_device(self._prev_action),
-            prev_reward=self._to_device(self._prev_reward),
-            agent_carry=carry, cum_steps=self._cum_steps)
+        def on_card(b):
+            """A record's [T, B] twin on the card."""
+            return self._empty((T, B) + tuple(b[0].shape[2:]), b[0].dtype)
 
-    # ------------------------------------------------------------------
-
-    @spanned("collect")
-    def _collect_batch_alternating(self):
-        """Alternating collection (rlpyt samplers/parallel/gpu/
-        alternating_sampler.py:AlternatingSampler ~L100): while the card
-        runs one half's inference, the other half's envs step.  A half's
-        step is launched (``dispatch``: inputs to the card, agent step,
-        actions copied to pinned memory behind an event), the other
-        half's envs are stepped, and only then is the event waited on
-        (``land``).  Recurrent agents keep a carry bank per half (rlpyt
-        agents/base.py:AlternatingRecurrentAgentMixin ~L250).  The spans
-        of ``_collect_batch``, for each half's step."""
-        T, Btot = self.batch_spec
-        halves = self.vec.halves
-        b_a = halves[0].B
-        sl = (slice(0, b_a), slice(b_a, Btot))
-        self._land(self._recs_free)
-        recs = self._recs
-        obs_dev = tmap(lambda b: self._empty(
-            (T, Btot) + tuple(b[0].shape[2:]), b[0].dtype), recs[0].obs)
-        pa_dev = self._empty((T, Btot) + self._act_null.shape,
-                             recs[0].pa[0].dtype)
-        pr_dev = self._empty((T, Btot))
-        done_dev = self._empty((T, Btot), torch.bool)
-        infos = ([], [])
+        obs_dev = tmap(on_card, recs[0].obs)
+        pa_dev, pr_dev, done_dev = (on_card(b) for b in (
+            recs[0].pa, recs[0].pr, recs[0].done))
+        infos = [[] for _ in halves]
 
         def dispatch(h, t):
             rec, s = recs[h], sl[h]
@@ -420,12 +371,11 @@ class HostMinibatchRl:
                 pa_dev[t, s].copy_(rec.pa[0][t], non_blocking=True)
                 pr_dev[t, s].copy_(rec.pr[0][t], non_blocking=True)
             with span("collect.agent"):
-                astep, self._alt_carry[h] = self._agent_step(
+                astep, carries[h] = self._agent_step(
                     tmap(lambda d: d[t, s], obs_dev), pa_dev[t, s],
-                    pr_dev[t, s], self._alt_carry[h],
-                    self._cum_steps + t * Btot)
+                    pr_dev[t, s], carries[h], self._cum_steps + t * B)
             infos[h].append(astep.agent_info)
-            return self._fetch(rec.act[0][t], astep.action)
+            return h, t, self._fetch(rec.act[0][t], astep.action)
 
         def land(h, t, event):
             with span("collect.action_wait"):
@@ -435,47 +385,53 @@ class HostMinibatchRl:
             _, rew, done, timeout = halves[h].step(actions)
             with span("collect.after_step"):
                 rec.record_env(t, rew, done, timeout)
-                if self._alt_carry[h] is not None:
+                if carries[h] is not None:
                     done_dev[t, s].copy_(rec.done[0][t], non_blocking=True)
-                self._alt_carry[h] = self._after_step(
+                carries[h] = self._after_step(
                     s, actions, rec.rew[1][t], rec.done[1][t],
-                    getattr(halves[h], "info", {}), self._alt_carry[h],
+                    getattr(halves[h], "info", {}), carries[h],
                     done_dev[t, s])
 
-        ev_a = dispatch(0, 0)
+        # A half's step t is launched once its step t - 1 has landed; the
+        # other half's step lands in between.
+        pending = collections.deque()
         for t in range(T):
-            ev_b = dispatch(1, t)        # card: half b, step t
-            land(0, t, ev_a)             # host: half a's envs
-            if t < T - 1:
-                ev_a = dispatch(0, t + 1)    # card: half a, step t + 1
-            land(1, t, ev_b)             # host: half b's envs
+            for h in range(len(halves)):
+                pending.append(dispatch(h, t))
+                if len(pending) == len(halves):
+                    land(*pending.popleft())
+        while pending:
+            land(*pending.popleft())
+        self._cum_steps += T * B
 
-        self._cum_steps += T * Btot
+        def joined(get):
+            """A record of every half, onto the card."""
+            return self._h2d(_cat([get(r)[0] for r in recs], 1))
 
-        def both(get):
-            return self._h2d(torch.cat([get(r)[0] for r in recs], dim=1))
-
-        agent_info = {}
-        if infos[0][0]:
-            agent_info = tree_map(lambda a, b: torch.cat([a, b], dim=1),
-                                  _stack(infos[0]), _stack(infos[1]))
-        env_info = {"timeout": both(lambda r: r.to)}
-        # Every farm info key (game_score, traj_done, ...): the schema of
-        # the non-alternating path.
+        # Every farm info key (game_score, traj_done, ...), from every half.
         keys = [set(r.info) for r in recs]
-        if keys[0] != keys[1]:
+        if any(k != keys[0] for k in keys):
             raise ValueError(
                 "alternating halves produced different env_info schemas: "
-                f"{sorted(keys[0])} vs {sorted(keys[1])}")
-        env_info.update({k: both(lambda r: r.info[k]) for k in recs[0].info})
+                + " vs ".join(str(sorted(k)) for k in keys))
         samples = Samples(
-            observation=obs_dev, action=both(lambda r: r.act),
-            reward=both(lambda r: r.rew), done=both(lambda r: r.done),
+            observation=obs_dev, action=joined(lambda r: r.act),
+            reward=joined(lambda r: r.rew), done=joined(lambda r: r.done),
             prev_action=pa_dev, prev_reward=pr_dev,
-            agent_info=agent_info, env_info=env_info)
+            agent_info=(_cat([_stack(i) for i in infos], 1) if infos[0][0]
+                        else {}),
+            env_info={"timeout": joined(lambda r: r.to),
+                      **{k: joined(lambda r: r.info[k])
+                         for k in recs[0].info}})
         self._recs_free = self._mark()
-        carry = tree_map(lambda a, b: torch.cat([a, b]), *self._alt_carry)
-        return samples, self._rollout_state(carry)
+        return samples, self._rollout_state(_cat(carries))
+
+    def _rollout_state(self, carry) -> HostRolloutState:
+        return HostRolloutState(
+            observation=self._to_device(self.vec.obs),
+            prev_action=self._to_device(self._prev_action),
+            prev_reward=self._to_device(self._prev_reward),
+            agent_carry=carry, cum_steps=self._cum_steps)
 
     # ------------------------------------------------------------------
 
@@ -624,10 +580,7 @@ class AsyncHostRl(HostMinibatchRl):
                 device=self._actor_device).manual_seed(self.seed)
             self.eval_generator = torch.Generator(
                 device=self._actor_device).manual_seed(self.seed + 2)
-            self._carry = actor.init_carry(self.batch_spec.B)
-            if isinstance(self.vec, PairedVecEnv):
-                self._alt_carry = [actor.init_carry(h.B)
-                                   for h in self.vec.halves]
+            self._carries = [actor.init_carry(h.B) for h in self._halves]
         self._learner_stream = (torch.cuda.Stream(self.device)
                                 if self.device.type == "cuda" else None)
         self._actor_stream = (torch.cuda.Stream(self._actor_device)

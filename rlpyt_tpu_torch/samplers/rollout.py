@@ -392,9 +392,9 @@ class _StepGraph:
     buffer ``buf``; one graph serves every step of a batch.  The
     generator is registered with the graph, so that each replay draws at
     the offsets the eager ops would have drawn at, after the agent's
-    eager draws.  The warm-up and the capture run on a copy of the state
-    they are given, and the generator's state is restored after them:
-    they advance nothing of the run."""
+    eager draws.  The warm-up and the capture (``cuda_graphs.Capturer``)
+    run on a copy of the state they are given, and the generator's state
+    is restored after them: they advance nothing of the run."""
 
     def __init__(self, collector: Collector, state: RolloutState,
                  agent_out, generator: torch.Generator):
@@ -410,26 +410,11 @@ class _StepGraph:
         _, out = collector._after_agent(self.carry, *self.inputs, generator)
         self.buf = buffer_from_example(out, (collector.batch_spec.T,),
                                        collector.device)
-        self.graph = self._capture()
+        cap = cuda_graphs.Capturer(collector.device)
+        cap.warm(self._body)
+        self.replay = cap.capture(self._body, generators=(generator,))
+        cap.close()
         generator.set_state(saved)
-
-    def _capture(self) -> "torch.cuda.CUDAGraph":
-        """Warm up on a side stream, then capture ``_body`` there.  The
-        capture is thread-local, as other threads may use the card
-        meanwhile (the learner of ``AsyncHostRl``, NCCL's)."""
-        device = self.collector.device
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._body()
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        with cuda_graphs.capture(graph, stream=side,
-                                 capture_error_mode="thread_local"):
-            self._body()
-        main.wait_stream(side)
-        return graph
 
     def _body(self):
         """What the graph holds: the step, the record written at ``t``,
@@ -454,7 +439,7 @@ class _StepGraph:
     def step(self, agent_out):
         """One step after the agent's, from its outputs."""
         tree_map(lambda d, x: d.copy_(x), self.inputs, agent_out)
-        self.graph.replay()
+        self.replay()
 
     def result(self, cum_steps: int) -> Tuple[RolloutState, Samples]:
         """Copies of the carry (with ``cum_steps``) and of the buffer, which

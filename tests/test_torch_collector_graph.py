@@ -27,6 +27,7 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+from _torch_graph_standin import eager_graphs
 
 from rlpyt_tpu_torch.agents.base import AgentStep, BaseAgent
 from rlpyt_tpu_torch.agents.dqn import DqnAgent, R2d1Agent
@@ -153,13 +154,9 @@ def collect_both(make_run, n_batches: int, reset_after=None):
 def on_cpu_graph(monkeypatch):
     """The graphed path on the CPU: the engagement rule says yes, and
     the graph's capture (its warm-up, then a stand-in for the graph) and
-    each replay are eager runs of ``_body``."""
-    def capture(self):
-        self._body()
-        return SimpleNamespace(replay=self._body)
-
+    each replay are eager runs of ``_body`` (``eager_graphs``)."""
     monkeypatch.setattr(rollout, "graph_capturable", lambda env, gen: True)
-    monkeypatch.setattr(rollout._StepGraph, "_capture", capture)
+    eager_graphs(monkeypatch)
 
 
 @pytest.fixture

@@ -331,7 +331,7 @@ def test_alternating_recurrent_two_carry_banks():
                                  batch_T=8, n_steps=64, seed=0,
                                  device="cpu")
         runner.startup()
-        assert len(runner._alt_carry) == 2
+        assert len(runner._carries) == 2
         samples, rollout_state = runner._collect_batch()
         for leaf in rollout_state.agent_carry:
             assert leaf.shape[0] == 4

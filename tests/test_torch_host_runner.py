@@ -174,6 +174,32 @@ def small_dqn(eval_vec=None, n_steps=256):
         device="cpu")
 
 
+def test_farm_step_wrapped_on_the_instance():
+    """A wrapper set on a single farm as an instance attribute ``step``
+    (as a benchmark wraps a layer's calls from outside, after
+    ``startup``) sees each of a batch's T steps: the collection looks
+    ``step`` up on the farm at each call."""
+    cls, kwargs = small_dqn()
+    runner = cls(**kwargs)
+    try:
+        runner.startup()
+        farm, calls = runner.vec, []
+        step = farm.step
+
+        def wrapped(actions):
+            calls.append(actions.shape)
+            return step(actions)
+
+        farm.step = wrapped
+        samples, _ = runner._collect_batch()
+        assert calls == [(B,)] * T
+        assert samples.action.shape[:2] == (T, B)
+        runner._collect_batch()
+        assert len(calls) == 2 * T
+    finally:
+        runner.vec.close()
+
+
 def test_eval_does_not_perturb_training_stream():
     """A run with evaluation after every interval ends with the same
     parameters as the same run without it."""

@@ -24,7 +24,10 @@ PORT_FILES = (sorted((ROOT / "rlpyt_tpu_torch").rglob("*.py"))
                  ROOT / "tests" / "test_torch_host_learning.py",
                  ROOT / "tests" / "test_torch_surface.py",
                  ROOT / "tests" / "test_torch_resnet_r2d1.py",
-                 ROOT / "tests" / "_torch_multihost_worker.py"])
+                 ROOT / "tests" / "_torch_multihost_worker.py",
+                 ROOT / "tests" / "_torch_graph_standin.py",
+                 ROOT / "tests" / "test_torch_collector_graph.py",
+                 ROOT / "tests" / "test_torch_r2d1_graph.py"])
 
 
 def imported_modules(path: Path):

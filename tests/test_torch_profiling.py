@@ -342,6 +342,57 @@ def test_host_collection_span_tree():
                 ["farm.worker"] * 2
 
 
+def test_paired_host_collection_span_tree():
+    """One batch of the host path over a paired farm, two spawned halves
+    of one worker each: under ``collect`` the halves' steps alternate,
+    each launched (``collect.record``, ``collect.agent``) before the
+    other half's step lands (``collect.action_wait``, the half's
+    ``farm.step`` with its worker's ``farm.worker``,
+    ``collect.after_step``), T steps of each half."""
+    from rlpyt_tpu_torch.envs.host import PairedVecEnv, SharedMemVecEnv
+    from rlpyt_tpu_torch.experiments.scripts.atari_dqn import (
+        build_runner,
+        make_env_fn,
+    )
+    over = {"env": {"fake": True},
+            "model": {"channels": (4, 4, 4), "lstm_size": 16,
+                      "fc_sizes": (32,)},
+            "agent": {"lstm_size": 16},
+            "algo": {"batch_b": 2, "batch_T": 8, "warmup_T": 4,
+                     "n_step_return": 2, "replay_size": 2000,
+                     "min_steps_learn": 48, "replay_ratio": 1.0},
+            "sampler": {"batch_T": 4, "batch_B": 4, "eval_n_envs": 0}}
+    r, config = build_runner("r2d1", seed=2, config_overrides=over,
+                             serial=True, device="cpu")
+    r.vec.close()
+    fns = [make_env_fn(config["env"], 2 + b) for b in range(4)]
+    r.vec = PairedVecEnv(SharedMemVecEnv(fns[:2], n_workers=1),
+                         SharedMemVecEnv(fns[2:], n_workers=1))
+    try:
+        r.startup()
+        r._collect_batch()
+        with profiling.recording() as rec:
+            r._collect_batch()
+    finally:
+        r.vec.close()
+    s = rec.spans()
+    assert [x.name for x in s if x.parent is None] == ["collect"]
+    T = 4
+    launch = ["collect.record", "collect.agent"]
+    land = ["collect.action_wait", "farm.step", "collect.after_step"]
+    assert [x.name for x in s if x.parent == 0] == (
+        launch * 2 + land + (launch + land) * (2 * T - 2) + land)
+    workers = []
+    for i, x in enumerate(s):
+        if x.name == "farm.step":
+            (worker,) = [k for k in s if k.parent == i]
+            assert worker.name == "farm.worker"
+            workers.append(worker.thread)
+    # The halves' farms step in turn, each by its own worker.
+    assert len(set(workers)) == 2
+    assert all(a != b for a, b in zip(workers, workers[1:]))
+
+
 RESNET_R2D1 = {
     "env": {"fake": True},
     "model": {"channels": (4, 4, 4), "feature_size": 16, "lstm_size": 16,

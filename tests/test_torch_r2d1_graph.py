@@ -12,7 +12,8 @@ On the CPU (tier 1):
   norms, mean and written priorities, parameters, target parameters and
   Adam's moments; the first update runs eagerly and the counters say so;
 - the graphed path counts the trunk's calls as the eager path does and
-  records its spans around the replays that run it;
+  records its spans around the replays that run it, as the pieces learn
+  them at the warm-up (``heard``), from their own thread alone;
 - each graphed update calls the LSTM module four times through its
   ``forward`` (wrapped as the benchmark wraps it) and runs its backward
   once;
@@ -20,15 +21,18 @@ On the CPU (tier 1):
   continues bit for bit;
 - a state saved by Adam of other kernel settings loads without changing
   this Adam's;
-- a capture runs with Python's cyclic garbage collector off.
+- a capture (``utils/cuda_graphs.py:Capturer``, stood in for by
+  ``_torch_graph_standin.py``) runs with Python's cyclic garbage
+  collector off.
 
 On the card (``cuda``; ``CUBLAS_WORKSPACE_CONFIG=:4096:8 python -m
 pytest --noconftest -m cuda tests/test_torch_r2d1_graph.py``): the same,
 with real graphs, at the MinAtar and the residual-trunk configs' widths
 and windows, under deterministic algorithms (cuDNN's convolution
-backward is not deterministic otherwise), and a state saved on the CPU
-resumed on the card through a capture, and no collection inside a
-capture.  The file imports no JAX.
+backward is not deterministic otherwise), the trunk's counts and spans
+(its backward's from the autograd engine's threads), a state saved on
+the CPU resumed on the card through a capture, and no collection inside
+a capture.  The file imports no JAX.
 """
 import copy
 import gc
@@ -37,9 +41,9 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+from _torch_graph_standin import eager_graphs
 
 from rlpyt_tpu_torch.agents.dqn import R2d1Agent
-from rlpyt_tpu_torch.algos import r2d1_graph
 from rlpyt_tpu_torch.algos.r2d1 import R2D1
 from rlpyt_tpu_torch.algos.r2d1_graph import update_graphable
 from rlpyt_tpu_torch.envs.base import EnvSpaces
@@ -80,26 +84,9 @@ CONFIGS = {
 # -- helpers --------------------------------------------------------------
 
 
-class EagerCapturer:
-    """The capture's stand-in: the warm-up runs, and each graph is its
-    body, run at each replay."""
-
-    def __init__(self, device):
-        pass
-
-    def warm(self, fn):
-        fn()
-
-    def capture(self, body):
-        return body
-
-    def close(self):
-        pass
-
-
 @pytest.fixture
 def on_cpu_graph(monkeypatch):
-    monkeypatch.setattr(r2d1_graph, "_Capturer", EagerCapturer)
+    eager_graphs(monkeypatch)
 
 
 @pytest.fixture
@@ -336,6 +323,32 @@ def test_graphed_updates_record_the_trunk(on_cpu_graph, cfg):
     assert spans(eager, "model.trunk_bwd") == N_UPDATES
 
 
+def test_warm_up_hears_its_own_thread_alone():
+    """A piece's warm-up learns what its own thread records (and the
+    autograd engine's threads, which Python did not start), not what
+    another thread of the program records meanwhile (an asynchronous
+    runner's actor), and opens no profiler range."""
+    import threading
+
+    from rlpyt_tpu_torch.algos.r2d1_graph import _Listener
+
+    rec = _Listener()
+
+    def other():
+        rec.count("other", 1)
+        with rec.span("other"):
+            pass
+
+    thread = threading.Thread(target=other)
+    thread.start()
+    thread.join()
+    rec.count("own", 1)
+    with rec.span("own"):
+        pass
+    assert rec.counts == {"own": {1: 1}}
+    assert [(r.name, r.traced) for r in rec.spans()] == [("own", False)]
+
+
 def test_lstm_calls_per_graphed_update_on_the_cpu(on_cpu_graph):
     lstm_calls_per_update(TINY, "cpu")
 
@@ -382,31 +395,59 @@ def test_load_keeps_this_optimizers_kernel_settings():
 
 
 def test_capture_keeps_the_collector_off(monkeypatch):
-    """``cuda_graphs.capture`` turns the cyclic garbage collector off for
-    the capture alone (a dead graph freed inside a capture breaks it),
-    and leaves it as it found it, after an error too."""
+    """``cuda_graphs.Capturer.capture`` turns the cyclic garbage collector
+    off for the capture alone (a dead graph freed inside a capture breaks
+    it), and leaves it as it found it, after an error too; it captures on
+    its side stream, into its pool, thread-locally, with the generators
+    it is given registered, and returns the graph's replay."""
     seen = []
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def __init__(self):
+            self.generators = []
+
+        def register_generator_state(self, generator):
+            self.generators.append(generator)
+
+        def replay(self):
+            pass
 
     @contextmanager
     def graph(g, **kwargs):
         seen.append((g, kwargs, gc.isenabled()))
         yield
 
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: Stream())
+    monkeypatch.setattr(torch.cuda, "Stream", lambda d: Stream())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
     was = gc.isenabled()
     gc.enable()
     try:
-        with cuda_graphs.capture("graph", stream="side"):
-            assert not gc.isenabled()
-        assert gc.isenabled()
-        assert seen == [("graph", {"stream": "side"}, False)]
+        cap = cuda_graphs.Capturer("cuda")
+        inside = []
+        replay = cap.capture(lambda: inside.append(gc.isenabled()),
+                             generators=("generator",))
+        assert inside == [False] and gc.isenabled()
+        ((g, kwargs, enabled),) = seen
+        assert replay == g.replay and g.generators == ["generator"]
+        assert kwargs == {"pool": "pool", "stream": cap.side,
+                          "capture_error_mode": "thread_local"}
+        assert not enabled
+
+        def fails():
+            raise RuntimeError("in the body")
+
         with pytest.raises(RuntimeError):
-            with cuda_graphs.capture("graph"):
-                raise RuntimeError("in the body")
+            cap.capture(fails)
         assert gc.isenabled()
         gc.disable()
-        with cuda_graphs.capture("graph"):
-            pass
+        cap.capture(lambda: None)
         assert not gc.isenabled()
     finally:
         (gc.enable if was else gc.disable)()
@@ -422,6 +463,20 @@ def test_graphed_updates_equal_eager_on_the_card(deterministic, spec):
     rec, _ = graphed_against_eager(spec, deterministic, {})
     assert rec.total("update.eager") == 1
     assert rec.total("update.graph_replays") == N_UPDATES - 1
+
+
+@pytest.mark.cuda
+def test_graphed_updates_record_the_trunk_on_the_card(deterministic):
+    """On a card, where the backward runs on the autograd engine's
+    threads: the graphed path counts the trunk's calls as the eager path
+    does, with a ``model.trunk`` span around each replay of ``burn_in``
+    and ``window`` and a ``model.trunk_bwd`` span around ``window``'s
+    backward."""
+    rec, eager = graphed_against_eager(MINATAR, deterministic, {})
+    assert rec.counts["model.trunk"] == eager.counts["model.trunk"]
+    names = [r.name for r in rec.spans()]
+    assert names.count("model.trunk") == 4 + (N_UPDATES - 1) * 2
+    assert names.count("model.trunk_bwd") == N_UPDATES
 
 
 @pytest.mark.cuda
