@@ -1,25 +1,23 @@
-"""Spans and the profiler's trace, recorded from the benchmark's own files.
+"""The benchmark's own wrappers, and the profiler's trace.
 
 ``Spans`` wraps the calls into each layer of the program (on the object,
 for the traced run only) and records their host time, with the device
-synchronized at each span's end.  ``Ranges`` marks the same calls, and
-the LSTM's forward and backward, as profiler ranges.  ``summarize``
-reads a Chrome trace exported by ``torch.profiler``: the device's busy
-time, its top operations, the idle gaps by what the host was doing, and
-the device time of the kernels each named range launched.
+synchronized at each span's end.  ``summarize`` reads a Chrome trace
+exported by ``torch.profiler``: the device's busy time, its top
+operations and the idle gaps by what the host was doing, read from the
+program's spans where the recorder had them in the trace
+(``progtrace.py`` attributes device time to those spans).
 """
 from __future__ import annotations
 
-import bisect
 import json
 import time
 from collections import defaultdict
 
 import torch
-from torch.autograd.profiler import record_function
 
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+from progtrace import DEVICE_CATS
+
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 
 
@@ -66,70 +64,6 @@ class Spans(Patches):
         self.put(obj, attr, timed)
 
 
-class Ranges(Patches):
-    """Profiler ranges around the wrapped methods."""
-
-    def wrap(self, obj, attr: str, name: str):
-        orig = getattr(obj, attr)
-
-        def ranged(*args, **kwargs):
-            with record_function(name):
-                return orig(*args, **kwargs)
-
-        self.put(obj, attr, ranged)
-
-    def wrap_lstm(self, core):
-        """Ranges around an LSTM module's calls: ``bench.lstm_step`` at
-        T = 1, ``bench.lstm_train`` at T > 1, and ``bench.lstm_bwd`` from
-        the moment the gradient reaches the LSTM's output to the moment
-        it leaves through its input."""
-        orig = core.forward
-
-        def forward(x, done, state):
-            T = x.shape[0]
-            if T == 1:
-                with record_function("bench.lstm_step"):
-                    return orig(x, done, state)
-            box = {}
-            backward = torch.is_grad_enabled() and x.requires_grad
-            if backward:
-                x = _BackwardEnd.apply(x, box)
-            with record_function("bench.lstm_train"):
-                y, state = orig(x, done, state)
-            if backward:
-                y = _BackwardStart.apply(y, box)
-            return y, state
-
-        self.put(core, "forward", forward)
-
-
-class _BackwardStart(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, y, box):
-        ctx.box = box
-        return y.view_as(y)
-
-    @staticmethod
-    def backward(ctx, dy):
-        ctx.box["range"] = record_function("bench.lstm_bwd")
-        ctx.box["range"].__enter__()
-        return dy, None
-
-
-class _BackwardEnd(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, box):
-        ctx.box = box
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, dx):
-        rng = ctx.box.pop("range", None)
-        if rng is not None:
-            rng.__exit__(None, None, None)
-        return dx, None
-
-
 def _merged(intervals):
     out = []
     for s, e in sorted(intervals):
@@ -145,40 +79,40 @@ def _top(by_name: dict, n: int = 10):
             [:n]]
 
 
-def _host_label(stack) -> str:
-    """What the host was doing: the innermost benchmark range and the
+def _host_label(stack, spans) -> str:
+    """What the host was doing: the innermost program span and the
     innermost operation inside it."""
     if not stack:
         return "host: no traced operation"
-    bench = [e["name"] for e in stack if e["name"].startswith("bench.")]
+    program = [e["name"] for e in stack if e["name"] in spans]
     inner = stack[-1]["name"]
-    if bench and bench[-1] != inner:
-        return f"{bench[-1]} > {inner}"[:120]
+    if program and program[-1] != inner:
+        return f"{program[-1]} > {inner}"[:120]
     return inner[:120]
 
 
-def summarize(trace_path, ranges=()) -> dict:
-    """Read a Chrome trace of ``torch.profiler``.  Returns ``busy_s`` (the
-    union of device operations), ``device_ops`` and ``idle_gaps`` (top
-    10 [name, seconds]: device operations by total time, idle time by
-    what the host's main thread was doing), ``range_device_s`` (device
-    seconds of the operations launched inside each range of ``ranges``)
-    and ``n_device_ops``."""
+def summarize(trace_path, spans=()) -> dict:
+    """Read a Chrome trace of ``torch.profiler`` whose user ranges named
+    in ``spans`` are the program's spans.  Returns ``busy_s`` (the union
+    of device operations), ``device_ops`` and ``idle_gaps`` (top 10
+    [name, seconds]: device operations by total time, idle time by what
+    the host's main thread was doing) and ``n_device_ops``."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
+    spans = set(spans)
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
     busy = _merged((e["ts"], e["ts"] + e["dur"]) for e in dev)
     ops = defaultdict(float)
     for e in dev:
         ops[e["name"][:120]] += e["dur"] * 1e-6
 
-    # The host's main thread: the one that holds the benchmark's
-    # collection ranges (else the busiest).
+    # The host's main thread: the one that holds the program's collection
+    # spans (else the busiest).
     host = [e for e in events if e.get("cat") in HOST_CATS]
     tids = defaultdict(int)
     for e in host:
-        tids[e["tid"]] += 2 if e["name"].startswith("bench.collect") else 0
+        tids[e["tid"]] += 2 if e["name"] == "collect" else 0
         tids[e["tid"]] += 1e-9
     gaps = defaultdict(float)
     if tids and len(busy) > 1:
@@ -199,32 +133,7 @@ def summarize(trace_path, ranges=()) -> dict:
             while stack and stack[-1]["ts"] + stack[-1]["dur"] < mid:
                 stack.pop()
             live = [e for e in stack if e["ts"] + e["dur"] >= mid]
-            gaps[_host_label(live)] += length * 1e-6
-
-    range_s = {name: 0.0 for name in ranges}
-    if ranges:
-        spans = defaultdict(list)
-        for e in events:
-            if e.get("cat") == "user_annotation" and e["name"] in range_s:
-                spans[e["tid"]].append((e["ts"], e["ts"] + e["dur"],
-                                        e["name"]))
-        for v in spans.values():
-            v.sort()
-        starts = {t: [s for s, _, _ in v] for t, v in spans.items()}
-        owner = {}
-        for e in events:
-            if e.get("cat") not in LAUNCH_CATS or e["tid"] not in spans:
-                continue
-            corr = e.get("args", {}).get("correlation")
-            v = spans[e["tid"]]
-            # The named ranges of one thread follow each other.
-            k = bisect.bisect_right(starts[e["tid"]], e["ts"]) - 1
-            if k >= 0 and corr is not None and e["ts"] <= v[k][1]:
-                owner[corr] = v[k][2]
-        for e in dev:
-            name = owner.get(e.get("args", {}).get("correlation"))
-            if name is not None:
-                range_s[name] += e["dur"] * 1e-6
+            gaps[_host_label(live, spans)] += length * 1e-6
     return {"busy_s": sum(e - s for s, e in busy) * 1e-6,
             "device_ops": _top(ops), "idle_gaps": _top(gaps),
-            "range_device_s": range_s, "n_device_ops": len(dev)}
+            "n_device_ops": len(dev)}

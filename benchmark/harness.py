@@ -2,12 +2,14 @@
 
 ``run_cell`` builds the cell's trainer, fills the replay to the first
 learning iteration, runs that iteration with the check's capture, runs
-the warm iterations, then measures for ``seconds``.  With ``trace`` it
-splits the window into three stretches: plain iterations (the MFU), the
-same with synchronized spans at each layer (the layers' times), and a
-profiled stretch (the idle share, the device's top operations and idle
-gaps, the rooflines).  After the window it reads the memory peak, frees
-the trainer and runs the reference.
+the warm iterations, then measures for ``seconds``: the env steps over
+the window's wall time, and the learner's time, each optimize between
+two marks on the device's clock.  With ``trace`` it splits the window
+into four stretches: plain iterations (the MFU), the same with
+synchronized spans at each layer (the layers' times), the program's
+recorder on, and a profiled stretch (the idle share, the device's top
+operations and idle gaps, the rooflines).  After the window it reads the
+memory peak, frees the trainer and runs the reference.
 """
 from __future__ import annotations
 
@@ -20,17 +22,19 @@ from types import SimpleNamespace
 import torch
 
 import check
+import progtrace
 import work
-from devtrace import Ranges, Spans, summarize
+from devtrace import Spans, summarize
 from registry import Registry
 from trainer import Trainer
 
-LSTM_RANGES = ("bench.lstm_step", "bench.lstm_train", "bench.lstm_bwd")
 WARM_ITERATIONS = 1     # after the checked ones, before the window
-# The traced window: shares of plain and of spanned iterations, then at
-# most PROFILE_SECONDS (at least one iteration) under the profiler,
-# whose trace of a rr32 iteration alone holds some 10^5 events.
-PLAIN_SHARE, SPANS_SHARE, PROFILE_SECONDS = 0.4, 0.4, 1.0
+# The traced window: shares of plain, of spanned and of recorded
+# iterations, then at most PROFILE_SECONDS (at least one iteration) under
+# the profiler, whose trace of a rr32 iteration alone holds some 10^5
+# events.
+PLAIN_SHARE, SPANS_SHARE, RECORDED_SHARE = 0.4, 0.2, 0.2
+PROFILE_SECONDS = 1.0
 
 
 def _sync(device):
@@ -38,27 +42,63 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+class LearnerClock:
+    """The learner's time: each optimize between two marks, on the
+    device's clock on a card (CUDA events, read once the device has been
+    synchronized after them: from the device reaching the optimize's
+    first operation to its finishing the last), on the host's clock off
+    it, where an optimize has ended when it returns."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def _mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def start(self):
+        self.marks.append(self._mark())
+
+    def stop(self):
+        self.marks.append(self._mark())
+
+    def seconds(self, first: int = 0) -> float:
+        """Seconds of the optimizes from the ``first``-th on."""
+        m = self.marks[2 * first:]
+        pairs = zip(m[0::2], m[1::2])
+        if self.cuda:
+            return sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+        return sum(b - a for a, b in pairs)
+
+
 class Window:
     """Iterations of the trainer, each adding one to ``attempted`` and
     counting, on the device, those whose loss, gradient norm or mean
-    written priority is not finite."""
+    written priority is not finite; each optimize timed by ``learner``."""
 
     def __init__(self, trainer):
         self.trainer = trainer
         self.attempted = 0
         self.bad = torch.zeros((), dtype=torch.int64,
                                device=trainer.device)
+        self.learner = LearnerClock(trainer.device)
+        self.learner_s = 0.0
 
     def iterate(self):
-        info = self.trainer.iteration()
+        info = self.trainer.iteration(self.learner)
         self.bad += (~torch.isfinite(torch.stack(list(info)))).any()
         self.attempted += 1
 
     def run(self, seconds: float, at_least: int = 1):
         """Iterations until ``seconds`` have passed (at least
         ``at_least``), the device synchronized at both ends: (iterations,
-        wall seconds)."""
+        wall seconds).  ``learner_s``: the seconds of their optimizes."""
         dev = self.trainer.device
+        first = self.attempted
         _sync(dev)
         t0 = time.perf_counter()
         n = 0
@@ -66,7 +106,9 @@ class Window:
             self.iterate()
             n += 1
         _sync(dev)
-        return n, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        self.learner_s = self.learner.seconds(first)
+        return n, wall
 
 
 def _median_s(xs):
@@ -74,22 +116,29 @@ def _median_s(xs):
 
 
 def _profile(window: Window, seconds: float, tmpdir: str):
-    """A stretch of the window under torch.profiler (host and device):
-    (iterations, wall seconds, trace summary)."""
+    """A stretch of the window under torch.profiler (host and device) with
+    the program's recorder on: (iterations, wall seconds, trace summary,
+    attribution by program span, the recorder aligned to the trace)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from rlpyt_tpu_torch.utils import profiling
     dev = window.trainer.device
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        n, wall = window.run(seconds)
+    with profiling.recording() as rec:
+        with profile(activities=acts) as prof:
+            n, wall = window.run(seconds)
     fd, path = tempfile.mkstemp(suffix=".json", dir=tmpdir)
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
-        summary = summarize(path, LSTM_RANGES)
+        rec.align(path)
+        names = {r.name for r in rec.spans() if r.traced}
+        summary = summarize(path, names)
+        ops = progtrace.attribute(path, names)
     finally:
         os.remove(path)
-    return n, wall, summary
+    return n, wall, summary, ops, rec
 
 
 class Prepared:
@@ -172,8 +221,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         setup_s = time.perf_counter() - t_start
         if not trace:
             n, wall = window.run(seconds)
+            updates = n * getattr(trainer.algo, "updates_per_optimize", 1)
             values = {"env_steps_per_s":
                       n * trainer.steps_per_iteration / wall,
+                      "learner_update_ms": 1e3 * window.learner_s / updates,
                       "setup_s": setup_s}
             metrics = {m["name"]: {"value": values[m["name"]],
                                    "unit": m["unit"]}
@@ -216,11 +267,13 @@ def _layer_calls(trainer):
 
 
 def _traced_window(window, trainer, shapes, seconds, reg, name):
-    """The traced run's window: plain, spanned and profiled stretches;
-    the per-layer metrics of the cell (each reader's ``read``; those
-    that find nothing are left out)."""
+    """The traced run's window: plain, spanned, recorded and profiled
+    stretches; the per-layer metrics of the cell (each reader's
+    ``read``; those that find nothing are left out)."""
+    from rlpyt_tpu_torch.utils import profiling
     algo = trainer.algo
     n_plain, wall_plain = window.run(seconds * PLAIN_SHARE)
+    learner_plain = window.learner_s
 
     spans = Spans(sync=trainer.device.type == "cuda")
     for obj, attr, span in _layer_calls(trainer):
@@ -230,18 +283,14 @@ def _traced_window(window, trainer, shapes, seconds, reg, name):
     finally:
         spans.restore()
 
-    ranges = Ranges()
-    for obj, attr, span in _layer_calls(trainer):
-        ranges.wrap(obj, attr, "bench." + span)
-    for model in (algo.model, getattr(algo, "target_model", None)):
-        if hasattr(model, "lstm"):
-            ranges.wrap_lstm(model.lstm)
-    rest = seconds * (1 - PLAIN_SHARE - SPANS_SHARE)
-    try:
-        n_prof, wall_prof, summary = _profile(
-            window, min(rest, PROFILE_SECONDS), tempfile.gettempdir())
-    finally:
-        ranges.restore()
+    # The wrappers synchronize inside the program's spans (at each farm
+    # step of a collection), so the recorder has a stretch of its own.
+    with profiling.recording() as recorded:
+        window.run(seconds * RECORDED_SHARE)
+
+    rest = seconds * (1 - PLAIN_SHARE - SPANS_SHARE - RECORDED_SHARE)
+    n_prof, wall_prof, summary, ops, profiled = _profile(
+        window, min(rest, PROFILE_SECONDS), tempfile.gettempdir())
 
     ctx = SimpleNamespace(
         spans={k: list(v) for k, v in spans.times.items()},
@@ -249,8 +298,12 @@ def _traced_window(window, trainer, shapes, seconds, reg, name):
         updates_per_optimize=getattr(algo, "updates_per_optimize", 1),
         geometry=shapes.geometry, iteration=shapes.iteration, work=work,
         plain_iterations=n_plain, plain_wall_s=wall_plain,
+        plain_learner_s=learner_plain,
+        steps_per_iteration=trainer.steps_per_iteration,
+        program_spans=recorded.spans(),
         profiled_iterations=n_prof, profiled_wall_s=wall_prof,
-        busy_s=summary["busy_s"], range_device_s=summary["range_device_s"],
+        busy_s=summary["busy_s"], program_ops=ops,
+        span_device_s=ops.span_device_s, profiled_recorder=profiled,
         host=trainer.host)
     metrics = {}
     for m in reg.per_layer(name):

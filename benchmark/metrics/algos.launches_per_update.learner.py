@@ -1,0 +1,7 @@
+"""``algos.launches_per_update`` in the cells whose end-to-end metric is the learner's
+time, ``learner_update_ms``: the same reader, moving that metric."""
+from registry import sibling
+
+_BASE = sibling(__file__, "algos.launches_per_update")
+UNIT, LAYER, SOURCE, read = _BASE.UNIT, _BASE.LAYER, _BASE.SOURCE, _BASE.read
+MOVES = "learner_update_ms"

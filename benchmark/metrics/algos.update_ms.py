@@ -5,7 +5,7 @@ priorities included, the device synchronized at its end) over its
 UNIT = "ms"
 LAYER = "algos: algorithm"
 MOVES = "env_steps_per_s"
-SOURCE = "program_span"
+SOURCE = "host_clock"
 
 
 def read(ctx):

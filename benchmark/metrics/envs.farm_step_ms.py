@@ -4,8 +4,8 @@ envs stepped, the barrier), median of the spanned stretch's steps."""
 UNIT = "ms"
 LAYER = "envs: host farm"
 MOVES = "env_steps_per_s"
-SOURCE = "program_span"
-WORKLOADS = ["atari_r2d1.farm32"]
+SOURCE = "host_clock"
+WORKLOADS = ["atari_r2d1_resnet.farm32"]
 
 
 def read(ctx):

@@ -5,7 +5,7 @@ UNIT = "ms"
 LAYER = "envs: host farm"
 MOVES = "env_steps_per_s"
 SOURCE = "program_span"
-WORKLOADS = ["atari_r2d1.farm32"]
+WORKLOADS = ["atari_r2d1_resnet.farm32"]
 
 
 def read(ctx):

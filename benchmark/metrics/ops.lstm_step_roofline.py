@@ -1,8 +1,8 @@
 """Share of its roofline that the collection's one-step LSTM calls
 reach: the least time of their work (``work.lstm_step`` at the
 collection's (B, H, F), one call a collection step) over the device time
-of every operation launched inside those calls, in the profiled
-stretch."""
+of every operation launched inside the program's ``ops.lstm_step`` spans
+under the root ``collect``, in the profiled stretch."""
 UNIT = "%"
 LAYER = "ops: kernels"
 MOVES = "env_steps_per_s"
@@ -10,7 +10,9 @@ SOURCE = "device_trace"
 
 
 def read(ctx):
-    device_s = ctx.range_device_s.get("bench.lstm_step", 0.0)
+    import progtrace
+    device_s = progtrace.device_s(getattr(ctx, "span_device_s", {}),
+                                  ["ops.lstm_step"], root="collect")
     if device_s <= 0:
         return None
     w = ctx.work

@@ -2,17 +2,20 @@
 time of each update's LSTM calls (``work.update_lstm_calls``: the
 burn-in and window forwards of the online and the target network and
 the online window's backward) over the device time of every operation
-launched inside those calls and inside that backward, in the profiled
+launched inside the program's ``ops.input_proj``, ``ops.lstm_fwd`` and
+``ops.lstm_bwd`` spans under the root ``optimize``, in the profiled
 stretch."""
 UNIT = "%"
 LAYER = "ops: kernels"
 MOVES = "env_steps_per_s"
 SOURCE = "device_trace"
+SPANS = ("ops.input_proj", "ops.lstm_fwd", "ops.lstm_bwd")
 
 
 def read(ctx):
-    device_s = (ctx.range_device_s.get("bench.lstm_train", 0.0)
-                + ctx.range_device_s.get("bench.lstm_bwd", 0.0))
+    import progtrace
+    device_s = progtrace.device_s(getattr(ctx, "span_device_s", {}), SPANS,
+                                  root="optimize")
     if device_s <= 0:
         return None
     w = ctx.work

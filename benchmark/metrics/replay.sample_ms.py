@@ -5,7 +5,7 @@ synchronized at each draw's end."""
 UNIT = "ms"
 LAYER = "replay: sequence replay"
 MOVES = "env_steps_per_s"
-SOURCE = "program_span"
+SOURCE = "host_clock"
 
 
 def read(ctx):

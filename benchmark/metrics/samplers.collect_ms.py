@@ -5,7 +5,7 @@ collector, ``samplers/rollout.py:Collector.collect`` on the device path,
 UNIT = "ms"
 LAYER = "samplers: collector"
 MOVES = "env_steps_per_s"
-SOURCE = "program_span"
+SOURCE = "host_clock"
 
 
 def read(ctx):

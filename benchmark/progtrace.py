@@ -11,6 +11,10 @@ outermost span open at that moment on any thread (its root: ``collect``,
 autograd engine's thread of a card's backward) takes the innermost span
 of the other threads.  Roots are found by time, which suits runners
 whose threads do not overlap their roots (not ``AsyncHostRl``).  It
+sums each operation's device seconds into every span that holds its
+launch: the launching thread's open spans, and those of other threads
+opened before them (``update.backward`` on the main thread holds
+``ops.lstm_bwd`` on the autograd engine's), each span name once.  It
 also counts the synchronizing runtime and driver calls made inside
 program spans.  The span helpers read the records alone, and import
 the program only where it handed some: a checkout whose program records
@@ -42,13 +46,17 @@ class Attribution(NamedTuple):
     of the operations by outermost and by innermost program span; None
     for those launched outside every span), ``syncs`` (Counter of the
     synchronizing calls inside program spans, by call name) and
-    ``syncs_by_span`` (by innermost span)."""
+    ``syncs_by_span`` (by innermost span); ``span_device_s`` (Counter
+    of device seconds by (root, span name): the operations launched
+    inside each span, its nested spans and the spans of other threads
+    it holds included)."""
 
     device_ops: int
     by_root: Counter
     by_span: Counter
     syncs: Counter
     syncs_by_span: Counter
+    span_device_s: Counter
 
 
 def _events(trace):
@@ -75,7 +83,7 @@ def attribute(trace, span_names) -> Attribution:
             sweep.append((e["ts"], 1, e))
     sweep.sort(key=lambda x: (x[0], x[1]))
     stacks = {}      # thread -> its open program ranges, outermost first
-    owner = {}       # correlation id -> (innermost span, root span)
+    owner = {}       # correlation id -> (innermost span, root, held by)
     syncs, syncs_by_span = Counter(), Counter()
     for _, kind, e in sweep:
         tid = e.get("tid")
@@ -86,30 +94,45 @@ def attribute(trace, span_names) -> Attribution:
             del stack[next(i for i in range(len(stack) - 1, -1, -1)
                            if stack[i] is e)]
         else:
-            open_ = [s for s in stacks.values() if s]
-            if not open_:
+            own = stacks.get(tid) or []
+            others = [r for t, s in stacks.items() if t != tid for r in s]
+            if not own and not others:
                 continue
-            own = stacks.get(tid)
             inner = own[-1] if own else max(
-                (s[-1] for s in open_), key=lambda r: r["ts"])
-            root = min((s[0] for s in open_), key=lambda r: r["ts"])
+                (s[-1] for t, s in stacks.items() if t != tid and s),
+                key=lambda r: r["ts"])
+            if own:
+                others = [r for r in others if r["ts"] <= own[0]["ts"]]
+            held = own + others
+            root = min(held, key=lambda r: r["ts"])
             corr = e.get("args", {}).get("correlation")
             if corr is not None:
-                owner[corr] = (inner["name"], root["name"])
+                owner[corr] = (inner["name"], root["name"],
+                               {r["name"] for r in held})
             if e["name"] in SYNC_CALLS:
                 syncs[e["name"]] += 1
                 syncs_by_span[inner["name"]] += 1
-    by_root, by_span = Counter(), Counter()
+    by_root, by_span, span_s = Counter(), Counter(), Counter()
     n = 0
     for e in events:
         if e.get("cat") not in DEVICE_CATS:
             continue
         n += 1
-        inner, root = owner.get(e.get("args", {}).get("correlation"),
-                                (None, None))
+        inner, root, held = owner.get(
+            e.get("args", {}).get("correlation"), (None, None, ()))
         by_root[root] += 1
         by_span[inner] += 1
-    return Attribution(n, by_root, by_span, syncs, syncs_by_span)
+        for name in held:
+            span_s[root, name] += e["dur"] * 1e-6
+    return Attribution(n, by_root, by_span, syncs, syncs_by_span, span_s)
+
+
+def device_s(span_device_s, names, root=None) -> float:
+    """The device seconds inside the spans ``names`` (which do not nest
+    one another), under ``root`` (under any root without it)."""
+    names = set(names)
+    return sum(v for (r, name), v in span_device_s.items()
+               if name in names and (root is None or r == root))
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,22 @@ def _tuples(x):
     return x
 
 
+def _load(path: Path) -> ModuleType:
+    """The module in the file ``path`` (``<folder>/<name>.py``)."""
+    name = path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(
+        f"bench_{path.parent.name}_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def sibling(path: str, name: str) -> ModuleType:
+    """The module ``name`` beside the file ``path``: a reader that reads
+    what another does, for cells whose end-to-end metric differs."""
+    return _load(Path(path).with_name(f"{name}.py"))
+
+
 class Registry:
     """The benchmark rooted at ``root`` (the checkout, which holds
     ``BENCHMARK.json`` and the ``benchmark/`` folder)."""
@@ -70,13 +86,7 @@ class Registry:
         return self._module("checks", name)
 
     def _module(self, folder: str, name: str) -> ModuleType:
-        path = self.bench_dir / folder / f"{name}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"bench_{folder}_" + name.replace(".", "_").replace("-", "_"),
-            path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module
+        return _load(self.bench_dir / folder / f"{name}.py")
 
     def end_to_end(self, cell: str) -> list:
         """The end-to-end metrics ``cell`` reports."""
@@ -84,7 +94,10 @@ class Registry:
                 if cell in m.get("workloads", [cell])]
 
     def per_layer(self, cell: str) -> list:
-        """The per-layer metrics ``cell`` reports: those without a
-        ``workloads`` key, and those that list it."""
+        """The per-layer metrics ``cell`` reports: of those that move an
+        end-to-end metric it reports, those without a ``workloads`` key,
+        and those that list it."""
+        moved = {m["name"] for m in self.end_to_end(cell)}
         return [m for m in self.spec["per_layer"]
-                if cell in m.get("workloads", [cell])]
+                if m["moves"] in moved
+                and cell in m.get("workloads", [cell])]

@@ -2,6 +2,7 @@
 own that the harness finds by the name in BENCHMARK.json; a cell, a
 traffic mix and a metric dropped into a copy of the benchmark are found
 without an edit of any file that is there."""
+import contextlib
 import json
 import shutil
 import time
@@ -65,6 +66,39 @@ def test_configs_follow_their_source_but_for_their_cuts():
         assert _plain(merge(base, cfg["config"])) == run
 
 
+@contextlib.contextmanager
+def stand_in_device_ops():
+    """The profiler's traces on the CPU with a stand-in device operation
+    for each operator the host ran: a launch on the operator's thread at
+    its start, and a kernel of its duration that the launch's
+    correlation id names.  So a CPU run drives the readers of the device
+    trace through the program's spans (their values mean nothing)."""
+    from torch.profiler import profile
+    export = profile.export_chrome_trace
+
+    def stand_in(self, path):
+        export(self, path)
+        with open(path) as f:
+            doc = json.load(f)
+        ops = [e for e in doc["traceEvents"]
+               if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+        for i, e in enumerate(ops, start=1 << 30):
+            doc["traceEvents"] += [
+                dict(e, cat="cuda_runtime", name="cudaLaunchKernel",
+                     dur=0, args={"correlation": i}),
+                {"ph": "X", "cat": "kernel", "name": e["name"],
+                 "ts": e["ts"], "dur": max(e["dur"], 1), "pid": 0,
+                 "tid": 7, "args": {"correlation": i}}]
+        with open(path, "w") as f:
+            json.dump(doc, f)
+
+    profile.export_chrome_trace = stand_in
+    try:
+        yield
+    finally:
+        profile.export_chrome_trace = export
+
+
 def test_new_cell_traffic_config_check_and_metric_found_without_edits(
         tmp_path, tiny_minatar):
     root = tmp_path / "checkout"
@@ -106,6 +140,10 @@ def test_new_cell_traffic_config_check_and_metric_found_without_edits(
     spec["workloads"].append({"name": "minatar_marked.rr8",
                               "config": "minatar_marked", "traffic": "rr8",
                               "chips": 1, "why": "a throwaway cell"})
+    # The new cells report the env steps' rate, which lists its cells.
+    rate = next(m for m in spec["end_to_end"]
+                if m["name"] == "env_steps_per_s")
+    rate["workloads"] += ["minatar_r2d1.rr8", "minatar_marked.rr8"]
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
 
     from conftest import TinyRegistry
@@ -118,9 +156,13 @@ def test_new_cell_traffic_config_check_and_metric_found_without_edits(
         m["name"] for m in reg.per_layer("minatar_r2d1.lanes256")]
     over = merge(tiny_minatar, {"algo": {"replay_ratio": 8.0}})
     over["algo"].pop("replay_ratio")
-    res = harness.run_cell("minatar_r2d1.rr8", 5, 0.5, True,
-                           time.perf_counter(), "cpu", reg, over)
+    with stand_in_device_ops():
+        res = harness.run_cell("minatar_r2d1.rr8", 5, 0.5, True,
+                               time.perf_counter(), "cpu", reg, over)
     assert res["metrics"]["samplers.collect_count"]["value"] >= 1
+    # Every reader listed for the MinAtar cells finds something to read.
+    assert set(res["metrics"]) == {
+        m["name"] for m in reg.per_layer("minatar_r2d1.rr8")}
     assert res["correct"]
 
     prep = harness.Prepared(reg, "minatar_marked.rr8", 6, "cpu", over)
@@ -129,11 +171,48 @@ def test_new_cell_traffic_config_check_and_metric_found_without_edits(
     assert prep.config_file["check"] == "marked"
 
 
-@pytest.mark.parametrize("name", ["minatar_r2d1.lanes256",
-                                  "atari_r2d1.farm32"])
-def test_cell_reports_its_metrics(name):
-    assert [m["name"] for m in REG.end_to_end(name)] == [
-        "env_steps_per_s", "setup_s"]
-    per_layer = [m["name"] for m in REG.per_layer(name)]
-    assert ("envs.farm_step_ms" in per_layer) == name.startswith("atari")
-    assert len(per_layer) >= 7
+EVERY_CELL = ["samplers.collect_ms", "samplers.launches_per_step",
+              "samplers.collect_self_ms", "algos.update_ms",
+              "algos.launches_per_update", "replay.sample_ms",
+              "ops.lstm_step_roofline", "ops.lstm_train_roofline",
+              "device.idle_pct", "device.syncs_per_iteration",
+              "device.mfu_pct"]
+FARM = ["samplers.action_wait_ms", "envs.farm_step_ms",
+        "envs.farm_worker_ms", "envs.farm_barrier_ms",
+        "models.trunk_roofline"]
+# The cell whose end-to-end metric is the learner's time: the learner's
+# metrics, and the iteration's rate as a per-layer metric.
+LEARNER = ["runner.env_steps_per_s", "algos.update_ms.learner",
+           "algos.launches_per_update.learner", "replay.sample_ms.learner",
+           "models.trunk_roofline.learner", "ops.lstm_train_roofline.learner",
+           "device.mfu_pct.learner"]
+
+
+@pytest.mark.parametrize("name,end_to_end,per_layer", [
+    ("minatar_r2d1.lanes256", ["env_steps_per_s", "setup_s"], EVERY_CELL),
+    ("atari_r2d1.farm32", ["learner_update_ms", "setup_s"], LEARNER),
+    ("atari_r2d1_resnet.farm32", ["env_steps_per_s", "setup_s"],
+     EVERY_CELL + FARM)])
+def test_cell_reports_its_metrics(name, end_to_end, per_layer):
+    assert [m["name"] for m in REG.end_to_end(name)] == end_to_end
+    reported = [m["name"] for m in REG.per_layer(name)]
+    assert sorted(reported) == sorted(per_layer)
+    # The cells on the host farm that report the farm's metrics, as the
+    # farm step's metric lists them.
+    farm_cells = next(m for m in REG.spec["per_layer"]
+                      if m["name"] == "envs.farm_step_ms")["workloads"]
+    assert ("envs.farm_step_ms" in reported) == (name in farm_cells)
+
+
+def test_listed_cells_report_what_their_metrics_move():
+    """A per-layer metric's cells, listed or not, each report the
+    end-to-end metric it moves; every cell reports setup_s, another
+    end-to-end metric and a per-layer metric."""
+    cells = [w["name"] for w in REG.spec["workloads"]]
+    for m in REG.spec["per_layer"]:
+        for cell in m.get("workloads", []):
+            assert m["moves"] in [e["name"] for e in REG.end_to_end(cell)]
+    for cell in cells:
+        e2e = [e["name"] for e in REG.end_to_end(cell)]
+        assert "setup_s" in e2e and len(e2e) >= 2
+        assert REG.per_layer(cell)

@@ -39,10 +39,28 @@ def test_result_line(tiny_minatar):
                                overrides=tiny_minatar)
         out = run.result_line(res, "a card", 1, trace, "700 W")
         _check_line(out, trace)
+        # On the CPU the readers of the device trace find nothing.
         expect = ({"samplers.collect_ms", "algos.update_ms",
-                   "replay.sample_ms"} if trace
+                   "replay.sample_ms", "samplers.collect_self_ms"} if trace
                   else {"env_steps_per_s", "setup_s"})
         assert set(out["metrics"]) == expect
+
+
+def test_learner_cell_result_line(tiny_registry, tiny_atari):
+    """The cell whose end-to-end metric is the learner's time reports it
+    beside setup_s, and its per-layer metrics move it."""
+    for trace in (False, True):
+        res = harness.run_cell("atari_r2d1.farm32", 8, 0.5, trace,
+                               time.perf_counter(), "cpu", tiny_registry,
+                               tiny_atari)
+        out = run.result_line(res, "a card", 1, trace, "700 W")
+        _check_line(out, trace)
+        expect = ({"runner.env_steps_per_s", "algos.update_ms.learner",
+                   "replay.sample_ms.learner"} if trace
+                  else {"learner_update_ms", "setup_s"})
+        assert set(out["metrics"]) == expect
+        assert all(m["value"] > 0 for m in out["metrics"].values())
+        assert out["correct"]
 
 
 def test_no_card_no_result():

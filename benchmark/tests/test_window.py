@@ -17,14 +17,19 @@ class FakeTrainer:
 
     device = torch.device("cpu")
     steps_per_iteration = 100
+    optimize_s = 0.0
 
     def __init__(self, durations, bad_at=()):
         self.durations = list(durations)
         self.bad_at = set(bad_at)
         self.calls = 0
 
-    def iteration(self):
+    def iteration(self, learner=None):
         time.sleep(self.durations[self.calls % len(self.durations)])
+        if learner is not None:
+            learner.start()
+            time.sleep(self.optimize_s)
+            learner.stop()
         loss = float("nan") if self.calls in self.bad_at else 1.0
         self.calls += 1
         return tuple(torch.tensor(v) for v in (loss, 2.0, 3.0))
@@ -47,3 +52,16 @@ def test_attempted_and_failed():
     w = harness.Window(t)
     n, _ = w.run(0.0, at_least=6)
     assert (n, w.attempted, int(w.bad)) == (6, 6, 2)
+
+
+def test_learner_time_is_each_optimize():
+    """The learner's seconds are those of the window's optimizes alone,
+    not of the collections between them, nor of earlier stretches."""
+    t = FakeTrainer([0.03])
+    t.optimize_s = 0.01
+    w = harness.Window(t)
+    w.run(0.0, at_least=2)
+    n, wall = w.run(0.0, at_least=5)
+    assert n == 5 and len(w.learner.marks) == 14
+    assert w.learner_s == pytest.approx(n * 0.01, rel=0.5)
+    assert w.learner_s < 0.5 * wall

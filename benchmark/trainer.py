@@ -119,8 +119,9 @@ class Trainer:
             return self.runner._cum_steps
         return self.runner.rollout_state.cum_steps
 
-    def iteration(self):
-        """Collect one [T, B] batch, then optimize; the optimize's mean
+    def iteration(self, learner=None):
+        """Collect one [T, B] batch, then optimize, between ``learner``'s
+        ``start`` and ``stop`` where it is given; the optimize's mean
         OptInfo."""
         r = self.runner
         if self.host:
@@ -129,7 +130,12 @@ class Trainer:
             r.rollout_state, samples = r.collector.collect(r.rollout_state,
                                                            r.env_generator)
             state = r.rollout_state
-        return self.algo.optimize(samples, state)
+        if learner is None:
+            return self.algo.optimize(samples, state)
+        learner.start()
+        info = self.algo.optimize(samples, state)
+        learner.stop()
+        return info
 
     def close(self):
         """Stop the farm's workers (host path)."""

@@ -207,6 +207,26 @@ def update_lstm_calls(g: Geometry, it: Iteration) -> list:
     return calls
 
 
+def map_layer(size: int, reads: int) -> Work:
+    """An elementwise layer over ``size`` values reading ``reads`` of
+    them and writing one."""
+    return Work(elementwise=size, bytes=F32 * (reads + 1) * size)
+
+
+def trunk_calls(forward, backward, g, it: Iteration) -> list:
+    """The layers of each trunk call of one iteration, from the trunk's
+    ``forward(g, frames)`` and ``backward(g, frames)`` layer lists: a
+    forward a collection step; in each update the online and the target
+    network's forwards over the window and the burn-in, and the online
+    window's backward."""
+    window = (it.batch_T + it.n_step) * it.batch_b
+    burn_in = it.warmup_T * it.batch_b
+    update = [forward(g, window)] * 2 + [backward(g, window)]
+    if burn_in:
+        update += [forward(g, burn_in)] * 2
+    return [forward(g, it.B)] * it.T + update * it.updates
+
+
 def calls_bound_s(calls) -> float:
     """The least time of calls that run one after another."""
     return sum(bound_s(w) for w in calls)

@@ -20,7 +20,7 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import work
-from work import F32, Work
+from work import F32, Work, map_layer
 
 
 def pooled(n: int) -> int:
@@ -104,12 +104,6 @@ def _conv_bwd(n, c_in, c_out, k, h, w, input_grad) -> Work:
                              + written))
 
 
-def _map(size, reads) -> Work:
-    """An elementwise layer over ``size`` values reading ``reads`` of
-    them and writing one."""
-    return Work(elementwise=size, bytes=F32 * (reads + 1) * size)
-
-
 def trunk_forward(g: Geometry, n: int) -> List[Tuple[str, Work]]:
     """The forward's layers over ``n`` frames: the uint8 frames scaled,
     then each section's conv and pool and its blocks' ReLU, conv, ReLU,
@@ -125,14 +119,14 @@ def trunk_forward(g: Geometry, n: int) -> List[Tuple[str, Work]]:
         size = n * c * hp * wp
         for j in range(g.blocks):
             for k in range(2):
-                layers.append((f"s{i}.b{j}.relu{k}", _map(size, 1)))
+                layers.append((f"s{i}.b{j}.relu{k}", map_layer(size, 1)))
                 layers.append((f"s{i}.b{j}.conv{k}",
                                _conv(n, c, c, 3, hp, wp)))
-            layers.append((f"s{i}.b{j}.add", _map(size, 2)))
+            layers.append((f"s{i}.b{j}.add", map_layer(size, 2)))
     flat, f = g.flat_size, g.feature_size
-    layers.append(("relu", _map(n * flat, 1)))
+    layers.append(("relu", map_layer(n * flat, 1)))
     layers.append(("fc", _conv(n, flat, f, 1, 1, 1)))
-    layers.append(("fc.relu", _map(n * f, 1)))
+    layers.append(("fc.relu", map_layer(n * f, 1)))
     return layers
 
 
@@ -143,9 +137,9 @@ def trunk_backward(g: Geometry, n: int) -> List[Tuple[str, Work]]:
     from dy and its input, and at each block's input the skip's gradient
     added to the branch's; no recomputation."""
     flat, f = g.flat_size, g.feature_size
-    layers = [("fc.relu", _map(n * f, 2)),
+    layers = [("fc.relu", map_layer(n * f, 2)),
               ("fc", _conv_bwd(n, flat, f, 1, 1, 1, True)),
-              ("relu", _map(n * flat, 2))]
+              ("relu", map_layer(n * flat, 2))]
     for i, (c_in, c, h, w, hp, wp) in reversed(list(enumerate(
             g.sections()))):
         size = n * c * hp * wp
@@ -153,8 +147,8 @@ def trunk_backward(g: Geometry, n: int) -> List[Tuple[str, Work]]:
             for k in (1, 0):
                 layers.append((f"s{i}.b{j}.conv{k}",
                                _conv_bwd(n, c, c, 3, hp, wp, True)))
-                layers.append((f"s{i}.b{j}.relu{k}", _map(size, 2)))
-            layers.append((f"s{i}.b{j}.add", _map(size, 2)))
+                layers.append((f"s{i}.b{j}.relu{k}", map_layer(size, 2)))
+            layers.append((f"s{i}.b{j}.add", map_layer(size, 2)))
         layers.append((f"s{i}.pool", Work(
             elementwise=n * c * h * w,
             bytes=F32 * n * c * (hp * wp + 2 * h * w))))
@@ -168,13 +162,6 @@ def layers_bound_s(layers) -> float:
 
 
 def trunk_calls(g: Geometry, it: work.Iteration) -> list:
-    """The layers of each trunk call of one iteration: a forward a
-    collection step; in each update the online and the target network's
-    forwards over the window and the burn-in, and the online window's
-    backward."""
-    window = (it.batch_T + it.n_step) * it.batch_b
-    burn_in = it.warmup_T * it.batch_b
-    update = [trunk_forward(g, window)] * 2 + [trunk_backward(g, window)]
-    if burn_in:
-        update += [trunk_forward(g, burn_in)] * 2
-    return [trunk_forward(g, it.B)] * it.T + update * it.updates
+    """The layers of each trunk call of one iteration
+    (``work.trunk_calls``)."""
+    return work.trunk_calls(trunk_forward, trunk_backward, g, it)
